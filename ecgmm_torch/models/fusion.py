@@ -1,0 +1,168 @@
+"""Trimodal attention-fusion model (port of `ecgmm_tpu/models/fusion.py`,
+canonical variant: ResNet18 image branch, ResNet1D-SE signal branch,
+TabNet clinical branch).
+
+Parameter names follow the reference torch layout that
+`ecgmm_tpu.tools.export_pth.export_fusion_canonical` emits, so
+`ecgmm_torch.tools.weights.from_jax_variables` loads strictly. The
+AttentionFusion head goes through `ecgmm_torch.ops.fusion`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ecgmm_torch.config import ModelConfig
+from ecgmm_torch.models.clinical import TabNetEncoder
+from ecgmm_torch.models.resnet18 import ResNet18
+from ecgmm_torch.models.resnet1d_se import ResNet1DSE
+from ecgmm_torch.ops.fusion import fused_attention_fusion
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class FusionOutput(NamedTuple):
+    image_logits: torch.Tensor
+    signal_logits: torch.Tensor
+    clinical_logits: torch.Tensor
+    fusion_logits: torch.Tensor
+    var_loss: torch.Tensor       # scalar variance-balance regulariser
+    soft_weights: torch.Tensor   # (3,) softmax attention weights
+    m_loss: torch.Tensor         # TabNet sparsity loss
+
+
+class AttentionFusion(nn.Module):
+    """Three learnable scalars -> softmax -> scale each modality chunk ->
+    concat -> LayerNorm (reference multimodal.py:12-27), as one fused op.
+    `norm` only holds the LayerNorm's affine parameters under their
+    reference names; the op applies them."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.ones(3))
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, img, sig, clin):
+        return fused_attention_fusion(
+            img.float(), sig.float(), clin.float(), self.weights,
+            self.norm.weight, self.norm.bias, 1e-5,  # torch LayerNorm eps
+        )
+
+
+def _chunk_variance_loss(img, sig, clin, mask=None):
+    """|var_i - var_s| + |var_i - var_c| + |var_s - var_c| over per-sample
+    feature variances (ddof=1, as torch.var); mask (B,) drops padded rows
+    from the batch mean (`ecgmm_tpu.models.fusion._chunk_variance_loss`)."""
+
+    def v(x):
+        rows = x.float().var(dim=1, unbiased=True)
+        if mask is None:
+            return rows.mean()
+        m = mask.float()
+        return (rows * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+    vi, vs, vc = v(img), v(sig), v(clin)
+    return (vi - vs).abs() + (vi - vc).abs() + (vs - vc).abs()
+
+
+class ECGMultimodalModel(nn.Module):
+    """Canonical trimodal model. Inputs: image (B, 3, H, W) uint8 raw or
+    float normalised, signal (B, T) or (B, 1, T), clinical (B, F). The
+    encoders run in `cfg.dtype` under autocast; everything after them runs
+    in float32 (the JAX model runs `fusion_hidden` in the compute dtype
+    too; the two agree exactly only in float32). Only eval mode is ported
+    (see models/clinical.py)."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"unsupported compute dtype {cfg.dtype!r}")
+        self.image_encoder = ResNet18(num_classes=cfg.image_dim)
+        self.signal_encoder = ResNet1DSE(
+            num_classes=cfg.signal_dim,
+            input_channels=cfg.signal_input_channels,
+            base_filters=cfg.signal_base_filters,
+        )
+        self.clinical_encoder = TabNetEncoder(
+            cfg.clinical_in_features, out_dim=cfg.clinical_dim
+        )
+        # torch nn.LayerNorm eps (1e-5)
+        self.image_norm = nn.LayerNorm(cfg.image_dim, eps=1e-5)
+        self.signal_norm = nn.LayerNorm(cfg.signal_dim, eps=1e-5)
+        self.clinical_norm = nn.LayerNorm(cfg.clinical_dim, eps=1e-5)
+        self.image_classifier = nn.Linear(cfg.image_dim, cfg.num_classes)
+        self.signal_classifier = nn.Linear(cfg.signal_dim, cfg.num_classes)
+        self.clinical_classifier = nn.Linear(cfg.clinical_dim,
+                                             cfg.num_classes)
+        width = cfg.image_dim + cfg.signal_dim + cfg.clinical_dim
+        self.attention_fusion = AttentionFusion(width)
+        self.fusion_classifier = nn.Sequential(
+            nn.Linear(width, cfg.fusion_hidden), nn.ReLU(),
+            nn.Dropout(cfg.dropout), nn.Linear(cfg.fusion_hidden,
+                                               cfg.num_classes),
+        )
+
+    def _autocast(self, device: torch.device):
+        dt = _DTYPES[self.cfg.dtype]
+        if dt == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=dt)
+
+    def encode_image(self, image):
+        """(raw fc output (B, image_dim) f32, layer-4 map (B, 512, h, w))."""
+        with self._autocast(image.device):
+            emb, feats = self.image_encoder(image, return_features=True)
+        return emb.float(), feats.float()
+
+    def encode_signal(self, signal):
+        if signal.dim() == 2:
+            signal = signal[:, None, :]  # (B, T) -> (B, 1, T)
+        with self._autocast(signal.device):
+            return self.signal_encoder(signal).float()
+
+    def encode_clinical(self, clinical):
+        """(LayerNorm'd clinical embedding, TabNet m_loss)."""
+        with self._autocast(clinical.device):
+            clin, m_loss = self.clinical_encoder(clinical)
+        return self.clinical_norm(clin.float()), m_loss.float()
+
+    def encode(self, image, signal, clinical, return_image_map=False):
+        """Per-modality LayerNorm'd embeddings and m_loss (the XAI surface);
+        with return_image_map also the image branch's layer-4 map, for
+        Grad-CAM."""
+        img_raw, img_map = self.encode_image(image)
+        img_feat = self.image_norm(img_raw)
+        sig_feat = self.signal_norm(self.encode_signal(signal))
+        clin_feat, m_loss = self.encode_clinical(clinical)
+        if return_image_map:
+            return img_feat, sig_feat, clin_feat, m_loss, img_map
+        return img_feat, sig_feat, clin_feat, m_loss
+
+    def fuse_embeddings(self, img_feat, sig_feat, clin_feat):
+        """Fusion logits from per-modality embeddings (the surface SHAP and
+        clinical IG differentiate through)."""
+        fused, _ = self.attention_fusion(img_feat, sig_feat, clin_feat)
+        return self.fusion_classifier(fused).float()
+
+    def forward(self, image, signal, clinical, mask=None) -> FusionOutput:
+        img_feat, sig_feat, clin_feat, m_loss = self.encode(
+            image, signal, clinical
+        )
+        fused, soft_weights = self.attention_fusion(
+            img_feat, sig_feat, clin_feat
+        )
+        return FusionOutput(
+            image_logits=self.image_classifier(img_feat),
+            signal_logits=self.signal_classifier(sig_feat),
+            clinical_logits=self.clinical_classifier(clin_feat),
+            fusion_logits=self.fusion_classifier(fused).float(),
+            var_loss=_chunk_variance_loss(img_feat, sig_feat, clin_feat,
+                                          mask=mask),
+            soft_weights=soft_weights,
+            m_loss=m_loss,
+        )
