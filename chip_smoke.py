@@ -14,7 +14,15 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      weights) answers 8 requests with the full ResultScreen contract, the
      kernels' launch counters prove the requests ran through them, and 2
      requests match the same pipeline on the CPU;
-  5. numbers: request latency and one `kernels` JSON line.
+  5. numbers: request latency;
+  6. the training slice: 3 full-width `ptbxl_af` train steps from one
+     initial state on the card and on the CPU agree (loss, gradients,
+     parameters, BatchNorm buffers); `run()` trains `ptbxl_af` (2 epochs,
+     256 synthetic records) and `physionet_multi` (1 epoch, 96 records) on
+     the card through the kernels, checkpoints restore, the best/last test
+     reports have their keys, and the launch counters equal the batch plan;
+  7. numbers: train-step time (CUDA events), samples/s, epoch time, the
+     device's busy share (torch.profiler), and one `kernels` JSON line.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -22,11 +30,14 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,11 +46,18 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ecgmm_torch.config import ModelConfig  # noqa: E402
+from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
+from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
 from ecgmm_torch.models import ECGMultimodalModel  # noqa: E402
+from ecgmm_torch.models import resnet1d_se  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
+from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
+from ecgmm_torch.train import engine  # noqa: E402
+from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from ecgmm_torch.train.state import create_state  # noqa: E402
+from ecgmm_torch.workloads import run as train_run  # noqa: E402
 
 # (HBM bytes/s, non-tensor-core f32 FLOP/s) by card name (NVIDIA data
 # sheets; dense rates at the full power limit)
@@ -52,6 +70,14 @@ PEAKS = {
 SE_SHAPES = [(619, 64), (310, 128), (155, 256)]  # (T, C) at signal 2476
 SE_EDGE_SHAPES = [(37, 16)]  # odd T, reduction width R = 1
 FUSION_DIMS = [(512, 128, 32), (256, 256, 256)]  # canonical, modal balance
+TRAIN_B = 16  # ptbxl_af batch
+# (B, C): ptbxl_af, physionet_multi, the widest class count, a large batch
+FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2)]
+FOCAL_MASKS = ("ones", "some_zero", "all_zero")
+PTBXL_REPORT_KEYS = {"threshold", "accuracy", "f1", "auroc", "temperature",
+                     "test_ece", "test_ece_calibrated"}
+MULTI_REPORT_KEYS = {"accuracy", "f1_macro", "auroc_ovr", "temperature",
+                     "test_ece", "test_ece_calibrated"}
 RESPONSE_KEYS = ("label", "probability", "ecg_signal", "heatmap",
                  "feature_importance", "gpt_result", "digitization")
 
@@ -72,16 +98,27 @@ def peaks_for(name: str):
     raise RuntimeError(f"no peak rates on record for {name!r}")
 
 
-def device_us(fn, n: int = 100) -> float:
+def device_us(fn, n: int = 20) -> float:
     """Median device time of one call of fn, in µs: the launches are
     queued behind a sleeping kernel so that the host's launch overhead
-    does not land between the timing events."""
+    does not land between the timing events. The sleep lasts at least
+    three times as long as an untimed round of the n calls took, and n is
+    small enough that n calls of a plain version (up to ~40 launches
+    each) fit in the card's launch queue; a longer queue blocks the host
+    until the sleep ends, and the rest would be timed at the host's
+    pace."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    torch.cuda._sleep(100_000_000)
+    # cycles at up to 2 GHz
+    torch.cuda._sleep(int(max(1e8, 3 * round_s * 2e9)))
     for i in range(n):
         starts[i].record()
         fn()
@@ -192,6 +229,148 @@ def check_fusion(gen, peaks):
                                              eps)),
                 })
             print(f"fused_attention_fusion {rows[-1]}", flush=True)
+    return rows
+
+
+def _focal_mask(kind: str, b: int, gen) -> torch.Tensor:
+    if kind == "ones":
+        return torch.ones(b)
+    if kind == "all_zero":
+        return torch.zeros(b)
+    mask = (torch.rand(b, generator=gen) < 0.7).float()
+    mask[-1] = 0.0
+    return mask
+
+
+def check_focal(gen, peaks):
+    """fused_focal_loss vs reference_focal on the card, with masks of
+    ones, with zeros and all zero, and int64 or int32 labels: the value
+    within rtol 1e-5, dlogits and dmask within atol 1e-5 (the bars of
+    tests/test_pallas_ops.py), and three more launches bit-identical to
+    the first (the in-kernel reduction is in a fixed order)."""
+    bw, flops = peaks
+    rows = []
+    for b, c in FOCAL_SHAPES:
+        for kind in FOCAL_MASKS:
+            ldtype = torch.int32 if kind == "some_zero" else torch.int64
+            logits = (torch.randn(b, c, generator=gen) * 2).cuda()
+            labels = torch.randint(0, c, (b,), generator=gen).to("cuda",
+                                                                 ldtype)
+            mask = _focal_mask(kind, b, gen).cuda()
+
+            def fwd_bwd(fn, lg, mk):
+                out = fn(lg, labels, mk)
+                return out, torch.autograd.grad(out, (lg, mk))
+
+            leaves = [logits.clone().requires_grad_(True),
+                      mask.clone().requires_grad_(True)]
+            out, g_kernel = fwd_bwd(focal.fused_focal_loss, *leaves)
+            ref_leaves = [logits.clone().requires_grad_(True),
+                          mask.clone().requires_grad_(True)]
+            ref, g_ref = fwd_bwd(focal.reference_focal, *ref_leaves)
+            repeats = [focal.fused_focal_loss(logits, labels, mask)
+                       for _ in range(3)]
+            torch.cuda.synchronize()
+            err = abs(out.item() - ref.item())
+            if err > 1e-5 * abs(ref.item()):
+                raise AssertionError(
+                    f"fused_focal_loss B={b} C={c} {kind}: value "
+                    f"{out.item()} vs {ref.item()}")
+            grad_err = max((a - r).abs().max().item()
+                           for a, r in zip(g_kernel, g_ref))
+            if grad_err > 1e-5:
+                raise AssertionError(
+                    f"fused_focal_loss B={b} C={c} {kind}: grad err "
+                    f"{grad_err}")
+            if not all(torch.equal(r, out.detach()) for r in repeats):
+                raise AssertionError(
+                    f"fused_focal_loss B={b} C={c} {kind}: repeated "
+                    "launches differ")
+            row = {"B": b, "C": c, "mask": kind, "labels": str(ldtype)[6:],
+                   "max_abs_err": err, "grad_err": grad_err}
+            if kind == "some_zero":
+                # each input read once, the 0-d result written once; per
+                # row 4C + 10 f32 operations (max, shift, exp, sum, log,
+                # ce, pt, pow, products and the two sums)
+                nbytes = (4 * b * c + labels.element_size() * b + 4 * b
+                          + 4)
+                nops = b * (4 * c + 10) + 2
+                row.update(
+                    us=device_us(lambda: focal.fused_focal_loss(
+                        logits, labels, mask)),
+                    plain_us=device_us(lambda: focal.reference_focal(
+                        logits, labels, mask)),
+                    fwd_bwd_us=device_us(lambda: fwd_bwd(
+                        focal.fused_focal_loss, *leaves)),
+                    plain_fwd_bwd_us=device_us(lambda: fwd_bwd(
+                        focal.reference_focal, *ref_leaves)),
+                    bound_us=max(nbytes / bw, nops / flops) * 1e6,
+                    bound_by=("bytes" if nbytes / bw >= nops / flops
+                              else "operations"),
+                    library_us=None,
+                )
+            rows.append(row)
+            print(f"fused_focal_loss {row}", flush=True)
+    return rows
+
+
+def check_se_train(gen, peaks):
+    """fused_se under autograd at the three ptbxl_af training shapes
+    (B=16, f32): the output and the gradients of sum(out**2) w.r.t. x, w1,
+    b1, w2 and b2 against plain autograd. Both backwards run the same
+    plain code on the same saved inputs; they differ only through the
+    cotangent 2*out, whose kernel half differs from the plain one by the
+    forward's rounding (<= 1e-6), so each gradient is held to 1e-5 of its
+    largest component (plus 1e-6)."""
+    bw, flops = peaks
+    rows = []
+    for t, c in SE_SHAPES:
+        r = max(1, c // 16)
+        x = torch.randn(TRAIN_B, c, t, generator=gen).cuda()
+        ws = [(torch.randn(*s, generator=gen) * 0.1).cuda()
+              for s in ((r, c), (r,), (c, r), (c,))]
+        ins = [x] + ws
+
+        def fwd_bwd(fn, leaves):
+            out = fn(*leaves)
+            return out, torch.autograd.grad((out ** 2).sum(), leaves)
+
+        leaves = [a.clone().requires_grad_(True) for a in ins]
+        out, g_kernel = fwd_bwd(se.fused_se, leaves)
+        ref_leaves = [a.clone().requires_grad_(True) for a in ins]
+        ref, g_ref = fwd_bwd(se.reference_se, ref_leaves)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if err > 1e-5:
+            raise AssertionError(f"fused_se train T={t} C={c}: err {err}")
+        grad_rel = {}
+        for name, a, g in zip(("x", "w1", "b1", "w2", "b2"), g_kernel,
+                              g_ref):
+            scale = g.abs().max().item()
+            gerr = (a - g).abs().max().item()
+            grad_rel[name] = gerr / max(scale, 1e-30)
+            if gerr > 1e-5 * scale + 1e-6:
+                raise AssertionError(
+                    f"fused_se train T={t} C={c}: grad {name} err {gerr} "
+                    f"(largest component {scale})")
+        nbytes = 4 * (2 * x.numel() + sum(w.numel() for w in ws))
+        nflop = 2 * x.numel() + 4 * TRAIN_B * c * r
+        row = {
+            "B": TRAIN_B, "T": t, "C": c, "dtype": "float32",
+            "max_abs_err": err, "grad_err_rel": grad_rel,
+            "us": device_us(lambda: se.fused_se(*ins)),
+            "plain_us": device_us(lambda: se.reference_se(*ins)),
+            "fwd_bwd_us": device_us(lambda: fwd_bwd(se.fused_se, leaves)),
+            "plain_fwd_bwd_us": device_us(
+                lambda: fwd_bwd(se.reference_se, ref_leaves)),
+            "bound_us": max(nbytes / bw, nflop / flops) * 1e6,
+            # backward: read x and the cotangent, write dx (the weight
+            # gradients are a few kilobytes)
+            "fwd_bwd_bound_us": (nbytes + 4 * 3 * x.numel()) / bw * 1e6,
+            "library_us": None,
+        }
+        rows.append(row)
+        print(f"fused_se train {row}", flush=True)
     return rows
 
 
@@ -325,22 +504,316 @@ def device_busy(pipe, reqs, unprofiled_ms):
               f"{e.count // n:5d}x/req  {e.key[:90]}", flush=True)
 
 
-def summarize(name, source, replaces, launches, rows, serving):
+def _ptbxl_cfg(**model):
+    cfg = get_preset("ptbxl_af")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **model))
+
+
+def _on(arrays, device):
+    return arrays._replace(signals=arrays.signals.to(device),
+                           labels=arrays.labels.to(device))
+
+
+def _grads64(model, batch, device):
+    """The first step's gradients in float64 through the plain versions
+    (the kernels take float32 and bfloat16): the ground truth against
+    which both devices' float32 gradients are read."""
+    m = copy.deepcopy(model).to(device, torch.float64).train()
+    kernel_se = resnet1d_se.fused_se
+    resnet1d_se.fused_se = se.reference_se
+    try:
+        # the model returns float32 logits, as the JAX module does
+        out = m(batch.signals.to(device, torch.float64).unsqueeze(1))
+    finally:
+        resnet1d_se.fused_se = kernel_se
+    out = out.double()
+    # the preset's focal loss (alpha 1, gamma 2) in float64
+    ce = (torch.logsumexp(out, -1)
+          - out.gather(-1, batch.labels.to(device)[:, None])[:, 0])
+    mk = batch.mask.to(device, torch.float64)
+    loss = ((1 - torch.exp(-ce)) ** 2 * ce * mk).sum() / mk.sum().clamp_min(1)
+    loss.backward()
+    return {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+
+def _rel(a, b):
+    """max |a - b| over the largest component of b."""
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max().clamp_min(1e-30)).item()
+
+
+def compare_train_steps(n_steps: int = 3):
+    """Phase 6a: n_steps train steps of the full-width ptbxl_af model
+    (signal 2476, base filters 64, B=16, focal loss, Adam on the one-cycle
+    schedule) from one initial state, on the card and on the CPU, over the
+    same weighted-sampling batch plan; the third batch holds 10 pad rows.
+    Dropout is 0: the card's and the CPU's generators draw different
+    masks. TF32 is off (cuDNN's default runs float32 convolutions in TF32,
+    about three decimal digits; the CPU computes in float32). The first
+    step's gradients are also taken in float64 on both devices.
+
+    Bars, and why:
+      * float64 gradients, card vs CPU: 1e-10 of each tensor's largest
+        component (the same algorithm; only the summation order differs);
+      * loss at every step: rtol 1e-4;
+      * float32 gradients of the first step, card vs CPU: 2e-3 of each
+        tensor's largest component. The card's float32 backward sits up to
+        ~1e-3 of that component off float64, the CPU's ~1e-5 (the line
+        printed below reads both off float64 in every run), while phase 3
+        holds the SE kernel's own gradients to 1e-5 of it;
+      * the convolution biases are left out of that: every convolution
+        feeds a BatchNorm, which removes the bias, so their gradient is
+        zero in exact arithmetic and float32 noise of either sign; Adam
+        moves each such bias by up to the learning rate in the noise's
+        direction at every step, so they are held to 2 * sum(lr);
+      * other parameters after the steps: a tenth of sum(lr), the largest
+        move Adam can make in these steps (the card's gradient error can
+        turn the step of an element whose gradient is near zero);
+      * BatchNorm running mean: 1e-5 plus 2 * sum(lr) (a drifting bias
+        shifts the batch mean of the BatchNorm after it); running
+        variance: 1e-5 relative (a shift leaves it unchanged)."""
+    cfg = _ptbxl_cfg(dropout=0.0)
+    t = cfg.train
+    data = train_run.load_data(cfg, 64, device="cpu")
+    weights = train_run.ptbxl_sample_weights(data.train.labels.numpy(),
+                                             cfg.model.num_classes)
+    idx, mask = engine.epoch_indices(data.train.n, t.batch_size,
+                                     shuffle=True, seed=t.seed, epoch=0,
+                                     sample_weights=weights)
+    if idx.shape[0] < n_steps or mask[n_steps - 1].min() != 0.0:
+        raise AssertionError(f"batch plan {idx.shape} lacks a padded batch "
+                             f"within {n_steps} steps")
+    cpu_model, task = train_run.build_model_and_task(cfg, "cpu")
+    first = engine.gather_batch(data.train,
+                                torch.from_numpy(idx[0].astype(np.int64)),
+                                torch.from_numpy(mask[0]))
+    grads64 = {dev: _grads64(cpu_model, first, dev)
+               for dev in ("cuda", "cpu")}
+    models = {"cuda": copy.deepcopy(cpu_model).cuda(), "cpu": cpu_model}
+    conv_biases = {f"{n}.bias" for n, m in cpu_model.named_modules()
+                   if isinstance(m, torch.nn.Conv1d)}
+    losses, grads, states = {}, {}, {}
+    for dev, model in models.items():
+        st = create_state(model, t, idx.shape[0])
+        arrays = _on(data.train, dev)
+        idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        losses[dev] = []
+        for i in range(n_steps):
+            mets = engine.train_step(
+                task, st, engine.gather_batch(arrays, idx_d[i], mask_d[i]))
+            losses[dev].append(float(mets["loss"]))
+            if i == 0:
+                grads[dev] = {k: p.grad.detach().cpu()
+                              for k, p in model.named_parameters()}
+        states[dev] = {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()}
+        sum_lr = sum(st.optimizer.schedule(k) for k in range(n_steps))
+    print(f"train steps gpu vs cpu: losses {losses['cuda']} vs "
+          f"{losses['cpu']}", flush=True)
+
+    worst, failed = {}, []
+
+    def note(kind, err, name, bar):
+        worst[kind] = max(worst.get(kind, (0.0, "")), (err, name))
+        if bar is not None and err > bar:
+            failed.append(f"{kind} {name}: {err:.3g} > {bar:.3g}")
+
+    for i, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+        note("loss_rel", abs(a - b) / abs(b), f"step {i + 1}", 1e-4)
+    for name, g64 in grads64["cpu"].items():
+        if name in conv_biases:
+            continue
+        note("grad64_rel", _rel(grads64["cuda"][name], g64), name, 1e-10)
+        note("grad_rel", _rel(grads["cuda"][name], grads["cpu"][name]),
+             name, 2e-3)
+        note("gpu32_vs_f64_rel", _rel(grads["cuda"][name], g64), name, None)
+        note("cpu32_vs_f64_rel", _rel(grads["cpu"][name], g64), name, None)
+    params = dict(cpu_model.named_parameters())
+    for name, want in states["cpu"].items():
+        got = states["cuda"][name]
+        if name.endswith("num_batches_tracked"):
+            if not torch.equal(got, want):
+                failed.append(f"{name}: {got} vs {want}")
+            continue
+        err = (got - want).abs().max().item()
+        if name in conv_biases:
+            note("conv_bias", err, name, 2 * sum_lr)
+        elif name in params:
+            note("param", err, name, 0.1 * sum_lr)
+        elif name.endswith("running_mean"):
+            note("bn_mean", err, name, 1e-5 + 2 * sum_lr)
+        elif name.endswith("running_var"):
+            note("bn_var_rel", err / want.abs().max().item(), name, 1e-5)
+        else:
+            failed.append(f"unexpected state entry {name}")
+    print(f"train steps gpu vs cpu, worst (err, tensor): {worst}; "
+          f"sum(lr) = {sum_lr:.3g}", flush=True)
+    if failed:
+        raise AssertionError(f"gpu vs cpu after {n_steps} steps: {failed}")
+    return {"losses": losses, "worst": worst}
+
+
+def run_training(tmp: str, name: str, n_synth: int, epochs: int):
+    """Phase 6b: `run()` on the card, as `python -m
+    ecgmm_torch.workloads.run --preset <name>` runs it, with the launch
+    counters set to 0 just before and read just after."""
+    cfg = get_preset(name)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=epochs,
+        checkpoint_dir=os.path.join(tmp, "checkpoints"),
+        log_dir=os.path.join(tmp, "runs"),
+        output_dir=os.path.join(tmp, "output")))
+    t = cfg.train
+    data = train_run.load_data(cfg, n_synth, device="cuda")
+    nb = {s: pipeline.num_batches(getattr(data, s).n, t.batch_size)
+          for s in ("train", "val", "test")}
+    # one loss per train step and per eval batch: every epoch trains and
+    # evaluates val; the test protocol evaluates test and val for best
+    # and for last. Three SE blocks per forward.
+    n_loss = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
+    want = {"fused_focal_loss": n_loss, "fused_se": 3 * n_loss,
+            "fused_attention_fusion": 0}
+    run_dir = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    focal.launches = se.launches = fusion.launches = 0
+    result, reports = train_run.run(cfg, data, run_dir=run_dir,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    launches = {"fused_focal_loss": focal.launches, "fused_se": se.launches,
+                "fused_attention_fusion": fusion.launches}
+    print(f"{name}: splits {[getattr(data, s).n for s in nb]}, batches "
+          f"{nb}; launches {launches} (batch plan {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+
+    log_path = os.path.join(t.log_dir, name, "metrics.jsonl")
+    with open(log_path) as f:
+        logged = [json.loads(line) for line in f]
+    if len(logged) != epochs or not all(
+            np.isfinite(rec[k]) for rec in logged
+            for k in ("Loss/Train", "Loss/Val")):
+        raise AssertionError(f"{name}: bad metric log {logged}")
+    keys = PTBXL_REPORT_KEYS if name == "ptbxl_af" else MULTI_REPORT_KEYS
+    out_dir = os.path.join(t.output_dir, name)
+    for tag in ("best", "last"):
+        if not keys <= set(reports[tag]):
+            raise AssertionError(f"{name} [{tag}] lacks "
+                                 f"{keys - set(reports[tag])}")
+        if not os.path.isfile(os.path.join(out_dir, f"report_{tag}.txt")):
+            raise AssertionError(f"{name}: report_{tag}.txt missing")
+    # best and last restore into a fresh state; `run` leaves `last` in
+    # result.state
+    ckpt = CheckpointManager(run_dir)
+    for tag, epoch in (("best", result.best_epoch + 1), ("last", epochs)):
+        model, task = train_run.build_model_and_task(cfg, "cuda")
+        st = ckpt.restore(tag, create_state(model, t, nb["train"]))
+        if st.epoch != epoch:
+            raise AssertionError(f"{name} {tag}: epoch {st.epoch} != {epoch}")
+        ev = engine.evaluate(task, st, data.test, t.batch_size)
+        if not np.all(np.isfinite(ev.logits)):
+            raise AssertionError(f"{name} {tag}: non-finite test logits")
+        if tag == "last":
+            live = result.state.model.state_dict()
+            for k, v in model.state_dict().items():
+                if not torch.equal(v, live[k]):
+                    raise AssertionError(f"{name} last: {k} differs")
+    return result, launches
+
+
+def measure_train_step(n: int = 30):
+    """Phase 7: steady-state ptbxl_af train steps at full width on the
+    card (TF32 defaults, dropout 0.3): per-step CUDA-event spans, host
+    wall time, and the device's busy share under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _ptbxl_cfg()
+    t = cfg.train
+    data = train_run.load_data(cfg, 256, device="cuda")
+    model, task = train_run.build_model_and_task(cfg, "cuda")
+    idx, mask = engine.epoch_indices(data.train.n, t.batch_size,
+                                     shuffle=True, seed=t.seed, epoch=0)
+    state = create_state(model, t, idx.shape[0])
+    idx_d = torch.from_numpy(idx.astype(np.int64)).cuda()
+    mask_d = torch.from_numpy(mask).cuda()
+    full = idx.shape[0] - 1  # the full batches; the last one is padded
+
+    def step(i):
+        return engine.train_step(task, state, engine.gather_batch(
+            data.train, idx_d[i % full], mask_d[i % full]))
+
+    for i in range(5):
+        step(i)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n):
+        step(i)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    spans = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    out = {"steps": n, "batch": t.batch_size,
+           "median_ms": statistics.median(spans),
+           "p90_ms": float(np.percentile(spans, 90)),
+           "wall_ms_per_step": wall_ms,
+           "samples_per_s": t.batch_size * 1e3 / wall_ms}
+
+    k = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(k):
+            step(i)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    # a user annotation (`Optimizer.step#Adam.step`) spans the kernels it
+    # encloses on the device timeline: counting it would count them twice
+    averages = prof.key_averages()
+    dev_events = [e for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    if busy_ms == 0.0:
+        out["busy_share"] = "not measured (the profiler saw no device time)"
+    else:
+        out.update(busy_ms_per_step=busy_ms / k,
+                   device_ops_per_step=sum(e.count for e in dev_events) // k,
+                   profiled_step_ms=span_ms / k,
+                   busy_share=busy_ms / span_ms,
+                   busy_share_of_unprofiled=busy_ms / k / wall_ms)
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)
+        out["top"] = [(e.key[:80], e.self_device_time_total / 1e3 / k,
+                       e.count // k) for e in top[:8]]
+    host = sorted((e for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    out["host_ops_per_step"] = sum(e.count for e in host) // k
+    out["host_top"] = [(e.key[:60], e.self_cpu_time_total / 1e3 / k,
+                        e.count // k) for e in host[:10]]
+    return out
+
+
+def summarize(name, source, replaces, launches_by_path, rows, picked, per,
+              bound_by="bytes"):
     """One kernel's entry of the `kernels` line: the times are the sum
-    over the calls one request makes (`serving` picks those rows)."""
-    picked = [r for r in rows if serving(r)]
+    over the calls that `per` names (the `picked` rows); `launches` is the
+    sum over the main paths this script drove."""
     lib = [r["library_us"] for r in picked]
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "launches": sum(launches_by_path.values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r.get("dtype", "float32") == "float32"),
         "ms": sum(r["us"] for r in picked) / 1e3,
         "plain_ms": sum(r["plain_us"] for r in picked) / 1e3,
         "bound_ms": sum(r["bound_us"] for r in picked) / 1e3,
-        "bound_by": "bytes",
+        "bound_by": bound_by,
         "library_ms": None if None in lib else sum(lib) / 1e3,
-        "per_request_calls": len(picked),
+        "per": per,
+        "launches_by_path": launches_by_path,
         "shapes": rows,
     }
 
@@ -373,6 +846,10 @@ def main() -> int:
           "(library_ms null)", flush=True)
     se_rows = check_se(gen, peaks)
     fusion_rows = check_fusion(gen, peaks)
+    print("fused_focal_loss has no single PyTorch call computing the same "
+          "function (library_ms null)", flush=True)
+    focal_rows = check_focal(gen, peaks)
+    se_train_rows = check_se_train(gen, peaks)
 
     # 4. the slice
     launches, timings = run_slice()
@@ -382,16 +859,53 @@ def main() -> int:
         vals = sorted(t[key] for t in timings)
         print(f"request {key}: median {statistics.median(vals):.3f} p90 "
               f"{float(np.percentile(vals, 90)):.3f} ({smi})", flush=True)
+
+    # 6. the training slice: first the algorithm against the CPU in
+    # float32 (TF32 off), then the runs with the defaults a user gets
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    compare_train_steps()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    with tempfile.TemporaryDirectory() as tmp:
+        ptbxl, ptbxl_launches = run_training(tmp, "ptbxl_af", 256, 2)
+        _, multi_launches = run_training(tmp, "physionet_multi", 96, 1)
+
+    # 7. numbers
+    for h in ptbxl.history:
+        print(f"ptbxl_af epoch {h['epoch'] + 1} time "
+              f"{h['Time/Epoch'] * 1e3:.3f} ms (train + val, n_synth 256; "
+              f"{smi})", flush=True)
+    step = measure_train_step()
+    print(f"ptbxl_af train step ({smi}): {json.dumps(step)}", flush=True)
+    paths = {
+        "serve": launches,
+        "train_ptbxl_af": ptbxl_launches,
+        "train_physionet_multi": multi_launches,
+    }
+
+    def by_path(kernel):
+        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
+
+    focal_picked = [r for r in focal_rows
+                    if (r["B"], r["C"]) == (TRAIN_B, 2) and "us" in r]
     kernels = [
         summarize("fused_se", "ecgmm_torch/ops/csrc/se.cu",
-                  "ecgmm_tpu/ops/pallas_se.py:85", launches["fused_se"],
-                  se_rows,
-                  lambda r: r["B"] == 1 and r["dtype"] == "float32"
-                  and (r["T"], r["C"]) in SE_SHAPES),
+                  "ecgmm_tpu/ops/pallas_se.py:85", by_path("fused_se"),
+                  se_rows + se_train_rows, se_train_rows,
+                  "ptbxl_af train step: 3 forward calls at B=16"),
         summarize("fused_attention_fusion", "ecgmm_torch/ops/csrc/fusion.cu",
                   "ecgmm_tpu/ops/pallas_fusion.py:98",
-                  launches["fused_attention_fusion"], fusion_rows,
-                  lambda r: r["D"] == 672 and r["B"] in (1, 8, 32)),
+                  by_path("fused_attention_fusion"), fusion_rows,
+                  [r for r in fusion_rows
+                   if r["D"] == 672 and r["B"] in (1, 8, 32)],
+                  "serving request: B=1, 32 and 8 at D=672"),
+        summarize("fused_focal_loss", "ecgmm_torch/ops/csrc/focal.cu",
+                  "ecgmm_tpu/ops/pallas_losses.py:66",
+                  by_path("fused_focal_loss"), focal_rows, focal_picked,
+                  "ptbxl_af train step: 1 call at (16, 2)",
+                  bound_by=focal_picked[0]["bound_by"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,16 +2,66 @@
 
 Channels-first (B, C, T), parameter names of the reference torch model
 (`initial.*`, `layer{1,2,3}.*`, `classifier.{1,4}.*`), so the JAX
-exporters' state dicts load strictly. Padding is symmetric and explicit;
-BatchNorm eps 1e-5. The SE gate goes through `ecgmm_torch.ops.se`.
+exporters' state dicts load strictly. Padding is symmetric and explicit.
+The SE gate goes through `ecgmm_torch.ops.se`.
+
+Train mode follows flax, not torch: BatchNorm normalises with the biased
+batch variance and also folds the biased variance into `running_var`
+(torch's `BatchNorm1d` folds the unbiased one), with momentum 0.1 in
+torch terms (flax 0.9) and eps 1e-5; dropout draws from an explicit
+`torch.Generator`. `flax_init_` initialises like flax's defaults.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ecgmm_torch.ops.se import fused_se
+
+# flax's truncated-normal initialisers divide the standard deviation by
+# the std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """`nn.BatchNorm1d` with flax's train-mode statistics: the batch's
+    biased variance both normalises and updates `running_var`. Eval mode
+    is torch's (the running statistics)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2) if x.dim() == 3 else (0,)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout like flax's: keep with probability 1 - p and scale
+    by 1 / (1 - p). The mask comes from `generator` (torch's default
+    generator when None), which must lie on the input's device."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep / (1.0 - self.p)
 
 
 class SEBlock1D(nn.Module):
@@ -48,14 +98,14 @@ class BasicBlock1D(nn.Module):
         pad = kernel_size // 2
         self.conv1 = nn.Conv1d(c_in, c_out, kernel_size, stride=stride,
                                padding=pad)
-        self.bn1 = nn.BatchNorm1d(c_out)
+        self.bn1 = BatchNorm1d(c_out)
         self.conv2 = nn.Conv1d(c_out, c_out, kernel_size, padding=pad)
-        self.bn2 = nn.BatchNorm1d(c_out)
+        self.bn2 = BatchNorm1d(c_out)
         self.se = SEBlock1D(c_out)
         self.downsample = None
         if c_in != c_out or stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv1d(c_in, c_out, 1, stride=stride), nn.BatchNorm1d(c_out)
+                nn.Conv1d(c_in, c_out, 1, stride=stride), BatchNorm1d(c_out)
             )
 
     def forward(self, x):
@@ -66,8 +116,9 @@ class BasicBlock1D(nn.Module):
 
 
 class ResNet1DSE(nn.Module):
-    """Signal encoder (reference signal_model.py:59-88). Input (B, C_in,
-    T); `num_classes` is the embedding width in the fusion model (128)."""
+    """Signal encoder / classifier (reference signal_model.py:59-88).
+    Input (B, C_in, T); `num_classes` is the embedding width in the fusion
+    model (128)."""
 
     def __init__(self, num_classes: int = 2, input_channels: int = 1,
                  base_filters: int = 64, dropout: float = 0.3):
@@ -75,14 +126,14 @@ class ResNet1DSE(nn.Module):
         f = base_filters
         self.initial = nn.Sequential(
             nn.Conv1d(input_channels, f, 7, stride=2, padding=3),
-            nn.BatchNorm1d(f), nn.ReLU(),
+            BatchNorm1d(f), nn.ReLU(),
             nn.MaxPool1d(3, stride=2, padding=1),
         )
         self.layer1 = BasicBlock1D(f, f)
         self.layer2 = BasicBlock1D(f, 2 * f, stride=2)
         self.layer3 = BasicBlock1D(2 * f, 4 * f, stride=2)
         self.classifier = nn.Sequential(
-            nn.Flatten(), nn.Linear(4 * f, 64), nn.ReLU(), nn.Dropout(dropout),
+            nn.Flatten(), nn.Linear(4 * f, 64), nn.ReLU(), Dropout(dropout),
             nn.Linear(64, num_classes),
         )
 
@@ -93,3 +144,31 @@ class ResNet1DSE(nn.Module):
             # pre-head temporal features (B, 4f, T'), for Grad-CAM
             return logits, feats
         return logits
+
+
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise `model` in place with flax's defaults, drawing from
+    `generator`: every Conv1d and Linear kernel lecun-normal (truncated
+    normal, std sqrt(1 / fan_in) / 0.8796, cut at two std), every bias 0,
+    BatchNorm scale 1, bias 0, running mean 0 and variance 1. A run from
+    scratch then starts from the same distribution as the JAX run (the
+    numbers differ: the generators do)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv1d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+    return model
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Make every `Dropout` of `model` draw from `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator

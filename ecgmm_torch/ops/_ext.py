@@ -39,6 +39,10 @@ _SIGNATURES = {
     "ecgmm_se_forward_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "ecgmm_attention_fusion_forward":
         [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "ecgmm_focal_loss_forward_i32":
+        [_P] * 4 + [_I] * 2 + [ctypes.c_float] * 2 + [_P],
+    "ecgmm_focal_loss_forward_i64":
+        [_P] * 4 + [_I] * 2 + [ctypes.c_float] * 2 + [_P],
 }
 
 

@@ -4,10 +4,10 @@ Layout is the port's (B, C, T); the weights are in torch Linear layout,
 w1 (R, C), b1 (R,), w2 (C, R), b2 (C,), with R = C // 16 (at least 1).
 
 `fused_se` launches the CUDA kernel (`csrc/se.cu`) for tensors on a CUDA
-device and evaluates `reference_se` for tensors on the CPU. On CUDA it is
-forward-only and raises under autograd: the serving path never
-differentiates through it.
-`launches` counts kernel launches.
+device, wrapped in a `torch.autograd.Function` whose backward
+differentiates `reference_se` on the saved inputs (the design of the JAX
+`custom_vjp`, which has no backward kernel either); for tensors on the
+CPU it evaluates `reference_se`. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,20 +33,7 @@ def reference_se(x, w1, b1, w2, b2):
     return x * y[:, :, None]
 
 
-def fused_se(x, w1, b1, w2, b2):
-    """SE gate: the CUDA kernel for CUDA tensors, `reference_se` for CPU
-    tensors. The kernel reduces and runs both dense layers in f32 (the
-    weights read as f32 from x's dtype) and stores in x's dtype."""
-    if x.device.type == "cpu":
-        return reference_se(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_se: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "fused_se has no backward yet: the SE backward belongs to the "
-            "signal slice (ROADMAP.md section 1)"
-        )
+def _launch(x, w1, b1, w2, b2):
     if x.dim() != 3:
         raise ValueError(f"fused_se: x must be (B, C, T), got {tuple(x.shape)}")
     b, c, t = x.shape
@@ -81,3 +68,36 @@ def fused_se(x, w1, b1, w2, b2):
     global launches
     launches += 1
     return out
+
+
+def reference_backward(inputs, grad):
+    """Gradients of `reference_se` w.r.t. (x, w1, b1, w2, b2) for the
+    cotangent `grad` — the backward of the fused op, evaluated on whatever
+    device the inputs lie on."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = reference_se(*leaves)
+        return torch.autograd.grad(out, leaves, grad)
+
+
+class _FusedSE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reference_backward(ctx.saved_tensors, grad)
+
+
+def fused_se(x, w1, b1, w2, b2):
+    """SE gate: the CUDA kernel (with the reference backward) for CUDA
+    tensors, `reference_se` for CPU tensors. The kernel reduces and runs
+    both dense layers in f32 (the weights read as f32 from x's dtype) and
+    stores in x's dtype."""
+    if x.device.type == "cpu":
+        return reference_se(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_se: unsupported device {x.device}")
+    return _FusedSE.apply(x, w1, b1, w2, b2)

@@ -44,24 +44,27 @@ def _linear(w):
 
 class _Branch:
     """Collects one branch's tensors: flax paths under `src`, torch names
-    under `dst`."""
+    under `dst`. An empty `src` or `dst` is the root (a standalone model)."""
 
     def __init__(self, flat, sd, src: str, dst: str):
         self.flat, self.sd, self.src, self.dst = flat, sd, src, dst
 
+    def _key(self, collection: str, path: str) -> str:
+        return "/".join(p for p in (collection, self.src, path) if p)
+
     def has(self, path: str) -> bool:
-        return f"params/{self.src}/{path}" in self.flat
+        return self._key("params", path) in self.flat
 
     def param(self, path: str) -> np.ndarray:
-        return self.flat[f"params/{self.src}/{path}"]
+        return self.flat[self._key("params", path)]
 
     def put(self, name: str, value: np.ndarray) -> None:
-        self.sd[f"{self.dst}.{name}"] = value
+        self.sd[f"{self.dst}.{name}" if self.dst else name] = value
 
     def bn(self, name: str, path: str) -> None:
         self.put(f"{name}.weight", self.param(f"{path}/scale"))
         self.put(f"{name}.bias", self.param(f"{path}/bias"))
-        stats = f"batch_stats/{self.src}/{path}"
+        stats = self._key("batch_stats", path)
         self.put(f"{name}.running_mean", self.flat[f"{stats}/mean"])
         self.put(f"{name}.running_var", self.flat[f"{stats}/var"])
         self.put(f"{name}.num_batches_tracked", np.asarray(0, np.int64))
@@ -114,7 +117,7 @@ def _resnet18(b: _Branch) -> None:
 
 
 def _tabnet(b: _Branch) -> None:
-    prefix = f"params/{b.src}/"
+    prefix = b._key("params", "") + "/"
     n_shared = sum(1 for k in b.flat
                    if k.startswith(prefix + "shared_fc_"))
     n_indep = sum(1 for k in b.flat
@@ -161,6 +164,21 @@ def _fusion_tail(flat, sd) -> None:
     sd["fusion_classifier.3.bias"] = p("fusion_out/bias")
 
 
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in sd.items()}
+
+
+def from_jax_resnet1d_se(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A standalone flax ResNet1DSE's variables (its paths at the root, not
+    under `signal_encoder/`) as the state dict of
+    `ecgmm_torch.models.ResNet1DSE` (the layout of
+    `ecgmm_tpu/tools/export_pth.export_resnet1d_se`)."""
+    sd: Dict[str, np.ndarray] = {}
+    _resnet1d_se(_Branch(_flatten(variables), sd, "", ""))
+    return _tensors(sd)
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The canonical fusion model's flax variables (numpy leaves) as the
     port's state dict, for `ECGMultimodalModel.load_state_dict(...,
@@ -171,5 +189,4 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     _resnet1d_se(_Branch(flat, sd, "signal_encoder", "signal_encoder"))
     _tabnet(_Branch(flat, sd, "clinical_encoder", "clinical_encoder.tabnet"))
     _fusion_tail(flat, sd)
-    return {k: torch.from_numpy(np.array(v, order="C"))
-            for k, v in sd.items()}
+    return _tensors(sd)

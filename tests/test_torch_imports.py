@@ -83,6 +83,49 @@ def test_demo_defaults_to_the_card():
             ServingPipeline.demo()
 
 
+def test_train_cli_runs_on_cpu_with_jax_blocked(tmp_path):
+    """`python -m ecgmm_torch.workloads.run --preset ptbxl_af --device cpu
+    --epochs 1 --n-synth 48` trains the full-width model on the CPU, with
+    JAX and the JAX package blocked, and writes its checkpoints, metric
+    log and best/last reports."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {REPO!r})
+        sys.argv = ["run", "--preset", "ptbxl_af", "--device", "cpu",
+                    "--epochs", "1", "--n-synth", "48",
+                    "--run-dir", "checkpoints/r"]
+        runpy.run_module("ecgmm_torch.workloads.run", run_name="__main__")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=tmp_path,
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr
+    assert "epoch 1/1" in out.stdout
+    assert "[best]" in out.stdout and "[last]" in out.stdout
+    for path in ("checkpoints/r/best.pt", "checkpoints/r/last.pt",
+                 "checkpoints/r/calibration.pt", "runs/r/metrics.jsonl",
+                 "output/r/report_best.txt", "output/r/report_last.txt"):
+        assert (tmp_path / path).is_file(), path
+
+
+def test_train_cli_defaults_to_the_card():
+    """Without --device the CLI trains on CUDA: where there is no card it
+    raises instead of quietly using the CPU. A real-data flag raises,
+    naming the ROADMAP item it waits for."""
+    from ecgmm_torch.workloads import run
+
+    argv = ["--preset", "ptbxl_af", "--epochs", "1", "--n-synth", "48"]
+    if torch.cuda.is_available():
+        assert run._device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            run.main(argv)
+    with pytest.raises(FileNotFoundError, match="ROADMAP"):
+        run.main(argv + ["--data-dir", "/nonexistent", "--device", "cpu"])
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """Alone in a directory, chip_smoke.py fails and prints no result."""
     import shutil
