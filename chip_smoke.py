@@ -17,7 +17,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   5. numbers: request latency;
   6. the training slice: 3 full-width `ptbxl_af` train steps from one
      initial state on the card and on the CPU agree (loss, gradients,
-     parameters, BatchNorm buffers); `run()` trains `ptbxl_af` (2 epochs,
+     parameters, BatchNorm buffers), and the same first step with TF32 on
+     falls outside the gradient bar; `run()` trains `ptbxl_af` (2 epochs,
      256 synthetic records) and `physionet_multi` (1 epoch, 96 records) on
      the card through the kernels, checkpoints restore, the best/last test
      reports have their keys, and the launch counters equal the batch plan;
@@ -50,10 +51,10 @@ from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
 from ecgmm_torch.models import ECGMultimodalModel  # noqa: E402
-from ecgmm_torch.models import resnet1d_se  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
+from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
 from ecgmm_torch.train import engine  # noqa: E402
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
@@ -71,6 +72,10 @@ SE_SHAPES = [(619, 64), (310, 128), (155, 256)]  # (T, C) at signal 2476
 SE_EDGE_SHAPES = [(37, 16)]  # odd T, reduction width R = 1
 FUSION_DIMS = [(512, 128, 32), (256, 256, 256)]  # canonical, modal balance
 TRAIN_B = 16  # ptbxl_af batch
+# (B, T, C) of the SE blocks on the training paths: ptbxl_af (signal
+# 2476, B=16) and physionet_multi (signal 3000, B=8)
+SE_TRAIN_SHAPES = ([(TRAIN_B, t, c) for t, c in SE_SHAPES]
+                   + [(8, 750, 64), (8, 375, 128), (8, 188, 256)])
 # (B, C): ptbxl_af, physionet_multi, the widest class count, a large batch
 FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2)]
 FOCAL_MASKS = ("ones", "some_zero", "all_zero")
@@ -315,18 +320,18 @@ def check_focal(gen, peaks):
 
 
 def check_se_train(gen, peaks):
-    """fused_se under autograd at the three ptbxl_af training shapes
-    (B=16, f32): the output and the gradients of sum(out**2) w.r.t. x, w1,
-    b1, w2 and b2 against plain autograd. Both backwards run the same
-    plain code on the same saved inputs; they differ only through the
-    cotangent 2*out, whose kernel half differs from the plain one by the
-    forward's rounding (<= 1e-6), so each gradient is held to 1e-5 of its
-    largest component (plus 1e-6)."""
+    """fused_se under autograd at the training shapes of ptbxl_af (B=16)
+    and physionet_multi (B=8), f32: the output and the gradients of
+    sum(out**2) w.r.t. x, w1, b1, w2 and b2 against plain autograd. Both
+    backwards run the same plain code on the same saved inputs; they
+    differ only through the cotangent 2*out, whose kernel half differs
+    from the plain one by the forward's rounding (<= 1e-6), so each
+    gradient is held to 1e-5 of its largest component (plus 1e-6)."""
     bw, flops = peaks
     rows = []
-    for t, c in SE_SHAPES:
+    for b, t, c in SE_TRAIN_SHAPES:
         r = max(1, c // 16)
-        x = torch.randn(TRAIN_B, c, t, generator=gen).cuda()
+        x = torch.randn(b, c, t, generator=gen).cuda()
         ws = [(torch.randn(*s, generator=gen) * 0.1).cuda()
               for s in ((r, c), (r,), (c, r), (c,))]
         ins = [x] + ws
@@ -342,7 +347,8 @@ def check_se_train(gen, peaks):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if err > 1e-5:
-            raise AssertionError(f"fused_se train T={t} C={c}: err {err}")
+            raise AssertionError(
+                f"fused_se train B={b} T={t} C={c}: err {err}")
         grad_rel = {}
         for name, a, g in zip(("x", "w1", "b1", "w2", "b2"), g_kernel,
                               g_ref):
@@ -351,12 +357,12 @@ def check_se_train(gen, peaks):
             grad_rel[name] = gerr / max(scale, 1e-30)
             if gerr > 1e-5 * scale + 1e-6:
                 raise AssertionError(
-                    f"fused_se train T={t} C={c}: grad {name} err {gerr} "
-                    f"(largest component {scale})")
+                    f"fused_se train B={b} T={t} C={c}: grad {name} err "
+                    f"{gerr} (largest component {scale})")
         nbytes = 4 * (2 * x.numel() + sum(w.numel() for w in ws))
-        nflop = 2 * x.numel() + 4 * TRAIN_B * c * r
+        nflop = 2 * x.numel() + 4 * b * c * r
         row = {
-            "B": TRAIN_B, "T": t, "C": c, "dtype": "float32",
+            "B": b, "T": t, "C": c, "dtype": "float32",
             "max_abs_err": err, "grad_err_rel": grad_rel,
             "us": device_us(lambda: se.fused_se(*ins)),
             "plain_us": device_us(lambda: se.reference_se(*ins)),
@@ -504,43 +510,9 @@ def device_busy(pipe, reqs, unprofiled_ms):
               f"{e.count // n:5d}x/req  {e.key[:90]}", flush=True)
 
 
-def _ptbxl_cfg(**model):
-    cfg = get_preset("ptbxl_af")
-    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
-                                                              **model))
-
-
 def _on(arrays, device):
     return arrays._replace(signals=arrays.signals.to(device),
                            labels=arrays.labels.to(device))
-
-
-def _grads64(model, batch, device):
-    """The first step's gradients in float64 through the plain versions
-    (the kernels take float32 and bfloat16): the ground truth against
-    which both devices' float32 gradients are read."""
-    m = copy.deepcopy(model).to(device, torch.float64).train()
-    kernel_se = resnet1d_se.fused_se
-    resnet1d_se.fused_se = se.reference_se
-    try:
-        # the model returns float32 logits, as the JAX module does
-        out = m(batch.signals.to(device, torch.float64).unsqueeze(1))
-    finally:
-        resnet1d_se.fused_se = kernel_se
-    out = out.double()
-    # the preset's focal loss (alpha 1, gamma 2) in float64
-    ce = (torch.logsumexp(out, -1)
-          - out.gather(-1, batch.labels.to(device)[:, None])[:, 0])
-    mk = batch.mask.to(device, torch.float64)
-    loss = ((1 - torch.exp(-ce)) ** 2 * ce * mk).sum() / mk.sum().clamp_min(1)
-    loss.backward()
-    return {k: p.grad.cpu() for k, p in m.named_parameters()}
-
-
-def _rel(a, b):
-    """max |a - b| over the largest component of b."""
-    return ((a.double() - b.double()).abs().max()
-            / b.double().abs().max().clamp_min(1e-30)).item()
 
 
 def compare_train_steps(n_steps: int = 3):
@@ -551,17 +523,21 @@ def compare_train_steps(n_steps: int = 3):
     Dropout is 0: the card's and the CPU's generators draw different
     masks. TF32 is off (cuDNN's default runs float32 convolutions in TF32,
     about three decimal digits; the CPU computes in float32). The first
-    step's gradients are also taken in float64 on both devices.
+    step's gradients are also taken in float64 on the CPU
+    (`ecgmm_torch/tools/grad_precision.py`), and both devices' float32
+    gradients are read off them.
 
     Bars, and why:
-      * float64 gradients, card vs CPU: 1e-10 of each tensor's largest
-        component (the same algorithm; only the summation order differs);
       * loss at every step: rtol 1e-4;
       * float32 gradients of the first step, card vs CPU: 2e-3 of each
-        tensor's largest component. The card's float32 backward sits up to
-        ~1e-3 of that component off float64, the CPU's ~1e-5 (the line
-        printed below reads both off float64 in every run), while phase 3
-        holds the SE kernel's own gradients to 1e-5 of it;
+        tensor's largest component. Op by op, each float32 backward on the
+        card is within 4e-6 of float64, as on the CPU (grad_precision).
+        The whole step on the card reads 8.6e-4 off float64 (the CPU
+        5e-6) because one ReLU input of the card's float32 forward lies
+        on the other side of zero than in float64, which reroutes its
+        channel's gradient; the line printed below names such flipped
+        choices. With TF32 on, the same step reads 5e-2 off: a TF32
+        control of the first step on the card must exceed the bar;
       * the convolution biases are left out of that: every convolution
         feeds a BatchNorm, which removes the bias, so their gradient is
         zero in exact arithmetic and float32 noise of either sign; Adam
@@ -573,30 +549,28 @@ def compare_train_steps(n_steps: int = 3):
       * BatchNorm running mean: 1e-5 plus 2 * sum(lr) (a drifting bias
         shifts the batch mean of the BatchNorm after it); running
         variance: 1e-5 relative (a shift leaves it unchanged)."""
-    cfg = _ptbxl_cfg(dropout=0.0)
+    cfg, train, idx, mask, cpu_model, task = gp.batch_plan(64)
     t = cfg.train
-    data = train_run.load_data(cfg, 64, device="cpu")
-    weights = train_run.ptbxl_sample_weights(data.train.labels.numpy(),
-                                             cfg.model.num_classes)
-    idx, mask = engine.epoch_indices(data.train.n, t.batch_size,
-                                     shuffle=True, seed=t.seed, epoch=0,
-                                     sample_weights=weights)
     if idx.shape[0] < n_steps or mask[n_steps - 1].min() != 0.0:
         raise AssertionError(f"batch plan {idx.shape} lacks a padded batch "
                              f"within {n_steps} steps")
-    cpu_model, task = train_run.build_model_and_task(cfg, "cpu")
-    first = engine.gather_batch(data.train,
-                                torch.from_numpy(idx[0].astype(np.int64)),
-                                torch.from_numpy(mask[0]))
-    grads64 = {dev: _grads64(cpu_model, first, dev)
+    first = gp.plan_batch(train, idx, mask, 0)
+    grads64, _ = gp.grads64(cpu_model, first)
+    choices64 = gp.decisions(cpu_model, first, "cpu", torch.float64)
+    flipped = {dev: gp.flips(gp.decisions(cpu_model, first, dev,
+                                          torch.float32), choices64)
                for dev in ("cuda", "cpu")}
+    old = gp.apply_setting("tf32")
+    try:
+        grads_tf32 = gp.step_grads32(cpu_model, first, task, "cuda")
+    finally:
+        gp.restore_setting(old)
     models = {"cuda": copy.deepcopy(cpu_model).cuda(), "cpu": cpu_model}
-    conv_biases = {f"{n}.bias" for n, m in cpu_model.named_modules()
-                   if isinstance(m, torch.nn.Conv1d)}
+    conv_biases = gp.conv_biases(cpu_model)
     losses, grads, states = {}, {}, {}
     for dev, model in models.items():
         st = create_state(model, t, idx.shape[0])
-        arrays = _on(data.train, dev)
+        arrays = _on(train, dev)
         idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
         mask_d = torch.from_numpy(mask).to(dev)
         losses[dev] = []
@@ -622,14 +596,21 @@ def compare_train_steps(n_steps: int = 3):
 
     for i, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         note("loss_rel", abs(a - b) / abs(b), f"step {i + 1}", 1e-4)
-    for name, g64 in grads64["cpu"].items():
+    for name, g64 in grads64.items():
         if name in conv_biases:
             continue
-        note("grad64_rel", _rel(grads64["cuda"][name], g64), name, 1e-10)
-        note("grad_rel", _rel(grads["cuda"][name], grads["cpu"][name]),
+        note("grad_rel", gp.rel(grads["cuda"][name], grads["cpu"][name]),
              name, 2e-3)
-        note("gpu32_vs_f64_rel", _rel(grads["cuda"][name], g64), name, None)
-        note("cpu32_vs_f64_rel", _rel(grads["cpu"][name], g64), name, None)
+        note("gpu32_vs_f64_rel", gp.rel(grads["cuda"][name], g64), name,
+             None)
+        note("cpu32_vs_f64_rel", gp.rel(grads["cpu"][name], g64), name, None)
+        note("gpu_tf32_vs_cpu_rel", gp.rel(grads_tf32[name],
+                                           grads["cpu"][name]), name, None)
+    print(f"first step, forward choices off float64: card {flipped['cuda']}"
+          f", cpu {flipped['cpu']}", flush=True)
+    if worst["gpu_tf32_vs_cpu_rel"][0] <= 2e-3:
+        failed.append(f"the TF32 control reads {worst['gpu_tf32_vs_cpu_rel']}"
+                      ", within the float32 bar 2e-3")
     params = dict(cpu_model.named_parameters())
     for name, want in states["cpu"].items():
         got = states["cuda"][name]
@@ -728,7 +709,7 @@ def measure_train_step(n: int = 30):
     wall time, and the device's busy share under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = _ptbxl_cfg()
+    cfg = get_preset("ptbxl_af")
     t = cfg.train
     data = train_run.load_data(cfg, 256, device="cuda")
     model, task = train_run.build_model_and_task(cfg, "cuda")
@@ -893,7 +874,8 @@ def main() -> int:
     kernels = [
         summarize("fused_se", "ecgmm_torch/ops/csrc/se.cu",
                   "ecgmm_tpu/ops/pallas_se.py:85", by_path("fused_se"),
-                  se_rows + se_train_rows, se_train_rows,
+                  se_rows + se_train_rows,
+                  [r for r in se_train_rows if r["B"] == TRAIN_B],
                   "ptbxl_af train step: 3 forward calls at B=16"),
         summarize("fused_attention_fusion", "ecgmm_torch/ops/csrc/fusion.cu",
                   "ecgmm_tpu/ops/pallas_fusion.py:98",

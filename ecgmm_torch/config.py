@@ -14,15 +14,13 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Data paths and input geometry (reference config.py:10-27)."""
+    """Input geometry (reference config.py:10-27). The data paths and the
+    sample rate come with the real-data slice that reads them
+    (ROADMAP.md)."""
 
-    data_dir: str = "./data"
-    physionet_dir: str = "./data/physionet"
-    ptbxl_dir: str = "./data/ptbxl"
     # Hospital digitized lead-II signals: 2476 samples @ 250 Hz
     # (reference evaluation_signal.py:36-38, train_signal_only_ptb.py:32).
     signal_len: int = 2476
-    signal_fs: float = 250.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +98,7 @@ def physionet_preset() -> Config:
     its early-stop counter is initialised but never incremented :288)."""
     return Config(
         name="physionet",
-        data=DataConfig(signal_len=3000, signal_fs=300.0),
+        data=DataConfig(signal_len=3000),
         train=TrainConfig(
             batch_size=8,
             lr=1e-3,
