@@ -7,13 +7,16 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   1. device: the card's name and power limit; compute capability 9.0;
   2. build: compile the CUDA kernels from `ecgmm_torch/ops/csrc/`;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the serving and training shapes, values (and the fusion head's
-     gradients) within the stated bars, plus per-shape device times;
+     at the serving and training shapes: values, and the gradients of the
+     SE and fusion backward kernels against autograd and their closed
+     forms, within the stated bars, with bit-identical relaunches; plus
+     per-shape device times of forward, backward and both, beside the
+     parent's path (kernel forward, plain backward) and the bounds;
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
-     kernels' launch counters prove the requests ran through them, and 2
-     requests match the same pipeline on the CPU;
+     kernels' launch counters (forward and backward) prove the requests
+     ran through them, and 2 requests match the same pipeline on the CPU;
   5. numbers: request latency;
   6. the training slice: 3 full-width `ptbxl_af` train steps from one
      initial state on the card and on the CPU agree (loss, gradients,
@@ -133,53 +136,150 @@ def device_us(fn, n: int = 20) -> float:
                              for s, e in zip(starts, ends))
 
 
-def check_se(gen, peaks):
-    """fused_se vs reference_se on the card; returns per-shape records."""
+SE_GRADS = ("x", "w1", "b1", "w2", "b2")
+
+
+def se_row(gen, b, t, c, dtype, peaks):
+    """fused_se at one shape on the card, forward and backward through
+    the kernels, against the plain versions: the output against
+    `reference_se` (f32: 1e-5; bf16: atol and rtol 5e-2), and each
+    gradient for a random cotangent against autograd of `reference_se`
+    in f32 (`reference_backward`) and against the closed form
+    (`reference_se_backward`), within 1e-5 (bf16: 5e-2) of the
+    reference's largest component plus 1e-6; three more launches of the
+    backward bit-identical to the one autograd ran (both sums over the
+    batch go in a fixed order). Returns the row with the cluster sizes,
+    the load path and the device times: forward (`us`), backward kernels
+    alone (`bwd_us`), forward plus backward under autograd through the
+    kernels (`fwd_bwd_us`), through the plain op (`plain_fwd_bwd_us`) and
+    through the parent's path, the kernel forward with the plain backward
+    (`parent_fwd_bwd_us`)."""
     bw, flops = peaks
-    rows = []
-    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 0.05)):
-        for b in (1, 256):
-            for t, c in SE_SHAPES + SE_EDGE_SHAPES:
-                r = max(1, c // 16)
-                x = torch.randn(b, c, t, generator=gen).to("cuda", dtype)
-                ws = [torch.randn(r, c, generator=gen) * 0.1,
-                      torch.randn(r, generator=gen) * 0.1,
-                      torch.randn(c, r, generator=gen) * 0.1,
-                      torch.randn(c, generator=gen) * 0.1]
-                ws = [w.to("cuda", dtype) for w in ws]
-                out = se.fused_se(x, *ws)
-                ref = se.reference_se(x, *ws)
-                torch.cuda.synchronize()
-                if out.dtype != dtype:
-                    raise AssertionError(f"fused_se returned {out.dtype}")
-                err = (out.float() - ref.float()).abs().max().item()
-                if dtype == torch.float32:
-                    ok = err <= atol
-                else:
-                    ok = torch.allclose(out.float(), ref.float(), atol=atol,
-                                        rtol=0.05)
-                if not ok:
-                    raise AssertionError(
-                        f"fused_se {dtype} B={b} T={t} C={c}: max err {err}")
-                esize = x.element_size()
-                nbytes = (2 * x.numel() + sum(w.numel() for w in ws)) * esize
-                nflop = 2 * x.numel() + 4 * b * c * r
-                rows.append({
-                    "B": b, "T": t, "C": c, "dtype": str(dtype)[6:],
-                    "max_abs_err": err,
-                    "us": device_us(lambda: se.fused_se(x, *ws)),
-                    "plain_us": device_us(lambda: se.reference_se(x, *ws)),
-                    "bound_us": max(nbytes / bw, nflop / flops) * 1e6,
-                    "library_us": None,
-                })
-                print(f"fused_se {rows[-1]}", flush=True)
-    return rows
+    f32 = dtype == torch.float32
+    r = max(1, c // 16)
+    x = torch.randn(b, c, t, generator=gen).to("cuda", dtype)
+    ws = [(torch.randn(*s, generator=gen) * 0.1).to("cuda", dtype)
+          for s in ((r, c), (r,), (c, r), (c,))]
+    g = torch.randn(b, c, t, generator=gen).to("cuda", dtype)
+    ins = [x] + ws
+
+    def fwd_bwd(fn, leaves):
+        out = fn(*leaves)
+        return out, torch.autograd.grad(out, leaves, g)
+
+    leaves = [a.clone().requires_grad_(True) for a in ins]
+    ref_leaves = [a.clone().requires_grad_(True) for a in ins]
+    out, g_kernel = fwd_bwd(se.fused_se, leaves)
+    ref = se.reference_se(*ins)
+    g_auto = se.reference_backward([a.float() for a in ins], g.float())
+    g_closed = se.reference_se_backward(ins, g)
+    _, state = se._launch(*ins)
+
+    def backward():
+        return se.launch_backward(x, ws[0], ws[1], ws[2], state, g)
+
+    repeats = [backward() for _ in range(3)]
+    torch.cuda.synchronize()
+    where = f"fused_se {str(dtype)[6:]} B={b} T={t} C={c}"
+    if out.dtype != dtype:
+        raise AssertionError(f"{where}: returned {out.dtype}")
+    err = (out.float() - ref.float()).abs().max().item()
+    if (err > 1e-5) if f32 else not torch.allclose(
+            out.float(), ref.float(), atol=0.05, rtol=0.05):
+        raise AssertionError(f"{where}: max err {err}")
+    bar = 1e-5 if f32 else 5e-2
+    grad_rel = {}
+    for name, got, auto, closed in zip(SE_GRADS, g_kernel, g_auto,
+                                       g_closed):
+        for kind, want in (("autograd", auto), ("closed", closed)):
+            scale = want.float().abs().max().item()
+            gerr = (got.float() - want.float()).abs().max().item()
+            grad_rel[f"{name}_{kind}"] = gerr / max(scale, 1e-30)
+            if gerr > bar * scale + 1e-6:
+                raise AssertionError(
+                    f"{where}: grad {name} vs {kind} err {gerr} (largest "
+                    f"component {scale})")
+    if not all(torch.equal(a, w) for rep in repeats
+               for a, w in zip(rep, g_kernel)):
+        raise AssertionError(f"{where}: repeated backward launches differ")
+
+    esize = x.element_size()
+    n = x.numel()
+    w_bytes = sum(w.numel() for w in ws) * esize
+    state_bytes = 2 * b * c * 4  # the f32 means and gate
+    # forward: read x and the weights, write out and the state; backward:
+    # read x, g, w1, b1, w2 and the state, write dx and the weight
+    # gradients
+    fwd_bytes = 2 * n * esize + w_bytes + state_bytes
+    fwd_ops = 2 * n + 4 * b * c * r
+    bwd_bytes = 3 * n * esize + (2 * r * c + r) * esize + state_bytes \
+        + w_bytes
+    bwd_ops = 4 * n + 8 * b * c * r
+    k_fwd = se.cluster_size(b, c, t, r, esize)
+    k_bwd = se.cluster_size(b, c, t, r, esize, backward=True)
+    row = {
+        "B": b, "T": t, "C": c, "dtype": str(dtype)[6:],
+        "k_fwd": k_fwd, "k_bwd": k_bwd,
+        "loads_fwd": "16-byte" if se.vector_loads(
+            c, t, k_fwd, esize, x.data_ptr()) else "element",
+        "loads_bwd": "16-byte" if se.vector_loads(
+            c, t, k_bwd, esize, x.data_ptr(), g.data_ptr()) else "element",
+        "max_abs_err": err, "grad_err_rel": grad_rel,
+        "us": device_us(lambda: se.fused_se(*ins)),
+        "plain_us": device_us(lambda: se.reference_se(*ins)),
+        "bwd_us": device_us(backward),
+        "fwd_bwd_us": device_us(lambda: fwd_bwd(se.fused_se, leaves)),
+        "plain_fwd_bwd_us": device_us(
+            lambda: fwd_bwd(se.reference_se, ref_leaves)),
+        "parent_fwd_bwd_us": device_us(
+            lambda: (se.fused_se(*ins), se.reference_backward(ins, g))),
+        "bound_us": max(fwd_bytes / bw, fwd_ops / flops) * 1e6,
+        "bwd_bound_us": max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
+        "bound_by": "bytes" if fwd_bytes / bw >= fwd_ops / flops
+        else "operations",
+        "library_us": None,
+    }
+    row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
+    if b <= TRAIN_B:  # the main paths' batches: device work < launches
+        row.update(
+            host_us=host_us(lambda: se.fused_se(*ins)),
+            bwd_host_us=host_us(backward),
+            fwd_bwd_host_us=host_us(lambda: fwd_bwd(se.fused_se, leaves)),
+            parent_fwd_bwd_host_us=host_us(
+                lambda: (se.fused_se(*ins), se.reference_backward(ins, g))))
+    print(f"{where} {row}", flush=True)
+    return row
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of fn, in µs: the mean wall time of n calls
+    as the host enqueues them, the queue drained before and after. It
+    reads the host's cost only where a call's device work takes less
+    time than its launches (the small batches of the main paths); with
+    more, the host waits on a full launch queue."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
+
+
+def check_se(gen, peaks):
+    """fused_se at the serving shapes (B=1), a large batch (B=256) and the
+    edge shape (odd T, R=1), in f32 and bf16 (`se_row`)."""
+    return [se_row(gen, b, t, c, dtype, peaks)
+            for dtype in (torch.float32, torch.bfloat16) for b in (1, 256)
+            for t, c in SE_SHAPES + SE_EDGE_SHAPES]
 
 
 def check_fusion(gen, peaks):
     """fused_attention_fusion vs the plain version on the card: values,
-    soft weights, and the gradients of sum(out**2) w.r.t. all six
-    inputs."""
+    soft weights, and the gradients of sum(out**2) w.r.t. all six inputs
+    (through the backward kernels) against plain autograd."""
     bw, flops = peaks
     rows = []
     eps = 1e-5
@@ -234,6 +334,130 @@ def check_fusion(gen, peaks):
                                              eps)),
                 })
             print(f"fused_attention_fusion {rows[-1]}", flush=True)
+    return rows
+
+
+FUSION_GRADS = ("img", "sig", "clin", "weights", "scale", "bias")
+FROZEN = (True, True, True, False, False, False)
+# (B, kind, inputs that need a gradient): the serving request's SHAP
+# (B=32, the three embeddings) and IG (B=8, the clinical one), and both
+# batches with every input, as a fusion head in training needs
+FUSION_BWD_CASES = [(32, "shap", FROZEN), (32, "all", (True,) * 6),
+                    (8, "ig", (False, False, True, False, False, False)),
+                    (8, "all", (True,) * 6)]
+
+
+def check_fusion_backward(gen, peaks):
+    """fused_attention_fusion's backward kernels at the serving shapes
+    (D=672): the gradients of the inputs that need one, for random
+    cotangents on the output and (where `weights` needs a gradient) the
+    soft weights, against autograd of the plain version and the closed
+    form (rtol 1e-5 / atol 1e-4; `weights` against its largest
+    component, ROADMAP.md section 3); three more launches bit-identical;
+    device times of the backward alone, of forward plus backward under
+    autograd through the kernels, the plain op and the parent's path
+    (kernel forward, plain backward of all six inputs), and of
+    `native_layer_norm_backward` as the library yardstick (it leaves out
+    the soft weights and the concatenation)."""
+    bw, flops = peaks
+    rows = []
+    eps = 1e-5
+    dims = FUSION_DIMS[0]
+    d = sum(dims)
+    for b, kind, needs in FUSION_BWD_CASES:
+        ins = [torch.randn(b, w, generator=gen) for w in dims] + [
+            torch.randn(3, generator=gen),
+            torch.randn(d, generator=gen) + 1,
+            torch.randn(d, generator=gen)]
+        ins = [a.cuda() for a in ins]
+        go = torch.randn(b, d, generator=gen).cuda()
+        gsw = torch.randn(3, generator=gen).cuda() if needs[3] else None
+
+        def fwd_bwd(fn, leaves):
+            out, sw = fn(*leaves, eps=eps)
+            outs, cots = [out], [go]
+            if gsw is not None:
+                outs.append(sw)
+                cots.append(gsw)
+            return torch.autograd.grad(
+                outs, [a for a in leaves if a.requires_grad], cots)
+
+        leaves = [a.clone().requires_grad_(n) for a, n in zip(ins, needs)]
+        ref_leaves = [a.clone().requires_grad_(n)
+                      for a, n in zip(ins, needs)]
+        g_kernel = fwd_bwd(fusion.fused_attention_fusion, leaves)
+        g_auto = [a for a, n in zip(
+            fusion.reference_backward(ins, eps, go, gsw), needs) if n]
+        g_closed = [a for a in fusion.reference_fusion_backward(
+            ins, eps, go, gsw, needs) if a is not None]
+        prepared = fusion._prepare(*ins)
+
+        def backward():
+            return fusion.launch_backward(prepared, eps, go, gsw, needs)
+
+        repeats = [[a for a in backward() if a is not None]
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        names = [nm for nm, n in zip(FUSION_GRADS, needs) if n]
+        where = f"fusion backward B={b} D={d} {kind}"
+        errs = {}
+        for name, got, auto, closed in zip(names, g_kernel, g_auto,
+                                           g_closed):
+            for ref_kind, want in (("autograd", auto), ("closed", closed)):
+                ref_scale = want.abs().max() if name == "weights" \
+                    else want.abs()
+                diff = (got - want).abs()
+                errs[f"{name}_{ref_kind}"] = diff.max().item()
+                if (diff > 1e-4 + 1e-5 * ref_scale).any():
+                    raise AssertionError(
+                        f"{where}: grad {name} vs {ref_kind} max err "
+                        f"{diff.max().item()}")
+        if not all(torch.equal(a, w) for rep in repeats
+                   for a, w in zip(rep, g_kernel)):
+            raise AssertionError(f"{where}: repeated launches differ")
+        # forward: read the three inputs, logits, scale and bias, write
+        # out and sw; backward: read the three inputs, logits, scale and
+        # the output cotangent, write the input gradients, and where a
+        # parameter needs one read gsw and write dweights, dscale, dbias
+        fwd_bytes = 4 * (2 * b * d + 2 * d + 6)
+        bwd_bytes = 4 * (2 * b * d + d + 3 + sum(
+            b * w for w, n in zip(dims, needs) if n))
+        if any(needs[3:]):
+            bwd_bytes += 4 * (3 + 3 + 2 * d)
+        fwd_ops, bwd_ops = 9 * b * d, 16 * b * d
+        with torch.no_grad():
+            sw_ref = torch.softmax(ins[3], 0)
+            fused = torch.cat([sw_ref[i] * ins[i] for i in range(3)], -1)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                fused, [d], ins[4], ins[5], eps)
+        mask = [True, needs[4], needs[5]]
+        row = {
+            "B": b, "D": d, "needs": kind, "grad_err": errs,
+            "bwd_us": device_us(backward),
+            "fwd_bwd_us": device_us(
+                lambda: fwd_bwd(fusion.fused_attention_fusion, leaves)),
+            "plain_fwd_bwd_us": device_us(
+                lambda: fwd_bwd(fusion.reference_attention_fusion,
+                                ref_leaves)),
+            "parent_fwd_bwd_us": device_us(lambda: (
+                fusion.fused_attention_fusion(*ins, eps=eps),
+                fusion.reference_backward(ins, eps, go, gsw))),
+            "library_bwd_us": device_us(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    go, fused, [d], mean, rstd, ins[4], ins[5], mask)),
+            "bwd_bound_us": max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
+            "fwd_bwd_bound_us": (max(fwd_bytes / bw, fwd_ops / flops)
+                                 + max(bwd_bytes / bw, bwd_ops / flops))
+            * 1e6,
+            "bwd_host_us": host_us(backward),
+            "fwd_bwd_host_us": host_us(
+                lambda: fwd_bwd(fusion.fused_attention_fusion, leaves)),
+            "parent_fwd_bwd_host_us": host_us(lambda: (
+                fusion.fused_attention_fusion(*ins, eps=eps),
+                fusion.reference_backward(ins, eps, go, gsw))),
+        }
+        rows.append(row)
+        print(f"{where} {row}", flush=True)
     return rows
 
 
@@ -300,6 +524,12 @@ def check_focal(gen, peaks):
                 nbytes = (4 * b * c + labels.element_size() * b + 4 * b
                           + 4)
                 nops = b * (4 * c + 10) + 2
+                # backward: read logits, labels, mask and the 0-d
+                # cotangent, write dlogits and dmask; per row 6C + 12
+                # operations (softmax, the focal term's derivative)
+                bwd_bytes = (8 * b * c + labels.element_size() * b + 8 * b
+                             + 4)
+                bwd_ops = b * (6 * c + 12)
                 row.update(
                     us=device_us(lambda: focal.fused_focal_loss(
                         logits, labels, mask)),
@@ -310,6 +540,9 @@ def check_focal(gen, peaks):
                     plain_fwd_bwd_us=device_us(lambda: fwd_bwd(
                         focal.reference_focal, *ref_leaves)),
                     bound_us=max(nbytes / bw, nops / flops) * 1e6,
+                    fwd_bwd_bound_us=(max(nbytes / bw, nops / flops)
+                                      + max(bwd_bytes / bw, bwd_ops / flops))
+                    * 1e6,
                     bound_by=("bytes" if nbytes / bw >= nops / flops
                               else "operations"),
                     library_us=None,
@@ -320,64 +553,10 @@ def check_focal(gen, peaks):
 
 
 def check_se_train(gen, peaks):
-    """fused_se under autograd at the training shapes of ptbxl_af (B=16)
-    and physionet_multi (B=8), f32: the output and the gradients of
-    sum(out**2) w.r.t. x, w1, b1, w2 and b2 against plain autograd. Both
-    backwards run the same plain code on the same saved inputs; they
-    differ only through the cotangent 2*out, whose kernel half differs
-    from the plain one by the forward's rounding (<= 1e-6), so each
-    gradient is held to 1e-5 of its largest component (plus 1e-6)."""
-    bw, flops = peaks
-    rows = []
-    for b, t, c in SE_TRAIN_SHAPES:
-        r = max(1, c // 16)
-        x = torch.randn(b, c, t, generator=gen).cuda()
-        ws = [(torch.randn(*s, generator=gen) * 0.1).cuda()
-              for s in ((r, c), (r,), (c, r), (c,))]
-        ins = [x] + ws
-
-        def fwd_bwd(fn, leaves):
-            out = fn(*leaves)
-            return out, torch.autograd.grad((out ** 2).sum(), leaves)
-
-        leaves = [a.clone().requires_grad_(True) for a in ins]
-        out, g_kernel = fwd_bwd(se.fused_se, leaves)
-        ref_leaves = [a.clone().requires_grad_(True) for a in ins]
-        ref, g_ref = fwd_bwd(se.reference_se, ref_leaves)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if err > 1e-5:
-            raise AssertionError(
-                f"fused_se train B={b} T={t} C={c}: err {err}")
-        grad_rel = {}
-        for name, a, g in zip(("x", "w1", "b1", "w2", "b2"), g_kernel,
-                              g_ref):
-            scale = g.abs().max().item()
-            gerr = (a - g).abs().max().item()
-            grad_rel[name] = gerr / max(scale, 1e-30)
-            if gerr > 1e-5 * scale + 1e-6:
-                raise AssertionError(
-                    f"fused_se train B={b} T={t} C={c}: grad {name} err "
-                    f"{gerr} (largest component {scale})")
-        nbytes = 4 * (2 * x.numel() + sum(w.numel() for w in ws))
-        nflop = 2 * x.numel() + 4 * b * c * r
-        row = {
-            "B": b, "T": t, "C": c, "dtype": "float32",
-            "max_abs_err": err, "grad_err_rel": grad_rel,
-            "us": device_us(lambda: se.fused_se(*ins)),
-            "plain_us": device_us(lambda: se.reference_se(*ins)),
-            "fwd_bwd_us": device_us(lambda: fwd_bwd(se.fused_se, leaves)),
-            "plain_fwd_bwd_us": device_us(
-                lambda: fwd_bwd(se.reference_se, ref_leaves)),
-            "bound_us": max(nbytes / bw, nflop / flops) * 1e6,
-            # backward: read x and the cotangent, write dx (the weight
-            # gradients are a few kilobytes)
-            "fwd_bwd_bound_us": (nbytes + 4 * 3 * x.numel()) / bw * 1e6,
-            "library_us": None,
-        }
-        rows.append(row)
-        print(f"fused_se train {row}", flush=True)
-    return rows
+    """fused_se at the training shapes of ptbxl_af (B=16) and
+    physionet_multi (B=8), f32 (`se_row`)."""
+    return [se_row(gen, b, t, c, torch.float32, peaks)
+            for b, t, c in SE_TRAIN_SHAPES]
 
 
 def make_requests(n: int, seed: int):
@@ -433,18 +612,24 @@ def run_slice():
     pipe.predict(*reqs[0])  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     se.launches = fusion.launches = 0
+    se.backward_launches = fusion.backward_launches = 0
     timings = []
     for img, q, fmt in reqs:
         resp = pipe.predict(img, q, fmt)
         check_response(resp, fmt)
         timings.append(dict(pipe.last_timing))
     launches = {"fused_se": se.launches,
-                "fused_attention_fusion": fusion.launches}
+                "fused_attention_fusion": fusion.launches,
+                "fused_se_backward": se.backward_launches,
+                "fused_attention_fusion_backward": fusion.backward_launches}
     print(f"main path launches over {len(reqs)} requests: {launches}",
           flush=True)
-    # 3 SE blocks; fusion head at B=1 (prediction), 32 (SHAP), 8 (IG)
+    # 3 SE blocks, forward only; fusion head forward at B=1 (prediction),
+    # 32 (SHAP) and 8 (IG), backward under SHAP and IG
     if launches != {"fused_se": 3 * len(reqs),
-                    "fused_attention_fusion": 3 * len(reqs)}:
+                    "fused_attention_fusion": 3 * len(reqs),
+                    "fused_se_backward": 0,
+                    "fused_attention_fusion_backward": 2 * len(reqs)}:
         raise AssertionError("the main path did not run through the kernels")
     device_busy(pipe, reqs[:2],
                 statistics.median(t["device_ms"] for t in timings))
@@ -654,16 +839,22 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     # evaluates val; the test protocol evaluates test and val for best
     # and for last. Three SE blocks per forward.
     n_loss = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
+    # the SE backward runs at every train step
     want = {"fused_focal_loss": n_loss, "fused_se": 3 * n_loss,
-            "fused_attention_fusion": 0}
+            "fused_attention_fusion": 0,
+            "fused_se_backward": 3 * epochs * nb["train"],
+            "fused_attention_fusion_backward": 0}
     run_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     focal.launches = se.launches = fusion.launches = 0
+    se.backward_launches = fusion.backward_launches = 0
     result, reports = train_run.run(cfg, data, run_dir=run_dir,
                                     device="cuda")
     torch.cuda.synchronize()
     launches = {"fused_focal_loss": focal.launches, "fused_se": se.launches,
-                "fused_attention_fusion": fusion.launches}
+                "fused_attention_fusion": fusion.launches,
+                "fused_se_backward": se.backward_launches,
+                "fused_attention_fusion_backward": fusion.backward_launches}
     print(f"{name}: splits {[getattr(data, s).n for s in nb]}, batches "
           f"{nb}; launches {launches} (batch plan {want})", flush=True)
     if launches != want:
@@ -772,22 +963,29 @@ def measure_train_step(n: int = 30):
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     out["host_ops_per_step"] = sum(e.count for e in host) // k
+    out["host_fused_backward_ms"] = {
+        e.key: e.self_cpu_time_total / 1e3 / k for e in host
+        if e.key.startswith("_Fused") and e.key.endswith("Backward")}
     out["host_top"] = [(e.key[:60], e.self_cpu_time_total / 1e3 / k,
                         e.count // k) for e in host[:10]]
     return out
 
 
 def summarize(name, source, replaces, launches_by_path, rows, picked, per,
-              bound_by="bytes"):
+              bound_by="bytes", backward=None):
     """One kernel's entry of the `kernels` line: the times are the sum
     over the calls that `per` names (the `picked` rows); `launches` is the
-    sum over the main paths this script drove."""
+    sum over the main paths this script drove. `backward`, for a kernel
+    with a backward kernel, is (backward launches by path, the rows of
+    the calls that run it, what those calls are): `fwd_bwd_ms` and its
+    bound sum forward plus backward over those calls."""
     lib = [r["library_us"] for r in picked]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(launches_by_path.values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r.get("dtype", "float32") == "float32"),
+                           if "max_abs_err" in r
+                           and r.get("dtype", "float32") == "float32"),
         "ms": sum(r["us"] for r in picked) / 1e3,
         "plain_ms": sum(r["plain_us"] for r in picked) / 1e3,
         "bound_ms": sum(r["bound_us"] for r in picked) / 1e3,
@@ -797,6 +995,22 @@ def summarize(name, source, replaces, launches_by_path, rows, picked, per,
         "launches_by_path": launches_by_path,
         "shapes": rows,
     }
+    if backward is not None:
+        by_path, bwd_rows, bwd_per = backward
+        entry.update({
+            "bwd_launches": sum(by_path.values()),
+            "fwd_bwd_ms": sum(r["fwd_bwd_us"] for r in bwd_rows) / 1e3,
+            "fwd_bwd_bound_ms": sum(r["fwd_bwd_bound_us"]
+                                    for r in bwd_rows) / 1e3,
+            "bwd_ms": sum(r["bwd_us"] for r in bwd_rows) / 1e3,
+            "plain_fwd_bwd_ms": sum(r["plain_fwd_bwd_us"]
+                                    for r in bwd_rows) / 1e3,
+            "parent_fwd_bwd_ms": sum(r["parent_fwd_bwd_us"]
+                                     for r in bwd_rows) / 1e3,
+            "fwd_bwd_per": bwd_per,
+            "bwd_launches_by_path": by_path,
+        })
+    return entry
 
 
 def main() -> int:
@@ -822,11 +1036,27 @@ def main() -> int:
     # almost nothing measures with device_us
     print(f"timing floor: {device_us(lambda: torch.cuda._sleep(1)):.3f} us "
           f"per launch ({smi})", flush=True)
+    dev = torch.device("cuda")
+
+    def stream_object():  # what the wrappers did per launch before
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    def raw_stream():
+        context, stream = _ext.launch_target(dev)
+        with context:
+            return stream
+
+    print(f"launch glue, host us per launch: device context and stream "
+          f"object {host_us(stream_object, 2000):.3f}, "
+          f"`_ext.launch_target` {host_us(raw_stream, 2000):.3f} ({smi})",
+          flush=True)
     gen = torch.Generator().manual_seed(0)
     print("fused_se has no single PyTorch call computing the same function "
           "(library_ms null)", flush=True)
     se_rows = check_se(gen, peaks)
     fusion_rows = check_fusion(gen, peaks)
+    fusion_bwd_rows = check_fusion_backward(gen, peaks)
     print("fused_focal_loss has no single PyTorch call computing the same "
           "function (library_ms null)", flush=True)
     focal_rows = check_focal(gen, peaks)
@@ -871,18 +1101,26 @@ def main() -> int:
 
     focal_picked = [r for r in focal_rows
                     if (r["B"], r["C"]) == (TRAIN_B, 2) and "us" in r]
+    se_picked = [r for r in se_train_rows if r["B"] == TRAIN_B]
     kernels = [
         summarize("fused_se", "ecgmm_torch/ops/csrc/se.cu",
                   "ecgmm_tpu/ops/pallas_se.py:85", by_path("fused_se"),
-                  se_rows + se_train_rows,
-                  [r for r in se_train_rows if r["B"] == TRAIN_B],
-                  "ptbxl_af train step: 3 forward calls at B=16"),
+                  se_rows + se_train_rows, se_picked,
+                  "ptbxl_af train step: 3 forward calls at B=16",
+                  backward=(by_path("fused_se_backward"), se_picked,
+                            "ptbxl_af train step: 3 calls at B=16")),
         summarize("fused_attention_fusion", "ecgmm_torch/ops/csrc/fusion.cu",
                   "ecgmm_tpu/ops/pallas_fusion.py:98",
-                  by_path("fused_attention_fusion"), fusion_rows,
+                  by_path("fused_attention_fusion"),
+                  fusion_rows + fusion_bwd_rows,
                   [r for r in fusion_rows
                    if r["D"] == 672 and r["B"] in (1, 8, 32)],
-                  "serving request: B=1, 32 and 8 at D=672"),
+                  "serving request: B=1, 32 and 8 at D=672",
+                  backward=(by_path("fused_attention_fusion_backward"),
+                            [r for r in fusion_bwd_rows
+                             if r["needs"] in ("shap", "ig")],
+                            "serving request: SHAP (B=32, the three "
+                            "embeddings) and IG (B=8, clin) at D=672")),
         summarize("fused_focal_loss", "ecgmm_torch/ops/csrc/focal.cu",
                   "ecgmm_tpu/ops/pallas_losses.py:66",
                   by_path("fused_focal_loss"), focal_rows, focal_picked,

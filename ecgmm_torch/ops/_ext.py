@@ -13,6 +13,7 @@ failed build raises. There is no fallback to the plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Optional
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -35,10 +38,14 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ecgmm_se_forward_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "ecgmm_se_forward_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "ecgmm_se_forward_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "ecgmm_se_forward_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "ecgmm_se_backward_f32": [_P] * 13 + [_I] * 6 + [_P],
+    "ecgmm_se_backward_bf16": [_P] * 13 + [_I] * 6 + [_P],
     "ecgmm_attention_fusion_forward":
         [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "ecgmm_attention_fusion_backward":
+        [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
     "ecgmm_focal_loss_forward_i32":
         [_P] * 4 + [_I] * 2 + [ctypes.c_float] * 2 + [_P],
     "ecgmm_focal_loss_forward_i64":
@@ -119,6 +126,20 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def launch_target(device: torch.device):
+    """(context, stream) for a launch on `device`: the context makes
+    `device` current only where it is not already, and the stream is
+    PyTorch's current stream there as an int for ctypes, read without
+    building a Python stream object. Both costs recur on every launch of
+    a host-bound step (chip_smoke.py's `host_us` reads them)."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        return contextlib.nullcontext(), \
+            torch._C._cuda_getCurrentRawStream(current)
+    return torch.cuda.device(index), torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(status: int, name: str) -> None:

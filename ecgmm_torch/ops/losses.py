@@ -68,8 +68,8 @@ def _launch(logits, labels, mask, alpha, gamma):
     out = torch.empty((), dtype=torch.float32, device=dev)
     entry = _ENTRY[labels.dtype]
     lib = _ext.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    context, stream = _ext.launch_target(dev)
+    with context:
         status = getattr(lib, entry)(
             logits.data_ptr(), labels.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, c, float(alpha), float(gamma), stream,
