@@ -8,10 +8,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   2. build: compile the CUDA kernels from `ecgmm_torch/ops/csrc/`;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the serving and training shapes: values, and the gradients of the
-     SE and fusion backward kernels against autograd and their closed
-     forms, within the stated bars, with bit-identical relaunches; plus
-     per-shape device times of forward, backward and both, beside the
-     parent's path (kernel forward, plain backward) and the bounds;
+     SE, fusion and focal backward kernels against autograd and their
+     closed forms, within the stated bars, with bit-identical relaunches;
+     a profiled focal backward of a train step runs one device kernel;
+     plus per-shape device times of forward, backward and both, beside
+     the parent's path (kernel forward, plain backward) and the bounds,
+     and the focal forward's cluster sweep;
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
@@ -58,6 +60,7 @@ from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
+from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
 from ecgmm_torch.train import engine  # noqa: E402
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
@@ -81,7 +84,7 @@ SE_TRAIN_SHAPES = ([(TRAIN_B, t, c) for t, c in SE_SHAPES]
                    + [(8, 750, 64), (8, 375, 128), (8, 188, 256)])
 # (B, C): ptbxl_af, physionet_multi, the widest class count, a large batch
 FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2)]
-FOCAL_MASKS = ("ones", "some_zero", "all_zero")
+FOCAL_MASKS = ("ones", "some_zero", "all_zero", "single")
 PTBXL_REPORT_KEYS = {"threshold", "accuracy", "f1", "auroc", "temperature",
                      "test_ece", "test_ece_calibrated"}
 MULTI_REPORT_KEYS = {"accuracy", "f1_macro", "auroc_ovr", "temperature",
@@ -104,36 +107,6 @@ def peaks_for(name: str):
         if key in name:
             return val
     raise RuntimeError(f"no peak rates on record for {name!r}")
-
-
-def device_us(fn, n: int = 20) -> float:
-    """Median device time of one call of fn, in µs: the launches are
-    queued behind a sleeping kernel so that the host's launch overhead
-    does not land between the timing events. The sleep lasts at least
-    three times as long as an untimed round of the n calls took, and n is
-    small enough that n calls of a plain version (up to ~40 launches
-    each) fit in the card's launch queue; a longer queue blocks the host
-    until the sleep ends, and the rest would be timed at the host's
-    pace."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    round_s = time.perf_counter() - t0
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    # cycles at up to 2 GHz
-    torch.cuda._sleep(int(max(1e8, 3 * round_s * 2e9)))
-    for i in range(n):
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) * 1e3
-                             for s, e in zip(starts, ends))
 
 
 SE_GRADS = ("x", "w1", "b1", "w2", "b2")
@@ -251,23 +224,6 @@ def se_row(gen, b, t, c, dtype, peaks):
     return row
 
 
-def host_us(fn, n: int = 200) -> float:
-    """Host time of one call of fn, in µs: the mean wall time of n calls
-    as the host enqueues them, the queue drained before and after. It
-    reads the host's cost only where a call's device work takes less
-    time than its launches (the small batches of the main paths); with
-    more, the host waits on a full launch queue."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / n * 1e6
-
-
 def check_se(gen, peaks):
     """fused_se at the serving shapes (B=1), a large batch (B=256) and the
     edge shape (odd T, R=1), in f32 and bf16 (`se_row`)."""
@@ -278,12 +234,14 @@ def check_se(gen, peaks):
 
 def check_fusion(gen, peaks):
     """fused_attention_fusion vs the plain version on the card: values,
-    soft weights, and the gradients of sum(out**2) w.r.t. all six inputs
-    (through the backward kernels) against plain autograd."""
+    soft weights (to the bit), the forward's (mu, rstd) residual against
+    `reference_fusion_stats` (atol 1e-6 + rtol 1e-5), three more forward
+    launches bit-identical, and the gradients of sum(out**2) w.r.t. all
+    six inputs (through the backward kernels) against plain autograd."""
     bw, flops = peaks
     rows = []
     eps = 1e-5
-    for b in (1, 8, 32, 256):
+    for b in (1, 8, 16, 32, 256):
         for dims in FUSION_DIMS:
             d = sum(dims)
             ins = [torch.randn(b, w, generator=gen) for w in dims] + [
@@ -298,12 +256,25 @@ def check_fusion(gen, peaks):
             ref, ref_sw = fusion.reference_attention_fusion(*ref_leaves,
                                                             eps=eps)
             g_ref = torch.autograd.grad((ref ** 2).sum(), ref_leaves)
+            _, _, stats = fusion._launch(*fusion._prepare(*ins), eps,
+                                         keep_stats=True)
+            want_stats = fusion.reference_fusion_stats(*ins[:4], eps)
+            repeats = [fusion.fused_attention_fusion(*ins, eps=eps)
+                       for _ in range(3)]
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             sw_err = (sw - ref_sw).abs().max().item()
-            if err > 1e-5 or sw_err > 1e-7:
+            stats_diff = (stats - want_stats).abs()
+            stats_err = stats_diff.max().item()
+            if err > 1e-5 or sw_err != 0.0 or (
+                    stats_diff > 1e-6 + 1e-5 * want_stats.abs()).any():
                 raise AssertionError(
-                    f"fusion B={b} D={d}: value err {err}, sw err {sw_err}")
+                    f"fusion B={b} D={d}: value err {err}, sw err {sw_err}, "
+                    f"(mu, rstd) err {stats_err}")
+            if not all(torch.equal(o, out) and torch.equal(w, sw)
+                       for o, w in repeats):
+                raise AssertionError(
+                    f"fusion B={b} D={d}: repeated launches differ")
             for name, ga, gb in zip(
                     ("img", "sig", "clin", "weights", "scale", "bias"),
                     g_kernel, g_ref):
@@ -323,6 +294,8 @@ def check_fusion(gen, peaks):
                 nbytes = 4 * (2 * b * d + 2 * d + 6)
                 rows.append({
                     "B": b, "D": d, "max_abs_err": err, "sw_err": sw_err,
+                    "stats_err": stats_err,
+                    "layout": fusion.layout(b, dims),
                     "us": device_us(
                         lambda: fusion.fused_attention_fusion(*ins, eps=eps)),
                     "plain_us": device_us(
@@ -339,17 +312,22 @@ def check_fusion(gen, peaks):
 
 FUSION_GRADS = ("img", "sig", "clin", "weights", "scale", "bias")
 FROZEN = (True, True, True, False, False, False)
-# (B, kind, inputs that need a gradient): the serving request's SHAP
-# (B=32, the three embeddings) and IG (B=8, the clinical one), and both
-# batches with every input, as a fusion head in training needs
-FUSION_BWD_CASES = [(32, "shap", FROZEN), (32, "all", (True,) * 6),
-                    (8, "ig", (False, False, True, False, False, False)),
-                    (8, "all", (True,) * 6)]
+ALL6 = (True,) * 6
+# (B, dims, kind, inputs that need a gradient): the serving request's SHAP
+# (B=32, the three embeddings) and IG (B=8, the clinical one) at D=672,
+# and every input, as a fusion head in training needs: both serving
+# batches, the fusion preset's B=16 and bench.py's B=256, at D=672 and
+# (B=16 and 256) at the modal-balance D=768
+FUSION_BWD_CASES = [
+    (32, FUSION_DIMS[0], "shap", FROZEN), (32, FUSION_DIMS[0], "all", ALL6),
+    (8, FUSION_DIMS[0], "ig", (False, False, True, False, False, False)),
+    (8, FUSION_DIMS[0], "all", ALL6),
+] + [(b, dims, "all", ALL6) for dims in FUSION_DIMS for b in (16, 256)]
 
 
 def check_fusion_backward(gen, peaks):
-    """fused_attention_fusion's backward kernels at the serving shapes
-    (D=672): the gradients of the inputs that need one, for random
+    """fused_attention_fusion's backward kernels at FUSION_BWD_CASES:
+    the gradients of the inputs that need one, for random
     cotangents on the output and (where `weights` needs a gradient) the
     soft weights, against autograd of the plain version and the closed
     form (rtol 1e-5 / atol 1e-4; `weights` against its largest
@@ -362,9 +340,8 @@ def check_fusion_backward(gen, peaks):
     bw, flops = peaks
     rows = []
     eps = 1e-5
-    dims = FUSION_DIMS[0]
-    d = sum(dims)
-    for b, kind, needs in FUSION_BWD_CASES:
+    for b, dims, kind, needs in FUSION_BWD_CASES:
+        d = sum(dims)
         ins = [torch.randn(b, w, generator=gen) for w in dims] + [
             torch.randn(3, generator=gen),
             torch.randn(d, generator=gen) + 1,
@@ -391,9 +368,10 @@ def check_fusion_backward(gen, peaks):
         g_closed = [a for a in fusion.reference_fusion_backward(
             ins, eps, go, gsw, needs) if a is not None]
         prepared = fusion._prepare(*ins)
+        _, _, stats = fusion._launch(*prepared, eps, keep_stats=True)
 
         def backward():
-            return fusion.launch_backward(prepared, eps, go, gsw, needs)
+            return fusion.launch_backward(prepared, stats, go, gsw, needs)
 
         repeats = [[a for a in backward() if a is not None]
                    for _ in range(3)]
@@ -433,6 +411,8 @@ def check_fusion_backward(gen, peaks):
         mask = [True, needs[4], needs[5]]
         row = {
             "B": b, "D": d, "needs": kind, "grad_err": errs,
+            "layout": fusion.layout(b, dims, backward=True),
+            "param_groups": fusion.param_groups(b) if any(needs[3:]) else 0,
             "bwd_us": device_us(backward),
             "fwd_bwd_us": device_us(
                 lambda: fwd_bwd(fusion.fused_attention_fusion, leaves)),
@@ -461,35 +441,179 @@ def check_fusion_backward(gen, peaks):
     return rows
 
 
+def fusion_layout_sweep(gen):
+    """The forward and the rows backward (SHAP's needs) at D=672 with W =
+    1, 2, 3 and 6 warps per row (`_launch`'s and `launch_backward`'s
+    override), beside the W that `warps_per_row` picks: the measurement
+    behind SLOTS_PER_WARP. Each W is held to the plain version first (value
+    atol 1e-5, gradients rtol 1e-5 / atol 1e-4)."""
+    eps = 1e-5
+    dims = FUSION_DIMS[0]
+    d = sum(dims)
+    sweep = []
+    for b in (1, 8, 32, 256, 1024, 4096):
+        ins = [torch.randn(b, w, generator=gen) for w in dims] + [
+            torch.randn(3, generator=gen), torch.randn(d, generator=gen) + 1,
+            torch.randn(d, generator=gen)]
+        ins = fusion._prepare(*(a.cuda() for a in ins))
+        go = torch.randn(b, d, generator=gen).cuda()
+        ref, _ = fusion.reference_attention_fusion(*ins, eps=eps)
+        want = fusion.reference_fusion_backward(ins, eps, go, None, FROZEN)
+        fwd, bwd = {}, {}
+        for w in (1, 2, 3, 6):
+            out, _, stats = fusion._launch(*ins, eps, keep_stats=True,
+                                           warps=w)
+            got = fusion.launch_backward(ins, stats, go, None, FROZEN,
+                                         warps=w)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if err > 1e-5 or any(
+                    ((g - r).abs() > 1e-4 + 1e-5 * r.abs()).any()
+                    for g, r in zip(got[:3], want[:3])):
+                raise AssertionError(f"fusion B={b} W={w}: value err {err} "
+                                     "or a gradient off the plain version")
+            fwd[w] = device_us(lambda: fusion._launch(*ins, eps, warps=w))
+            bwd[w] = device_us(lambda: fusion.launch_backward(
+                ins, stats, go, None, FROZEN, warps=w))
+        sweep.append({"B": b, "D": d, "picked": fusion.warps_per_row(b, dims),
+                      "fwd_us_by_w": fwd, "bwd_us_by_w": bwd})
+        print(f"fusion layout sweep {sweep[-1]}", flush=True)
+    return sweep
+
+
 def _focal_mask(kind: str, b: int, gen) -> torch.Tensor:
     if kind == "ones":
         return torch.ones(b)
     if kind == "all_zero":
         return torch.zeros(b)
+    if kind == "single":  # sum(mask) = 1: max(sum(mask), 1) ties
+        return (torch.arange(b) == b // 2).float()
     mask = (torch.rand(b, generator=gen) < 0.7).float()
     mask[-1] = 0.0
     return mask
 
 
+def _focal_backward_check(where, inputs):
+    """The backward kernel alone, for a cotangent other than 1 and each
+    gamma of the tests: (dlogits, dmask) against the closed form
+    (`reference_focal_backward`) and autograd of `reference_focal`, atol
+    1e-5; dmask left out (None) where the mask needs no gradient; three
+    more launches bit-identical. Returns the worst error."""
+    worst = 0.0
+    cot = torch.tensor(-1.3, device="cuda")
+    for gamma in (0.0, 1.5, 2.0):
+        alpha = 0.7
+        _, res_g = focal._launch(*inputs, alpha, gamma)
+        auto = focal.reference_backward(inputs, alpha, gamma, cot)
+        for needs in ((True, True), (True, False)):
+            got = focal.launch_backward(inputs, res_g, alpha, gamma, cot,
+                                        needs)
+            closed = focal.reference_focal_backward(inputs, alpha, gamma,
+                                                    cot, needs)
+            repeats = [focal.launch_backward(inputs, res_g, alpha, gamma,
+                                             cot, needs) for _ in range(3)]
+            torch.cuda.synchronize()
+            if not needs[1] and got[1] is not None:
+                raise AssertionError(f"{where}: dmask written unasked")
+            for k, need in enumerate(needs):
+                if not need:
+                    continue
+                for kind, want in (("closed", closed[k]),
+                                   ("autograd", auto[k])):
+                    err = (got[k] - want).abs().max().item()
+                    worst = max(worst, err)
+                    if err > 1e-5:
+                        raise AssertionError(
+                            f"{where} gamma={gamma} needs={needs}: "
+                            f"{('dlogits', 'dmask')[k]} vs {kind} err {err}")
+                if not all(torch.equal(r[k], got[k]) for r in repeats):
+                    raise AssertionError(
+                        f"{where}: repeated backward launches differ")
+    return worst
+
+
+def focal_profiled_backward(gen):
+    """The training path's backward (dlogits only, the cotangent given)
+    under torch.profiler: it must run exactly one device kernel, the
+    CUDA backward, and no op of `reference_focal`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, c = TRAIN_B, 2
+    logits = (torch.randn(b, c, generator=gen) * 2).cuda().requires_grad_()
+    labels = torch.randint(0, c, (b,), generator=gen).cuda()
+    mask = _focal_mask("some_zero", b, gen).cuda()
+    out = focal.fused_focal_loss(logits, labels, mask)
+    one = torch.ones((), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, logits, one)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               for _ in range(e.count)
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_ops = sorted({e.key for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.key.startswith("aten::")})
+    print(f"focal training-path backward, profiled: device kernels "
+          f"{kernels}; host aten ops {host_ops}", flush=True)
+    if len(kernels) != 1 or "focal_bwd" not in kernels[0]:
+        raise AssertionError(f"focal backward ran {kernels}, not one kernel")
+    plain = {"aten::logsumexp", "aten::gather", "aten::pow", "aten::exp",
+             "aten::softmax", "aten::_softmax"}
+    if plain & set(host_ops):
+        raise AssertionError(f"focal backward ran plain ops {host_ops}")
+    return kernels
+
+
+def focal_cluster_sweep(gen):
+    """The forward at C=2 and B from 512 to 65536 on K = 1..16 blocks
+    (`_launch`'s override), beside the K that `cluster_size` picks: the
+    measurement behind BLOCK_ELEMS."""
+    sweep = []
+    for b in (512, 1024, 2048, 4096, 16384, 65536):
+        logits = torch.randn(b, 2, generator=gen).cuda()
+        labels = torch.randint(0, 2, (b,), generator=gen).cuda()
+        mask = torch.ones(b, device="cuda")
+        times = {k: device_us(lambda: focal._launch(
+            logits, labels, mask, 1.0, 2.0, k=k)) for k in (1, 2, 4, 8, 16)}
+        sweep.append({"B": b, "C": 2, "picked": focal.cluster_size(b, 2),
+                      "us_by_k": times})
+        print(f"focal forward cluster sweep {sweep[-1]}", flush=True)
+    return sweep
+
+
 def check_focal(gen, peaks):
-    """fused_focal_loss vs reference_focal on the card, with masks of
-    ones, with zeros and all zero, and int64 or int32 labels: the value
-    within rtol 1e-5, dlogits and dmask within atol 1e-5 (the bars of
-    tests/test_pallas_ops.py), and three more launches bit-identical to
-    the first (the in-kernel reduction is in a fixed order)."""
+    """fused_focal_loss vs reference_focal on the card at every
+    FOCAL_SHAPES entry, with masks of ones, with zeros, all zero and a
+    single one, and int64 or int32 labels: the value within rtol 1e-5,
+    dlogits and dmask through autograd within atol 1e-5 of autograd of
+    `reference_focal` and of the closed form (the bars of
+    tests/test_pallas_ops.py), the backward kernel alone at three gammas
+    (`_focal_backward_check`), and three more forward launches
+    bit-identical to the first (the in-kernel reduction is in a fixed
+    order). Timed where the mask has zeros: forward, backward kernel
+    alone, forward plus backward through autograd w.r.t. logits and mask
+    (`fwd_bwd_us`, its meaning unchanged) and w.r.t. the logits only as a train
+    step takes it (`train_fwd_bwd_us`), the plain op, and the parent's
+    path (kernel forward, plain autograd backward)."""
     bw, flops = peaks
     rows = []
+    one = torch.ones((), device="cuda")
     for b, c in FOCAL_SHAPES:
         for kind in FOCAL_MASKS:
-            ldtype = torch.int32 if kind == "some_zero" else torch.int64
+            ldtype = (torch.int32 if kind in ("some_zero", "single")
+                      else torch.int64)
             logits = (torch.randn(b, c, generator=gen) * 2).cuda()
             labels = torch.randint(0, c, (b,), generator=gen).to("cuda",
                                                                  ldtype)
             mask = _focal_mask(kind, b, gen).cuda()
+            inputs = (logits, labels, mask)
 
             def fwd_bwd(fn, lg, mk):
                 out = fn(lg, labels, mk)
-                return out, torch.autograd.grad(out, (lg, mk))
+                return out, torch.autograd.grad(
+                    out, [a for a in (lg, mk) if a.requires_grad])
 
             leaves = [logits.clone().requires_grad_(True),
                       mask.clone().requires_grad_(True)]
@@ -497,26 +621,27 @@ def check_focal(gen, peaks):
             ref_leaves = [logits.clone().requires_grad_(True),
                           mask.clone().requires_grad_(True)]
             ref, g_ref = fwd_bwd(focal.reference_focal, *ref_leaves)
-            repeats = [focal.fused_focal_loss(logits, labels, mask)
-                       for _ in range(3)]
+            g_closed = focal.reference_focal_backward(inputs, 1.0, 2.0, one)
+            repeats = [focal.fused_focal_loss(*inputs) for _ in range(3)]
             torch.cuda.synchronize()
+            where = f"fused_focal_loss B={b} C={c} {kind}"
             err = abs(out.item() - ref.item())
             if err > 1e-5 * abs(ref.item()):
                 raise AssertionError(
-                    f"fused_focal_loss B={b} C={c} {kind}: value "
-                    f"{out.item()} vs {ref.item()}")
+                    f"{where}: value {out.item()} vs {ref.item()}")
             grad_err = max((a - r).abs().max().item()
-                           for a, r in zip(g_kernel, g_ref))
+                           for want in (g_ref, g_closed)
+                           for a, r in zip(g_kernel, want))
             if grad_err > 1e-5:
-                raise AssertionError(
-                    f"fused_focal_loss B={b} C={c} {kind}: grad err "
-                    f"{grad_err}")
+                raise AssertionError(f"{where}: grad err {grad_err}")
             if not all(torch.equal(r, out.detach()) for r in repeats):
-                raise AssertionError(
-                    f"fused_focal_loss B={b} C={c} {kind}: repeated "
-                    "launches differ")
+                raise AssertionError(f"{where}: repeated launches differ")
+            bwd_err = _focal_backward_check(where, inputs)
             row = {"B": b, "C": c, "mask": kind, "labels": str(ldtype)[6:],
-                   "max_abs_err": err, "grad_err": grad_err}
+                   "k_fwd": focal.cluster_size(b, c),
+                   "blocks_bwd": focal.backward_blocks(b),
+                   "max_abs_err": err, "grad_err": grad_err,
+                   "bwd_kernel_err": bwd_err}
             if kind == "some_zero":
                 # each input read once, the 0-d result written once; per
                 # row 4C + 10 f32 operations (max, shift, exp, sum, log,
@@ -524,29 +649,48 @@ def check_focal(gen, peaks):
                 nbytes = (4 * b * c + labels.element_size() * b + 4 * b
                           + 4)
                 nops = b * (4 * c + 10) + 2
-                # backward: read logits, labels, mask and the 0-d
-                # cotangent, write dlogits and dmask; per row 6C + 12
+                # backward: read logits, labels, mask, the residual and the
+                # 0-d cotangent, write dlogits and dmask; per row 6C + 12
                 # operations (softmax, the focal term's derivative)
                 bwd_bytes = (8 * b * c + labels.element_size() * b + 8 * b
-                             + 4)
+                             + 12)
                 bwd_ops = b * (6 * c + 12)
+                train_leaf = logits.clone().requires_grad_(True)
+                _, res = focal._launch(*inputs, 1.0, 2.0)
+
+                def backward():
+                    return focal.launch_backward(inputs, res, 1.0, 2.0, one,
+                                                 (True, False))
+
+                def parent_fwd_bwd():
+                    return (focal.fused_focal_loss(*inputs),
+                            focal.reference_backward(inputs, 1.0, 2.0, one))
+
                 row.update(
-                    us=device_us(lambda: focal.fused_focal_loss(
-                        logits, labels, mask)),
+                    us=device_us(lambda: focal.fused_focal_loss(*inputs)),
                     plain_us=device_us(lambda: focal.reference_focal(
-                        logits, labels, mask)),
+                        *inputs)),
+                    bwd_us=device_us(backward),
                     fwd_bwd_us=device_us(lambda: fwd_bwd(
                         focal.fused_focal_loss, *leaves)),
+                    train_fwd_bwd_us=device_us(lambda: fwd_bwd(
+                        focal.fused_focal_loss, train_leaf, mask)),
                     plain_fwd_bwd_us=device_us(lambda: fwd_bwd(
                         focal.reference_focal, *ref_leaves)),
+                    parent_fwd_bwd_us=device_us(parent_fwd_bwd),
                     bound_us=max(nbytes / bw, nops / flops) * 1e6,
-                    fwd_bwd_bound_us=(max(nbytes / bw, nops / flops)
-                                      + max(bwd_bytes / bw, bwd_ops / flops))
-                    * 1e6,
+                    bwd_bound_us=max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
                     bound_by=("bytes" if nbytes / bw >= nops / flops
                               else "operations"),
                     library_us=None,
                 )
+                row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
+                if b <= TRAIN_B:  # host cost where the device work is small
+                    row.update(
+                        bwd_host_us=host_us(backward),
+                        train_fwd_bwd_host_us=host_us(lambda: fwd_bwd(
+                            focal.fused_focal_loss, train_leaf, mask)),
+                        parent_fwd_bwd_host_us=host_us(parent_fwd_bwd))
             rows.append(row)
             print(f"fused_focal_loss {row}", flush=True)
     return rows
@@ -839,20 +983,23 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     # evaluates val; the test protocol evaluates test and val for best
     # and for last. Three SE blocks per forward.
     n_loss = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
-    # the SE backward runs at every train step
+    # the SE and focal backwards run at every train step
     want = {"fused_focal_loss": n_loss, "fused_se": 3 * n_loss,
             "fused_attention_fusion": 0,
+            "fused_focal_loss_backward": epochs * nb["train"],
             "fused_se_backward": 3 * epochs * nb["train"],
             "fused_attention_fusion_backward": 0}
     run_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     focal.launches = se.launches = fusion.launches = 0
-    se.backward_launches = fusion.backward_launches = 0
+    focal.backward_launches = se.backward_launches = 0
+    fusion.backward_launches = 0
     result, reports = train_run.run(cfg, data, run_dir=run_dir,
                                     device="cuda")
     torch.cuda.synchronize()
     launches = {"fused_focal_loss": focal.launches, "fused_se": se.launches,
                 "fused_attention_fusion": fusion.launches,
+                "fused_focal_loss_backward": focal.backward_launches,
                 "fused_se_backward": se.backward_launches,
                 "fused_attention_fusion_backward": fusion.backward_launches}
     print(f"{name}: splits {[getattr(data, s).n for s in nb]}, batches "
@@ -1057,9 +1204,12 @@ def main() -> int:
     se_rows = check_se(gen, peaks)
     fusion_rows = check_fusion(gen, peaks)
     fusion_bwd_rows = check_fusion_backward(gen, peaks)
+    fusion_sweep = fusion_layout_sweep(gen)
     print("fused_focal_loss has no single PyTorch call computing the same "
           "function (library_ms null)", flush=True)
     focal_rows = check_focal(gen, peaks)
+    focal_profiled_backward(gen)
+    focal_sweep = focal_cluster_sweep(gen)
     se_train_rows = check_se_train(gen, peaks)
 
     # 4. the slice
@@ -1125,8 +1275,13 @@ def main() -> int:
                   "ecgmm_tpu/ops/pallas_losses.py:66",
                   by_path("fused_focal_loss"), focal_rows, focal_picked,
                   "ptbxl_af train step: 1 call at (16, 2)",
-                  bound_by=focal_picked[0]["bound_by"]),
+                  bound_by=focal_picked[0]["bound_by"],
+                  backward=(by_path("fused_focal_loss_backward"),
+                            focal_picked,
+                            "ptbxl_af train step: 1 call at (16, 2)")),
     ]
+    kernels[1]["layout_sweep"] = fusion_sweep
+    kernels[2]["cluster_sweep"] = focal_sweep
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

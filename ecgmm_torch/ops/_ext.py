@@ -43,13 +43,17 @@ _SIGNATURES = {
     "ecgmm_se_backward_f32": [_P] * 13 + [_I] * 6 + [_P],
     "ecgmm_se_backward_bf16": [_P] * 13 + [_I] * 6 + [_P],
     "ecgmm_attention_fusion_forward":
-        [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "ecgmm_attention_fusion_backward":
-        [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
+        [_P] * 15 + [_I] * 9 + [_P],
     "ecgmm_focal_loss_forward_i32":
-        [_P] * 4 + [_I] * 2 + [ctypes.c_float] * 2 + [_P],
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
     "ecgmm_focal_loss_forward_i64":
-        [_P] * 4 + [_I] * 2 + [ctypes.c_float] * 2 + [_P],
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+    "ecgmm_focal_loss_backward_i32":
+        [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+    "ecgmm_focal_loss_backward_i64":
+        [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
 }
 
 

@@ -20,9 +20,12 @@ from ecgmm_torch.ops.losses import fused_focal_loss
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]):
+    """sum(x * mask) / max(sum(mask), 1); torch.maximum's VJP splits a tie
+    at sum(mask) == 1 as jnp.maximum's does."""
     if mask is None:
         return x.mean()
-    return (x * mask).sum() / mask.sum().clamp_min(1.0)
+    s = mask.sum()
+    return (x * mask).sum() / torch.maximum(s, s.new_ones(()))
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -1,5 +1,6 @@
 """The closed-form backwards of the port's SE gate and attention-fusion
-head, and the SE kernel's cluster sizing, on the CPU.
+head, the SE kernel's cluster sizing and the fusion kernels' layout, on
+the CPU.
 
 `se.reference_se_backward` and `fusion.reference_fusion_backward` are the
 plain versions of the CUDA backward kernels (`ecgmm_torch/ops/csrc/`):
@@ -250,3 +251,189 @@ def test_fusion_backward_through_the_cpu_path_matches_closed_form(rng):
         t_in, 1e-5, torch.from_numpy(go), None, (True,) * 3 + (False,) * 3)
     for name, g, w in zip(FUSION_NAMES, got, want):
         _fusion_close(name, g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("grad_mode", [True, False], ids=["grad", "no_grad"])
+@pytest.mark.parametrize("needs", [
+    (True,) * 6,
+    (True, True, True, False, False, False),
+    (False, False, True, False, False, False),
+    (False, False, False, True, True, True),
+    (False,) * 6,
+], ids=["all", "shap", "ig", "params", "none"])
+def test_fusion_autograd_function_with_plain_launches(rng, monkeypatch,
+                                                      needs, grad_mode):
+    """The kernels' autograd.Function on CPU tensors, its two launches
+    replaced by their plain versions (the kernels run only on the card):
+    the forward keeps (mu, rstd) exactly where autograd will run the
+    backward, and the backward hands the launch the saved stats and the
+    inputs that need a gradient."""
+    ins, go, gsw = _fusion_case(rng, 3, (512, 128, 32))
+    eps = 1e-5
+    t_in = [torch.from_numpy(a) for a in ins]
+    calls = {}
+
+    def launch(img, sig, clin, weights, scale, bias, eps_, keep_stats=False):
+        calls["keep"] = keep_stats
+        out, sw = fusion.reference_attention_fusion(img, sig, clin, weights,
+                                                    scale, bias, eps_)
+        stats = (fusion.reference_fusion_stats(img, sig, clin, weights, eps_)
+                 if keep_stats else None)
+        return out, sw, stats
+
+    def launch_backward(inputs, stats, grad_out, grad_sw, needs_):
+        calls["needs"] = tuple(needs_)
+        assert stats.shape == (3, 2)
+        return fusion.reference_fusion_backward(inputs, eps, grad_out,
+                                                grad_sw, needs_, stats=stats)
+
+    monkeypatch.setattr(fusion, "_launch", launch)
+    monkeypatch.setattr(fusion, "launch_backward", launch_backward)
+    leaves = [a.clone().requires_grad_(n) for a, n in zip(t_in, needs)]
+    with torch.set_grad_enabled(grad_mode):
+        out, sw = fusion._through_kernels(*leaves, eps)
+    assert calls["keep"] == (grad_mode and any(needs))
+    ref, ref_sw = fusion.reference_attention_fusion(*t_in, eps=eps)
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(), atol=1e-6)
+    if not calls["keep"]:
+        assert not out.requires_grad
+        return
+    wrt = [a for a in leaves if a.requires_grad]
+    got = iter(torch.autograd.grad((out, sw), wrt, (torch.from_numpy(go),
+                                                   torch.from_numpy(gsw))))
+    assert calls["needs"] == needs
+    want = fusion.reference_backward(t_in, eps, torch.from_numpy(go),
+                                     torch.from_numpy(gsw))
+    for name, need, w in zip(FUSION_NAMES, needs, want):
+        if need:
+            _fusion_close(name, next(got).numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("needs", [
+    (True,) * 6,
+    (True, True, True, False, False, False),
+    (False, False, False, True, True, True),
+], ids=["all", "inputs", "params"])
+@pytest.mark.parametrize("dims", [(512, 128, 32), (256, 256, 256),
+                                  (130, 67, 33)])
+def test_fusion_closed_form_with_saved_stats_matches_jax_vjp(rng, dims,
+                                                             needs):
+    """The kernels' backward reads the forward's (mu, rstd) instead of
+    recomputing them: the closed form given `reference_fusion_stats` is
+    held against jax.vjp of the JAX reference."""
+    ins, go, gsw = _fusion_case(rng, 6, dims)
+    eps = 1e-5
+    t_in = [torch.from_numpy(a) for a in ins]
+    stats = fusion.reference_fusion_stats(*t_in[:4], eps)
+    assert stats.shape == (6, 2) and stats.dtype == torch.float32
+    got = fusion.reference_fusion_backward(
+        t_in, eps, torch.from_numpy(go), torch.from_numpy(gsw), needs,
+        stats=stats)
+    _, vjp = jax.vjp(lambda *a: jax_ref_fusion(*a, eps=eps),
+                     *map(jnp.asarray, ins))
+    want = vjp((jnp.asarray(go), jnp.asarray(gsw)))
+    for name, need, g, gj in zip(FUSION_NAMES, needs, got, want):
+        if not need:
+            assert g is None, name
+            continue
+        _fusion_close(name, g.numpy(), np.asarray(gj))
+
+
+def test_fusion_reference_stats_match_float64(rng):
+    """(mu, rstd) of each row of the scaled concat, biased variance."""
+    ins, _, _ = _fusion_case(rng, 5, (512, 128, 32))
+    eps = 1e-6
+    got = fusion.reference_fusion_stats(
+        *(torch.from_numpy(a) for a in ins[:4]), eps).numpy()
+    w = np.exp(ins[3].astype(np.float64))
+    sw = w / w.sum()
+    f = np.concatenate([sw[k] * ins[k].astype(np.float64) for k in range(3)],
+                       axis=-1)
+    mu = f.mean(-1)
+    np.testing.assert_allclose(got[:, 0], mu, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got[:, 1], 1 / np.sqrt(f.var(-1) + eps),
+                               rtol=1e-5)
+
+
+# (B, D) -> rows per block of the forward and the backward: one row per
+# block until the batch outgrows the 132 SMs, then doubled up to 8, then
+# halved while a block's shared memory does not fit (D > 1024 only; the
+# backward keeps two rows per warp)
+@pytest.mark.parametrize("b,dims,fwd,bwd", [
+    (1, (512, 128, 32), 1, 1), (8, (512, 128, 32), 1, 1),
+    (32, (512, 128, 32), 1, 1), (16, (256, 256, 256), 1, 1),
+    (132, (512, 128, 32), 1, 1), (133, (512, 128, 32), 2, 2),
+    (256, (512, 128, 32), 2, 2), (256, (256, 256, 256), 2, 2),
+    (1056, (512, 128, 32), 8, 8), (100000, (512, 128, 32), 8, 8),
+    (4096, (4096, 4096, 4096), 4, 2), (8, (4096, 4096, 4096), 1, 1),
+])
+def test_fusion_rows_per_block(b, dims, fwd, bwd):
+    for backward, rows in ((False, fwd), (True, bwd)):
+        got = fusion.rows_per_block(b, dims, backward)
+        assert got == rows
+        assert 1 <= got <= fusion.MAX_ROWS and got & (got - 1) == 0
+        assert fusion.smem_bytes(dims, got, backward) <= fusion.MAX_SMEM
+
+
+# (B, dims) -> (rows per block, warps per row): up to 256 rows, one warp
+# per slot (up to 8); up to 1024, two slots per warp; beyond, three; rows
+# too wide for registers, and rows of at most three slots beyond 1024,
+# take one warp per row and several rows per block
+@pytest.mark.parametrize("b,dims,want", [
+    (1, (512, 128, 32), (1, 6)), (8, (512, 128, 32), (1, 6)),
+    (32, (512, 128, 32), (1, 6)), (16, (256, 256, 256), (1, 6)),
+    (256, (256, 256, 256), (1, 6)), (257, (512, 128, 32), (1, 3)),
+    (1024, (512, 128, 32), (1, 3)), (4096, (512, 128, 32), (1, 2)),
+    (8, (1, 1, 1022), (1, 8)), (3, (130, 67, 33), (1, 4)),
+    (2000, (64, 32, 32), (8, 1)), (8, (4096, 4096, 4096), (1, 1)),
+])
+def test_fusion_layout(b, dims, want):
+    assert fusion.layout(b, dims) == want
+    assert fusion.layout(b, dims, backward=True) == want
+    rows, w = want
+    assert fusion.warps_per_row(b, dims) == w
+    assert rows * w <= fusion.MAX_WARPS
+    assert w <= fusion.row_slots(dims)
+
+
+@pytest.mark.parametrize("warps,want", [(1, (2, 1)), (2, (1, 2)),
+                                        (6, (1, 6))])
+def test_fusion_layout_override(warps, want):
+    """The timing override: several warps per row take a block each."""
+    assert fusion.layout(256, (512, 128, 32), warps=warps) == want
+
+
+@pytest.mark.parametrize("dims,regs,slots", [
+    ((512, 128, 32), True, 6), ((256, 256, 256), True, 6),
+    ((130, 67, 33), True, 4), ((1, 1, 1022), True, 10),
+    ((129, 129, 766), True, 10), ((512, 512, 1), False, 9),
+    ((4096, 4096, 4096), False, 96),
+])
+def test_fusion_registers_or_shared_memory(dims, regs, slots):
+    assert fusion.in_registers(dims) is regs
+    assert fusion.row_slots(dims) == slots
+    # every row that stays in registers fits the kernel's 10 slots
+    if regs:
+        assert slots <= 10
+        assert fusion.smem_bytes(dims, 8) == 0
+    else:
+        assert fusion.smem_bytes(dims, 2) == 2 * slots * 512
+        assert fusion.smem_bytes(dims, 2, backward=True) == 4 * slots * 512
+
+
+@pytest.mark.parametrize("dims,ptrs,mask", [
+    ((512, 128, 32), (0, 256), 0b111), ((256, 256, 256), (0,), 0b111),
+    ((512, 128, 32), (0, 8), 0), ((130, 66, 32), (0,), 0b100),
+    ((128, 130, 34), (0,), 0b001), ((128, 128, 33), (0,), 0),
+    ((32, 100, 60), (16,), 0b111),
+])
+def test_fusion_vector_chunks(dims, ptrs, mask):
+    assert fusion.vector_chunks(dims, *ptrs) == mask
+
+
+@pytest.mark.parametrize("b,groups", [(0, 1), (1, 1), (16, 1), (32, 1),
+                                      (33, 2), (256, 8), (4096, 8)])
+def test_fusion_param_groups(b, groups):
+    g = fusion.param_groups(b)
+    assert g == groups and 1 <= g <= fusion.MAX_GROUPS
+    assert g == fusion.MAX_GROUPS or -(-b // g) <= fusion.GROUP_ROWS
