@@ -13,22 +13,34 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      a profiled focal backward of a train step runs one device kernel;
      plus per-shape device times of forward, backward and both, beside
      the parent's path (kernel forward, plain backward) and the bounds,
-     and the focal forward's cluster sweep;
+     the focal forward's cluster sweep, and the SE forward alone in bf16
+     (the frozen signal encoder's form) at the fusion presets' B=16 and
+     bench.py's B=256;
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
      kernels' launch counters (forward and backward) prove the requests
      ran through them, and 2 requests match the same pipeline on the CPU;
   5. numbers: request latency;
-  6. the training slice: 3 full-width `ptbxl_af` train steps from one
+  6. the training slices: 3 full-width `ptbxl_af` train steps from one
      initial state on the card and on the CPU agree (loss, gradients,
      parameters, BatchNorm buffers), and the same first step with TF32 on
-     falls outside the gradient bar; `run()` trains `ptbxl_af` (2 epochs,
-     256 synthetic records) and `physionet_multi` (1 epoch, 96 records) on
-     the card through the kernels, checkpoints restore, the best/last test
-     reports have their keys, and the launch counters equal the batch plan;
-  7. numbers: train-step time (CUDA events), samples/s, epoch time, the
-     device's busy share (torch.profiler), and one `kernels` JSON line.
+     falls outside the gradient bar; 3 full-width `fusion` train steps
+     (f32, frozen encoders in train mode, the third batch padded) agree
+     on the card and the CPU (loss, gradients, trainable parameters, the
+     encoders' BatchNorm statistics, frozen weights bit-equal), with 3 SE
+     forwards, no SE backward and one fusion forward and backward a step;
+     `run()` trains `ptbxl_af` (2 epochs, 256 synthetic records),
+     `physionet_multi` (1 epoch, 96 records), `fusion` (bf16, 2 epochs,
+     256 records; its train loss must fall) and `fusion_modal_balance`
+     (1 epoch, 96 records) on the card through the kernels, checkpoints
+     restore, the best/last test reports and the logged scalars
+     (`VarLoss/Val`, `AttentionWeights/*` for fusion) have their keys, and
+     the launch counters equal the batch plan;
+  7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16 and
+     `fusion` at B=16 and 256, samples/s, epoch time, the device's busy
+     share and the top host ops (torch.profiler), and one `kernels` JSON
+     line whose `launches_by_path` names every path driven.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -56,6 +68,7 @@ from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
 from ecgmm_torch.models import ECGMultimodalModel  # noqa: E402
+from ecgmm_torch.models.layers import Dropout  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
@@ -85,10 +98,17 @@ SE_TRAIN_SHAPES = ([(TRAIN_B, t, c) for t, c in SE_SHAPES]
 # (B, C): ptbxl_af, physionet_multi, the widest class count, a large batch
 FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2)]
 FOCAL_MASKS = ("ones", "some_zero", "all_zero", "single")
-PTBXL_REPORT_KEYS = {"threshold", "accuracy", "f1", "auroc", "temperature",
-                     "test_ece", "test_ece_calibrated"}
-MULTI_REPORT_KEYS = {"accuracy", "f1_macro", "auroc_ovr", "temperature",
-                     "test_ece", "test_ece_calibrated"}
+FUSION_B = 16  # the fusion presets' batch
+BENCH_B = 256  # bench.py's flagship batch, where TabNet's ghost BN splits
+FUSION_REPORT_KEYS = {"accuracy", "f1", "auroc", "temperature", "test_ece",
+                      "test_ece_calibrated"}
+REPORT_KEYS = {
+    "ptbxl_af": FUSION_REPORT_KEYS | {"threshold"},
+    "physionet_multi": {"accuracy", "f1_macro", "auroc_ovr", "temperature",
+                        "test_ece", "test_ece_calibrated"},
+    "fusion": FUSION_REPORT_KEYS,
+    "fusion_modal_balance": FUSION_REPORT_KEYS,
+}
 RESPONSE_KEYS = ("label", "probability", "ecg_signal", "heatmap",
                  "feature_importance", "gpt_result", "digitization")
 
@@ -112,21 +132,22 @@ def peaks_for(name: str):
 SE_GRADS = ("x", "w1", "b1", "w2", "b2")
 
 
-def se_row(gen, b, t, c, dtype, peaks):
-    """fused_se at one shape on the card, forward and backward through
-    the kernels, against the plain versions: the output against
-    `reference_se` (f32: 1e-5; bf16: atol and rtol 5e-2), and each
-    gradient for a random cotangent against autograd of `reference_se`
-    in f32 (`reference_backward`) and against the closed form
+def se_row(gen, b, t, c, dtype, peaks, backward=True):
+    """fused_se at one shape on the card against the plain versions: the
+    output against `reference_se` (f32: 1e-5; bf16: atol and rtol 5e-2),
+    and, with `backward`, each gradient through the kernels for a random
+    cotangent against autograd of `reference_se` in f32
+    (`reference_backward`) and against the closed form
     (`reference_se_backward`), within 1e-5 (bf16: 5e-2) of the
-    reference's largest component plus 1e-6; three more launches of the
-    backward bit-identical to the one autograd ran (both sums over the
-    batch go in a fixed order). Returns the row with the cluster sizes,
-    the load path and the device times: forward (`us`), backward kernels
-    alone (`bwd_us`), forward plus backward under autograd through the
-    kernels (`fwd_bwd_us`), through the plain op (`plain_fwd_bwd_us`) and
-    through the parent's path, the kernel forward with the plain backward
-    (`parent_fwd_bwd_us`)."""
+    reference's largest component plus 1e-6, and three more launches of
+    the backward bit-identical to the one autograd ran (both sums over
+    the batch go in a fixed order). Returns the row with the cluster
+    sizes, the load path and the device times: forward (`us`) and, with
+    `backward`, backward kernels alone (`bwd_us`), forward plus backward
+    under autograd through the kernels (`fwd_bwd_us`), through the plain
+    op (`plain_fwd_bwd_us`) and through the parent's path, the kernel
+    forward with the plain backward (`parent_fwd_bwd_us`). Without
+    `backward` it is the forward-only form a frozen encoder runs."""
     bw, flops = peaks
     f32 = dtype == torch.float32
     r = max(1, c // 16)
@@ -140,26 +161,60 @@ def se_row(gen, b, t, c, dtype, peaks):
         out = fn(*leaves)
         return out, torch.autograd.grad(out, leaves, g)
 
-    leaves = [a.clone().requires_grad_(True) for a in ins]
-    ref_leaves = [a.clone().requires_grad_(True) for a in ins]
-    out, g_kernel = fwd_bwd(se.fused_se, leaves)
-    ref = se.reference_se(*ins)
-    g_auto = se.reference_backward([a.float() for a in ins], g.float())
-    g_closed = se.reference_se_backward(ins, g)
-    _, state = se._launch(*ins)
-
-    def backward():
-        return se.launch_backward(x, ws[0], ws[1], ws[2], state, g)
-
-    repeats = [backward() for _ in range(3)]
-    torch.cuda.synchronize()
     where = f"fused_se {str(dtype)[6:]} B={b} T={t} C={c}"
+    if backward:
+        leaves = [a.clone().requires_grad_(True) for a in ins]
+        ref_leaves = [a.clone().requires_grad_(True) for a in ins]
+        out, g_kernel = fwd_bwd(se.fused_se, leaves)
+    else:
+        where += " forward only"
+        out = se.fused_se(*ins)
+    ref = se.reference_se(*ins)
+    torch.cuda.synchronize()
     if out.dtype != dtype:
         raise AssertionError(f"{where}: returned {out.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
     if (err > 1e-5) if f32 else not torch.allclose(
             out.float(), ref.float(), atol=0.05, rtol=0.05):
         raise AssertionError(f"{where}: max err {err}")
+
+    esize = x.element_size()
+    n = x.numel()
+    w_bytes = sum(w.numel() for w in ws) * esize
+    state_bytes = 2 * b * c * 4  # the f32 means and gate
+    # forward: read x and the weights, write out and the state; backward:
+    # read x, g, w1, b1, w2 and the state, write dx and the weight
+    # gradients
+    fwd_bytes = 2 * n * esize + w_bytes + state_bytes
+    fwd_ops = 2 * n + 4 * b * c * r
+    k_fwd = se.cluster_size(b, c, t, r, esize)
+    row = {
+        "B": b, "T": t, "C": c, "dtype": str(dtype)[6:], "k_fwd": k_fwd,
+        "loads_fwd": "16-byte" if se.vector_loads(
+            c, t, k_fwd, esize, x.data_ptr()) else "element",
+        "max_abs_err": err,
+        "us": device_us(lambda: se.fused_se(*ins)),
+        "plain_us": device_us(lambda: se.reference_se(*ins)),
+        "bound_us": max(fwd_bytes / bw, fwd_ops / flops) * 1e6,
+        "bound_by": "bytes" if fwd_bytes / bw >= fwd_ops / flops
+        else "operations",
+        "library_us": None,
+    }
+    if b <= TRAIN_B:  # the main paths' batches: device work < launches
+        row["host_us"] = host_us(lambda: se.fused_se(*ins))
+    if not backward:
+        print(f"{where} {row}", flush=True)
+        return row
+
+    g_auto = se.reference_backward([a.float() for a in ins], g.float())
+    g_closed = se.reference_se_backward(ins, g)
+    _, state = se._launch(*ins)
+
+    def launch_bwd():
+        return se.launch_backward(x, ws[0], ws[1], ws[2], state, g)
+
+    repeats = [launch_bwd() for _ in range(3)]
+    torch.cuda.synchronize()
     bar = 1e-5 if f32 else 5e-2
     grad_rel = {}
     for name, got, auto, closed in zip(SE_GRADS, g_kernel, g_auto,
@@ -175,48 +230,27 @@ def se_row(gen, b, t, c, dtype, peaks):
     if not all(torch.equal(a, w) for rep in repeats
                for a, w in zip(rep, g_kernel)):
         raise AssertionError(f"{where}: repeated backward launches differ")
-
-    esize = x.element_size()
-    n = x.numel()
-    w_bytes = sum(w.numel() for w in ws) * esize
-    state_bytes = 2 * b * c * 4  # the f32 means and gate
-    # forward: read x and the weights, write out and the state; backward:
-    # read x, g, w1, b1, w2 and the state, write dx and the weight
-    # gradients
-    fwd_bytes = 2 * n * esize + w_bytes + state_bytes
-    fwd_ops = 2 * n + 4 * b * c * r
     bwd_bytes = 3 * n * esize + (2 * r * c + r) * esize + state_bytes \
         + w_bytes
     bwd_ops = 4 * n + 8 * b * c * r
-    k_fwd = se.cluster_size(b, c, t, r, esize)
     k_bwd = se.cluster_size(b, c, t, r, esize, backward=True)
-    row = {
-        "B": b, "T": t, "C": c, "dtype": str(dtype)[6:],
-        "k_fwd": k_fwd, "k_bwd": k_bwd,
-        "loads_fwd": "16-byte" if se.vector_loads(
-            c, t, k_fwd, esize, x.data_ptr()) else "element",
+    row.update({
+        "k_bwd": k_bwd,
         "loads_bwd": "16-byte" if se.vector_loads(
             c, t, k_bwd, esize, x.data_ptr(), g.data_ptr()) else "element",
-        "max_abs_err": err, "grad_err_rel": grad_rel,
-        "us": device_us(lambda: se.fused_se(*ins)),
-        "plain_us": device_us(lambda: se.reference_se(*ins)),
-        "bwd_us": device_us(backward),
+        "grad_err_rel": grad_rel,
+        "bwd_us": device_us(launch_bwd),
         "fwd_bwd_us": device_us(lambda: fwd_bwd(se.fused_se, leaves)),
         "plain_fwd_bwd_us": device_us(
             lambda: fwd_bwd(se.reference_se, ref_leaves)),
         "parent_fwd_bwd_us": device_us(
             lambda: (se.fused_se(*ins), se.reference_backward(ins, g))),
-        "bound_us": max(fwd_bytes / bw, fwd_ops / flops) * 1e6,
         "bwd_bound_us": max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
-        "bound_by": "bytes" if fwd_bytes / bw >= fwd_ops / flops
-        else "operations",
-        "library_us": None,
-    }
+    })
     row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
-    if b <= TRAIN_B:  # the main paths' batches: device work < launches
+    if b <= TRAIN_B:
         row.update(
-            host_us=host_us(lambda: se.fused_se(*ins)),
-            bwd_host_us=host_us(backward),
+            bwd_host_us=host_us(launch_bwd),
             fwd_bwd_host_us=host_us(lambda: fwd_bwd(se.fused_se, leaves)),
             parent_fwd_bwd_host_us=host_us(
                 lambda: (se.fused_se(*ins), se.reference_backward(ins, g))))
@@ -703,6 +737,14 @@ def check_se_train(gen, peaks):
             for b, t, c in SE_TRAIN_SHAPES]
 
 
+def check_se_fusion(gen, peaks):
+    """fused_se in the forward-only form the frozen signal encoder of the
+    fusion presets runs, in its compute dtype (bf16): at the preset's B=16
+    and bench.py's B=256 (`se_row`)."""
+    return [se_row(gen, b, t, c, torch.bfloat16, peaks, backward=False)
+            for b in (FUSION_B, BENCH_B) for t, c in SE_SHAPES]
+
+
 def make_requests(n: int, seed: int):
     """n seeded ECG-like strips (250x2500, rendered like the reference's
     lead-II photos) with varied questionnaires and formats."""
@@ -840,8 +882,24 @@ def device_busy(pipe, reqs, unprofiled_ms):
 
 
 def _on(arrays, device):
-    return arrays._replace(signals=arrays.signals.to(device),
-                           labels=arrays.labels.to(device))
+    return arrays._replace(**{
+        f: getattr(arrays, f).to(device)
+        for f in ("images", "signals", "clinical", "labels")
+        if getattr(arrays, f) is not None})
+
+
+def _launch_counts():
+    return {"fused_focal_loss": focal.launches, "fused_se": se.launches,
+            "fused_attention_fusion": fusion.launches,
+            "fused_focal_loss_backward": focal.backward_launches,
+            "fused_se_backward": se.backward_launches,
+            "fused_attention_fusion_backward": fusion.backward_launches}
+
+
+def _zero_launch_counts():
+    focal.launches = se.launches = fusion.launches = 0
+    focal.backward_launches = se.backward_launches = 0
+    fusion.backward_launches = 0
 
 
 def compare_train_steps(n_steps: int = 3):
@@ -965,6 +1023,130 @@ def compare_train_steps(n_steps: int = 3):
     return {"losses": losses, "worst": worst}
 
 
+def compare_fusion_steps(n_steps: int = 3, n_synth: int = 48):
+    """Phase 6c: n_steps train steps of the full-width `fusion` model
+    (images 224x224 uint8, signal 2476, base filters 64, TabNet on 2
+    features, the 512/128/32 head, B=16, CE + 0.1 var_loss, constant Adam
+    1e-4) from one initial state, on the card and on the CPU, over the
+    first epoch's batch plan of the preset's synthetic cohort (48 records:
+    38 train rows, so the third batch holds 10 pad rows). Float32 (the
+    preset's bf16 autocast off), TF32 off, dropout 0 (the card's and the
+    CPU's generators draw different masks); the encoders are frozen and in
+    train mode, so their BatchNorm statistics move. On the card the SE
+    gate runs 3 forwards a step and no backward, the fusion head one
+    forward and one backward with all six gradients.
+
+    Bars, and why (as tests/test_torch_fusion_train.py holds the port
+    against JAX on the CPU):
+      * loss: rtol 1e-4 at the first step (the frozen encoders' float32
+        rounding, summed in other orders by cuDNN and the CPU), 1e-3 later
+        (the parameters below carry it);
+      * float32 gradients of the first step: 1e-3 of each trainable
+        tensor's largest component: each sums the embeddings' noise over
+        the batch, where terms cancel;
+      * trainable parameters: within 1e-6, except that Adam's first update
+        moves an element by about lr whatever the size of its gradient, so
+        an element whose gradient lies within the noise of zero moves
+        either way: at most 1 in 2000 elements may differ, by at most
+        2 * sum(lr);
+      * BatchNorm running statistics of the frozen encoders: rtol and atol
+        1e-4 (values of order 1 carrying the forward's noise);
+      * frozen parameters: bit-equal to the initial state on both
+        devices."""
+    cfg = get_preset("fusion")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32", dropout=0.0))
+    t = cfg.train
+    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    if idx.shape[0] < n_steps or mask[n_steps - 1].min() != 0.0:
+        raise AssertionError(f"batch plan {idx.shape} lacks a padded batch "
+                             f"within {n_steps} steps")
+    cpu_model, task, freeze = train_run.build_model_and_task(cfg, "cpu")
+    for m in cpu_model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    models = {"cuda": copy.deepcopy(cpu_model).cuda(), "cpu": cpu_model}
+    losses, grads, states, launches = {}, {}, {}, {}
+    for dev, model in models.items():
+        st = create_state(model, t, idx.shape[0], freeze=freeze)
+        arrays = _on(train, dev)
+        idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        losses[dev] = []
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+        for i in range(n_steps):
+            mets = engine.train_step(
+                task, st, engine.gather_batch(arrays, idx_d[i], mask_d[i]))
+            losses[dev].append(float(mets["loss"]))
+            if i == 0:
+                grads[dev] = {k: p.grad.detach().cpu()
+                              for k, p in model.named_parameters()
+                              if p.grad is not None}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        states[dev] = {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()}
+    sum_lr = n_steps * t.lr
+    print(f"fusion steps gpu vs cpu: losses {losses['cuda']} vs "
+          f"{losses['cpu']}; card launches {launches}", flush=True)
+    want_launches = {"fused_focal_loss": 0, "fused_se": 3 * n_steps,
+                     "fused_attention_fusion": n_steps,
+                     "fused_focal_loss_backward": 0, "fused_se_backward": 0,
+                     "fused_attention_fusion_backward": n_steps}
+    worst, failed = {}, []
+    if launches != want_launches:
+        failed.append(f"launches {launches} != {want_launches}")
+
+    def note(kind, err, name, bar):
+        worst[kind] = max(worst.get(kind, (0.0, "")), (err, name))
+        if err > bar:
+            failed.append(f"{kind} {name}: {err:.3g} > {bar:.3g}")
+
+    for i, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+        note("loss_rel", abs(a - b) / abs(b), f"step {i + 1}",
+             1e-4 if i == 0 else 1e-3)
+    if set(grads["cuda"]) != set(grads["cpu"]) or any(
+            freeze(k) for k in grads["cpu"]):
+        failed.append(f"gradients of {sorted(grads['cuda'])} vs "
+                      f"{sorted(grads['cpu'])}")
+    for name, g in grads["cpu"].items():
+        note("grad_rel", gp.rel(grads["cuda"][name], g), name, 1e-3)
+    trainable = {k for k, p in cpu_model.named_parameters()
+                 if p.requires_grad}
+    n_off = n_all = 0
+    for name, want in states["cpu"].items():
+        got = states["cuda"][name]
+        if name.endswith("num_batches_tracked"):
+            if not torch.equal(got, want):
+                failed.append(f"{name}: {got} vs {want}")
+        elif "running_" in name:
+            err = ((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max()
+            note("bn_stat_over_bar", err.item(), name, 1.0)
+        elif name in trainable:
+            diff = (got - want).abs()
+            note("param", diff.max().item(), name, 2 * sum_lr + 1e-7)
+            n_off += int((diff > 1e-6).sum())
+            n_all += diff.numel()
+        elif not (torch.equal(got, init[name])
+                  and torch.equal(want, init[name])):
+            failed.append(f"frozen {name} moved")
+    if n_off > n_all // 2000:
+        failed.append(f"{n_off} of {n_all} trainable elements off by > 1e-6")
+    print(f"fusion steps gpu vs cpu, worst (err, tensor): {worst}; "
+          f"{n_off} of {n_all} trainable elements off by > 1e-6; sum(lr) = "
+          f"{sum_lr:.3g}", flush=True)
+    if failed:
+        raise AssertionError(f"fusion gpu vs cpu after {n_steps} steps: "
+                             f"{failed}")
+    return {"losses": losses, "worst": worst, "launches": launches}
+
+
 def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     """Phase 6b: `run()` on the card, as `python -m
     ecgmm_torch.workloads.run --preset <name>` runs it, with the launch
@@ -979,29 +1161,31 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     data = train_run.load_data(cfg, n_synth, device="cuda")
     nb = {s: pipeline.num_batches(getattr(data, s).n, t.batch_size)
           for s in ("train", "val", "test")}
-    # one loss per train step and per eval batch: every epoch trains and
-    # evaluates val; the test protocol evaluates test and val for best
+    # one forward per train step and per eval batch: every epoch trains
+    # and evaluates val; the test protocol evaluates test and val for best
     # and for last. Three SE blocks per forward.
-    n_loss = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
-    # the SE and focal backwards run at every train step
-    want = {"fused_focal_loss": n_loss, "fused_se": 3 * n_loss,
-            "fused_attention_fusion": 0,
-            "fused_focal_loss_backward": epochs * nb["train"],
-            "fused_se_backward": 3 * epochs * nb["train"],
-            "fused_attention_fusion_backward": 0}
+    n_fwd = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
+    steps = epochs * nb["train"]
+    if name in train_run.FUSION_FAMILIES:
+        # the fusion head forward and its backward (all six gradients) at
+        # every step; the frozen signal encoder runs no SE backward
+        want = {"fused_focal_loss": 0, "fused_se": 3 * n_fwd,
+                "fused_attention_fusion": n_fwd,
+                "fused_focal_loss_backward": 0, "fused_se_backward": 0,
+                "fused_attention_fusion_backward": steps}
+    else:  # the SE and focal backwards run at every train step
+        want = {"fused_focal_loss": n_fwd, "fused_se": 3 * n_fwd,
+                "fused_attention_fusion": 0,
+                "fused_focal_loss_backward": steps,
+                "fused_se_backward": 3 * steps,
+                "fused_attention_fusion_backward": 0}
     run_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
-    focal.launches = se.launches = fusion.launches = 0
-    focal.backward_launches = se.backward_launches = 0
-    fusion.backward_launches = 0
+    _zero_launch_counts()
     result, reports = train_run.run(cfg, data, run_dir=run_dir,
                                     device="cuda")
     torch.cuda.synchronize()
-    launches = {"fused_focal_loss": focal.launches, "fused_se": se.launches,
-                "fused_attention_fusion": fusion.launches,
-                "fused_focal_loss_backward": focal.backward_launches,
-                "fused_se_backward": se.backward_launches,
-                "fused_attention_fusion_backward": fusion.backward_launches}
+    launches = _launch_counts()
     print(f"{name}: splits {[getattr(data, s).n for s in nb]}, batches "
           f"{nb}; launches {launches} (batch plan {want})", flush=True)
     if launches != want:
@@ -1010,11 +1194,19 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     log_path = os.path.join(t.log_dir, name, "metrics.jsonl")
     with open(log_path) as f:
         logged = [json.loads(line) for line in f]
+    log_keys = ("Loss/Train", "Loss/Val")
+    if name in train_run.FUSION_FAMILIES:
+        log_keys += ("VarLoss/Val", "AttentionWeights/Image_w",
+                     "AttentionWeights/Signal_w",
+                     "AttentionWeights/Clinical_w")
     if len(logged) != epochs or not all(
-            np.isfinite(rec[k]) for rec in logged
-            for k in ("Loss/Train", "Loss/Val")):
+            np.isfinite(rec[k]) for rec in logged for k in log_keys):
         raise AssertionError(f"{name}: bad metric log {logged}")
-    keys = PTBXL_REPORT_KEYS if name == "ptbxl_af" else MULTI_REPORT_KEYS
+    if name == "fusion" and not (
+            logged[-1]["Loss/Train"] < logged[0]["Loss/Train"]):
+        raise AssertionError(f"{name}: the bf16 train loss did not fall: "
+                             f"{[rec['Loss/Train'] for rec in logged]}")
+    keys = REPORT_KEYS[name]
     out_dir = os.path.join(t.output_dir, name)
     for tag in ("best", "last"):
         if not keys <= set(reports[tag]):
@@ -1026,11 +1218,12 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     # result.state
     ckpt = CheckpointManager(run_dir)
     for tag, epoch in (("best", result.best_epoch + 1), ("last", epochs)):
-        model, task = train_run.build_model_and_task(cfg, "cuda")
-        st = ckpt.restore(tag, create_state(model, t, nb["train"]))
+        model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
+        st = ckpt.restore(tag, create_state(model, t, nb["train"],
+                                            freeze=freeze))
         if st.epoch != epoch:
             raise AssertionError(f"{name} {tag}: epoch {st.epoch} != {epoch}")
-        ev = engine.evaluate(task, st, data.test, t.batch_size)
+        ev = engine.evaluate(task, st, data.test, t.eval_bs)
         if not np.all(np.isfinite(ev.logits)):
             raise AssertionError(f"{name} {tag}: non-finite test logits")
         if tag == "last":
@@ -1041,26 +1234,36 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     return result, launches
 
 
-def measure_train_step(n: int = 30):
-    """Phase 7: steady-state ptbxl_af train steps at full width on the
-    card (TF32 defaults, dropout 0.3): per-step CUDA-event spans, host
-    wall time, and the device's busy share under torch.profiler."""
+def measure_train_step(name: str, batch_size: int, n_synth: int = 256,
+                       n: int = 30):
+    """Phase 7: steady-state train steps of preset `name` at full width on
+    the card with the defaults a user gets (TF32 as PyTorch sets it,
+    dropout live, the preset's compute dtype), at `batch_size`: per-step
+    CUDA-event spans, host wall time, and the device's busy share under
+    torch.profiler. The batches are the first epoch's full batches of the
+    preset's synthetic cohort of `n_synth` records, or, where the train
+    split is smaller than `batch_size`, rows drawn with replacement."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_preset("ptbxl_af")
-    t = cfg.train
-    data = train_run.load_data(cfg, 256, device="cuda")
-    model, task = train_run.build_model_and_task(cfg, "cuda")
-    idx, mask = engine.epoch_indices(data.train.n, t.batch_size,
-                                     shuffle=True, seed=t.seed, epoch=0)
-    state = create_state(model, t, idx.shape[0])
+    cfg = get_preset(name)
+    t = dataclasses.replace(cfg.train, batch_size=batch_size)
+    data = train_run.load_data(cfg, n_synth, device="cuda")
+    model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
+    if data.train.n >= batch_size:
+        idx, mask = engine.epoch_indices(data.train.n, batch_size,
+                                         shuffle=True, seed=t.seed, epoch=0)
+        idx = idx[mask.min(axis=1) == 1.0]
+    else:
+        idx = np.random.default_rng(t.seed).integers(
+            0, data.train.n, (8, batch_size))
+    state = create_state(model, t, idx.shape[0], freeze=freeze)
     idx_d = torch.from_numpy(idx.astype(np.int64)).cuda()
-    mask_d = torch.from_numpy(mask).cuda()
-    full = idx.shape[0] - 1  # the full batches; the last one is padded
+    ones = torch.ones(batch_size, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
 
     def step(i):
         return engine.train_step(task, state, engine.gather_batch(
-            data.train, idx_d[i % full], mask_d[i % full]))
+            data.train, idx_d[i % idx.shape[0]], ones))
 
     for i in range(5):
         step(i)
@@ -1074,11 +1277,15 @@ def measure_train_step(n: int = 30):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     spans = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-    out = {"steps": n, "batch": t.batch_size,
+    out = {"preset": name, "steps": n, "batch": batch_size,
+           # the signal presets' ResNet1D-SE runs in float32
+           "dtype": (cfg.model.dtype if name in train_run.FUSION_FAMILIES
+                     else "float32"),
            "median_ms": statistics.median(spans),
            "p90_ms": float(np.percentile(spans, 90)),
            "wall_ms_per_step": wall_ms,
-           "samples_per_s": t.batch_size * 1e3 / wall_ms}
+           "samples_per_s": batch_size * 1e3 / wall_ms,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     k = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -1211,6 +1418,7 @@ def main() -> int:
     focal_profiled_backward(gen)
     focal_sweep = focal_cluster_sweep(gen)
     se_train_rows = check_se_train(gen, peaks)
+    se_fusion_rows = check_se_fusion(gen, peaks)
 
     # 4. the slice
     launches, timings = run_slice()
@@ -1228,22 +1436,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     compare_train_steps()
+    compare_fusion_steps()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     with tempfile.TemporaryDirectory() as tmp:
         ptbxl, ptbxl_launches = run_training(tmp, "ptbxl_af", 256, 2)
         _, multi_launches = run_training(tmp, "physionet_multi", 96, 1)
+        fusion_run, fusion_launches = run_training(tmp, "fusion", 256, 2)
+        _, balance_launches = run_training(tmp, "fusion_modal_balance", 96,
+                                           1)
 
     # 7. numbers
-    for h in ptbxl.history:
-        print(f"ptbxl_af epoch {h['epoch'] + 1} time "
-              f"{h['Time/Epoch'] * 1e3:.3f} ms (train + val, n_synth 256; "
-              f"{smi})", flush=True)
-    step = measure_train_step()
-    print(f"ptbxl_af train step ({smi}): {json.dumps(step)}", flush=True)
+    for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run)):
+        for h in res.history:
+            print(f"{run_name} epoch {h['epoch'] + 1} time "
+                  f"{h['Time/Epoch'] * 1e3:.3f} ms (train + val, n_synth "
+                  f"256; {smi})", flush=True)
+    for run_name, b in (("ptbxl_af", TRAIN_B), ("fusion", FUSION_B),
+                        ("fusion", BENCH_B)):
+        step = measure_train_step(run_name, b)
+        print(f"{run_name} train step B={b} ({smi}): {json.dumps(step)}",
+              flush=True)
     paths = {
         "serve": launches,
         "train_ptbxl_af": ptbxl_launches,
         "train_physionet_multi": multi_launches,
+        "train_fusion": fusion_launches,
+        "train_fusion_modal_balance": balance_launches,
     }
 
     def by_path(kernel):

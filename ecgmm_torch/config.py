@@ -3,9 +3,11 @@
 There is no `use_pallas` switch: an op runs its CUDA kernel when its
 tensors lie on a CUDA device and its plain PyTorch version when they lie
 on the CPU (see `ecgmm_torch/ops`). There is no mesh either: the port
-trains on one card. The presets are those of the signal-only ResNet1D-SE
-trainers that run on the synthetic cohort; the others, and the fusion,
-CV and streaming knobs, wait for their slices (ROADMAP.md)."""
+trains on one card. The presets are those of the trimodal fusion trainers
+(`fusion`, `fusion_modal_balance`) and of the signal-only ResNet1D-SE
+trainers that run on the synthetic cohort; the others, and the
+cached-embedding, CV and streaming knobs, wait for their slices
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ class DataConfig:
     sample rate come with the real-data slice that reads them
     (ROADMAP.md)."""
 
+    img_height: int = 224
+    img_width: int = 224
     # Hospital digitized lead-II signals: 2476 samples @ 250 Hz
     # (reference evaluation_signal.py:36-38, train_signal_only_ptb.py:32).
     signal_len: int = 2476
@@ -37,16 +41,34 @@ class ModelConfig:
     signal_base_filters: int = 64
     signal_input_channels: int = 1
     clinical_in_features: int = 2
-    # The clinical branch is always TabNet (multimodal.py:109-148): the
-    # modal-balance variant's MLP branch is not ported yet (ROADMAP.md).
+    # 'tabnet' (multimodal.py:109-148) or 'mlp'
+    # (multimodal_paper_modal_balance.py:256-263)
+    clinical_encoder: str = "tabnet"
+    # modal-balance variant forces 256/256/256 + MLP clinical encoder
+    # (multimodal_paper_modal_balance.py:197-263).
+    variant: str = "canonical"
     # compute dtype of the three encoders; parameters stay float32
     dtype: str = "bfloat16"
+
+    @staticmethod
+    def modal_balance() -> "ModelConfig":
+        return ModelConfig(
+            image_dim=256,
+            signal_dim=256,
+            clinical_dim=256,
+            clinical_in_features=24,
+            clinical_encoder="mlp",
+            variant="modal_balance",
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training-loop hyperparameters (the fields of the JAX TrainConfig
-    that the signal-only trainers read)."""
+    that the fusion and signal-only trainers read). Defaults mirror the
+    reference fusion trainer: bs 16, <=30 epochs, lr 1e-4, early-stop
+    patience 5, LR / 10 after 2 non-improving epochs, loss CE(fusion) +
+    0.1 var_loss (reference config.py:33-36, train.py:35-43,78,157-167)."""
 
     seed: int = 42
     batch_size: int = 16
@@ -56,6 +78,12 @@ class TrainConfig:
     patience: int = 5  # early stop
     plateau_patience: int = 2  # epochs of no val improvement before LR decay
     plateau_factor: float = 0.1  # LR ÷ 10 (train.py:157-163)
+    var_loss_weight: float = 0.1  # train.py:78
+    # CE on the three per-branch logits added to the fusion CE: 0 for the
+    # canonical trainer (train.py:78), 1.0 for the exhaustive-CV trainer
+    # (train_exhausted.py:67-75).
+    branch_loss_weight: float = 0.0
+    freeze_encoders: bool = True  # train.py:35-40
     loss: str = "cross_entropy"  # or "focal"
     focal_alpha: float = 1.0
     focal_gamma: float = 2.0
@@ -65,6 +93,11 @@ class TrainConfig:
     log_dir: str = "./runs"
     output_dir: str = "./output"
     keep_checkpoints: int = 3
+    eval_batch_size: int = 0  # 0 = same as batch_size
+
+    @property
+    def eval_bs(self) -> int:
+        return self.eval_batch_size or self.batch_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +106,16 @@ class Config:
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
     name: str = "fusion"
+
+
+def fusion_preset() -> Config:
+    """Trimodal fusion training (reference train.py)."""
+    return Config(name="fusion")
+
+
+def fusion_modal_balance_preset() -> Config:
+    """Modal-balance fusion variant (reference train_paper_modal_balance.py)."""
+    return Config(name="fusion_modal_balance", model=ModelConfig.modal_balance())
 
 
 def ptbxl_preset() -> Config:
@@ -87,6 +130,7 @@ def ptbxl_preset() -> Config:
             lr=1e-3,
             loss="focal",
             schedule="onecycle",
+            freeze_encoders=False,
             patience=0,
         ),
     )
@@ -104,6 +148,7 @@ def physionet_preset() -> Config:
             lr=1e-3,
             loss="focal",
             schedule="onecycle",
+            freeze_encoders=False,
             patience=0,
         ),
     )
@@ -118,7 +163,13 @@ def physionet_multi_preset() -> Config:
     )
 
 
+CACHED_EMBEDDINGS_ITEM = (
+    "ROADMAP.md section 1, 'Next PRs' 1: the cached-embedding path "
+    "(train/embed.py, the fusion_cached preset)")
+
 PRESETS = {
+    "fusion": fusion_preset,
+    "fusion_modal_balance": fusion_modal_balance_preset,
     "ptbxl_af": ptbxl_preset,
     "physionet": physionet_preset,
     "physionet_multi": physionet_multi_preset,
@@ -126,6 +177,9 @@ PRESETS = {
 
 
 def get_preset(name: str) -> Config:
+    if name == "fusion_cached":
+        raise NotImplementedError(
+            f"preset 'fusion_cached' waits for {CACHED_EMBEDDINGS_ITEM}")
     try:
         return PRESETS[name]()
     except KeyError:

@@ -1,11 +1,11 @@
-"""Signal-task materialisation and the epoch plan (port of the
-device-resident part of `ecgmm_tpu/data/pipeline.py`).
+"""Trimodal and signal-task materialisation and the epoch plan (port of
+the device-resident part of `ecgmm_tpu/data/pipeline.py`).
 
 Each split is preprocessed once on the host and then held on the device
-as tensors; a training epoch gathers its batches there with
-`index_select` (`train/engine.py`), so sample data crosses to the device
-once per run. HBM budgets, host-resident streaming splits and split
-caches are not ported yet (ROADMAP.md).
+as tensors (images as (N, 3, H, W) uint8); a training epoch gathers its
+batches there with `index_select` (`train/engine.py`), so sample data
+crosses to the device once per run. HBM budgets, host-resident streaming
+splits and split caches are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ecgmm_torch.data import splits
+from ecgmm_torch.data import preprocess, splits
+from ecgmm_torch.data.synthetic import SyntheticCohort
 
 
 class Arrays(NamedTuple):
@@ -39,6 +40,9 @@ class MaterializedData:
     train: Arrays
     val: Arrays
     test: Arrays
+    # the StandardScalers fit on the train split (trimodal tasks only)
+    ecg_scaler: Optional[preprocess.Scaler] = None
+    clinical_scaler: Optional[preprocess.Scaler] = None
 
 
 class Batch(NamedTuple):
@@ -49,6 +53,46 @@ class Batch(NamedTuple):
     # 1.0 for real samples, 0.0 for pad rows (the last batch is padded to
     # the full batch size)
     mask: torch.Tensor
+
+
+def materialize_trimodal(cohort: SyntheticCohort, cfg,
+                         device="cuda") -> MaterializedData:
+    """Split, scale and preprocess a trimodal cohort into device tensors,
+    as the reference's get_dataloaders (dataset.py:118-213) does:
+    stratified 8:1:1 on `cfg.train.seed`, StandardScalers fit on the train
+    rows only (the whole ECG matrix; AGE/Wt, or every clinical column for
+    the modal-balance variant, dataset_image.py:36), the hospital filter
+    on the scaled signals; clinical columns past the scaled ones pass
+    unscaled. Images (N, H, W, 3) uint8 are permuted to (N, 3, H, W) on the
+    host and cross to `device` once, as every split does."""
+    device = torch.device(device)
+    sp = splits.stratified_811(cohort.labels, seed=cfg.train.seed)
+    n_scaled = (cohort.clinical.shape[1]
+                if cfg.model.variant == "modal_balance" else 2)
+    ecg_scaler = preprocess.Scaler.fit(cohort.signals[sp.train])
+    clin_scaler = preprocess.Scaler.fit(cohort.clinical[sp.train, :n_scaled])
+
+    def build(idx: np.ndarray) -> Arrays:
+        sig = preprocess.preprocess_hospital(
+            ecg_scaler.transform(cohort.signals[idx]))
+        clin = np.concatenate(
+            [clin_scaler.transform(cohort.clinical[idx, :n_scaled]),
+             np.asarray(cohort.clinical[idx, n_scaled:], np.float32)],
+            axis=1)
+        images = np.ascontiguousarray(cohort.images[idx].transpose(0, 3, 1, 2))
+        return Arrays(
+            images=torch.from_numpy(images).to(device),
+            signals=torch.from_numpy(np.ascontiguousarray(sig, np.float32)
+                                     ).to(device),
+            clinical=torch.from_numpy(clin).to(device),
+            labels=torch.from_numpy(
+                np.asarray(cohort.labels[idx], np.int64)).to(device),
+            indices=cohort.indices[idx],
+        )
+
+    return MaterializedData(train=build(sp.train), val=build(sp.val),
+                            test=build(sp.test), ecg_scaler=ecg_scaler,
+                            clinical_scaler=clin_scaler)
 
 
 def materialize_signal(

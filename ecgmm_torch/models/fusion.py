@@ -1,11 +1,12 @@
-"""Trimodal attention-fusion model (port of `ecgmm_tpu/models/fusion.py`,
-canonical variant: ResNet18 image branch, ResNet1D-SE signal branch,
-TabNet clinical branch).
+"""Trimodal attention-fusion model (port of `ecgmm_tpu/models/fusion.py`):
+ResNet18 image branch, ResNet1D-SE signal branch, and a TabNet clinical
+branch (the canonical 512/128/32 variant) or an MLP one (the modal-balance
+256/256/256 variant), selected by `ModelConfig.clinical_encoder`.
 
 Parameter names follow the reference torch layout that
-`ecgmm_tpu.tools.export_pth.export_fusion_canonical` emits, so
-`ecgmm_torch.tools.weights.from_jax_variables` loads strictly. The
-AttentionFusion head goes through `ecgmm_torch.ops.fusion`.
+`ecgmm_tpu.tools.export_pth.export_fusion_{canonical,modal_balance}`
+emit, so `ecgmm_torch.tools.weights.from_jax_variables` loads strictly.
+The AttentionFusion head goes through `ecgmm_torch.ops.fusion`.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from ecgmm_torch.config import ModelConfig
-from ecgmm_torch.models.clinical import TabNetEncoder
+from ecgmm_torch.models.clinical import ClinicalMLPEncoder, TabNetEncoder
+from ecgmm_torch.models.layers import Dropout
 from ecgmm_torch.models.resnet18 import ResNet18
 from ecgmm_torch.models.resnet1d_se import ResNet1DSE
 from ecgmm_torch.ops.fusion import fused_attention_fusion
@@ -32,7 +34,7 @@ class FusionOutput(NamedTuple):
     fusion_logits: torch.Tensor
     var_loss: torch.Tensor       # scalar variance-balance regulariser
     soft_weights: torch.Tensor   # (3,) softmax attention weights
-    m_loss: torch.Tensor         # TabNet sparsity loss
+    m_loss: torch.Tensor         # TabNet sparsity loss (0 for the MLP)
 
 
 class AttentionFusion(nn.Module):
@@ -56,26 +58,37 @@ class AttentionFusion(nn.Module):
 def _chunk_variance_loss(img, sig, clin, mask=None):
     """|var_i - var_s| + |var_i - var_c| + |var_s - var_c| over per-sample
     feature variances (ddof=1, as torch.var); mask (B,) drops padded rows
-    from the batch mean (`ecgmm_tpu.models.fusion._chunk_variance_loss`)."""
+    from the batch mean (`ecgmm_tpu.models.fusion._chunk_variance_loss`).
+    The ties differentiate as JAX's do: the denominator max(sum(mask), 1)
+    is torch.maximum against a 1.0 tensor, whose VJP splits a tie at
+    sum(mask) == 1 as jnp.maximum's does, and |d| has derivative 1 at
+    d == 0 as jnp.abs has (torch's abs has 0 there; all three variances
+    are 0 where the mask is)."""
 
     def v(x):
         rows = x.float().var(dim=1, unbiased=True)
         if mask is None:
             return rows.mean()
         m = mask.float()
-        return (rows * m).sum() / torch.clamp(m.sum(), min=1.0)
+        s = m.sum()
+        return (rows * m).sum() / torch.maximum(s, s.new_ones(()))
+
+    def absolute(d):
+        return torch.where(d >= 0, d, -d)
 
     vi, vs, vc = v(img), v(sig), v(clin)
-    return (vi - vs).abs() + (vi - vc).abs() + (vs - vc).abs()
+    return absolute(vi - vs) + absolute(vi - vc) + absolute(vs - vc)
 
 
 class ECGMultimodalModel(nn.Module):
-    """Canonical trimodal model. Inputs: image (B, 3, H, W) uint8 raw or
-    float normalised, signal (B, T) or (B, 1, T), clinical (B, F). The
-    encoders run in `cfg.dtype` under autocast; everything after them runs
-    in float32 (the JAX model runs `fusion_hidden` in the compute dtype
-    too; the two agree exactly only in float32). Only eval mode is ported
-    (see models/clinical.py)."""
+    """Trimodal model. Inputs: image (B, 3, H, W) uint8 raw or float
+    normalised, signal (B, T) or (B, 1, T), clinical (B, F). The encoders
+    run in `cfg.dtype` under autocast; everything after them runs in
+    float32 (the JAX model runs `fusion_hidden` in the compute dtype too;
+    the two agree exactly only in float32). `.train()` puts every module
+    in flax's train mode, the encoders included (batch statistics, live
+    dropout), as the JAX model's `train=True` does; the fusion head's
+    dropout draws from the generator `set_dropout_generator` gives it."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -88,9 +101,15 @@ class ECGMultimodalModel(nn.Module):
             input_channels=cfg.signal_input_channels,
             base_filters=cfg.signal_base_filters,
         )
-        self.clinical_encoder = TabNetEncoder(
-            cfg.clinical_in_features, out_dim=cfg.clinical_dim
-        )
+        if cfg.clinical_encoder == "tabnet":
+            self.clinical_encoder = TabNetEncoder(
+                cfg.clinical_in_features, out_dim=cfg.clinical_dim)
+        elif cfg.clinical_encoder == "mlp":
+            self.clinical_encoder = ClinicalMLPEncoder(
+                cfg.clinical_in_features, out_dim=cfg.clinical_dim)
+        else:
+            raise ValueError(
+                f"unknown clinical encoder {cfg.clinical_encoder!r}")
         # torch nn.LayerNorm eps (1e-5)
         self.image_norm = nn.LayerNorm(cfg.image_dim, eps=1e-5)
         self.signal_norm = nn.LayerNorm(cfg.signal_dim, eps=1e-5)
@@ -103,8 +122,8 @@ class ECGMultimodalModel(nn.Module):
         self.attention_fusion = AttentionFusion(width)
         self.fusion_classifier = nn.Sequential(
             nn.Linear(width, cfg.fusion_hidden), nn.ReLU(),
-            nn.Dropout(cfg.dropout), nn.Linear(cfg.fusion_hidden,
-                                               cfg.num_classes),
+            Dropout(cfg.dropout), nn.Linear(cfg.fusion_hidden,
+                                            cfg.num_classes),
         )
 
     def _autocast(self, device: torch.device):
@@ -126,9 +145,13 @@ class ECGMultimodalModel(nn.Module):
             return self.signal_encoder(signal).float()
 
     def encode_clinical(self, clinical):
-        """(LayerNorm'd clinical embedding, TabNet m_loss)."""
+        """(LayerNorm'd clinical embedding, TabNet m_loss; 0 for the
+        MLP)."""
         with self._autocast(clinical.device):
-            clin, m_loss = self.clinical_encoder(clinical)
+            clin = self.clinical_encoder(clinical)
+        m_loss = clinical.new_zeros((), dtype=torch.float32)
+        if isinstance(clin, tuple):
+            clin, m_loss = clin
         return self.clinical_norm(clin.float()), m_loss.float()
 
     def encode(self, image, signal, clinical, return_image_map=False):

@@ -5,7 +5,9 @@ NCHW with torchvision's parameter names (`conv1`, `bn1`,
 a space-to-depth 4x4 conv with the uint8 normalisation folded in (a TPU
 layout trick); here the stem is the plain 7x7/s2 conv, and the input
 convention is kept: a uint8 input is raw pixels, normalised as
-x/127.5 - 1, and a float input is already normalised.
+x/127.5 - 1, and a float input is already normalised. Train mode follows
+flax (`models/layers.BatchNorm2d`): the biased batch variance normalises
+and is folded into `running_var`, momentum 0.1 in torch terms.
 """
 
 from __future__ import annotations
@@ -13,20 +15,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ecgmm_torch.models.layers import BatchNorm2d
+
 
 class BasicBlock2D(nn.Module):
     def __init__(self, c_in: int, c_out: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(c_in, c_out, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(c_out)
+        self.bn1 = BatchNorm2d(c_out)
         self.conv2 = nn.Conv2d(c_out, c_out, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(c_out)
+        self.bn2 = BatchNorm2d(c_out)
         self.downsample = None
         if c_in != c_out or stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(c_in, c_out, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(c_out),
+                BatchNorm2d(c_out),
             )
 
     def forward(self, x):
@@ -43,7 +47,7 @@ class ResNet18(nn.Module):
     def __init__(self, num_classes: int = 2):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         c_in = 64
         for stage in range(4):

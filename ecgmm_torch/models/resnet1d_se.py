@@ -5,63 +5,17 @@ Channels-first (B, C, T), parameter names of the reference torch model
 exporters' state dicts load strictly. Padding is symmetric and explicit.
 The SE gate goes through `ecgmm_torch.ops.se`.
 
-Train mode follows flax, not torch: BatchNorm normalises with the biased
-batch variance and also folds the biased variance into `running_var`
-(torch's `BatchNorm1d` folds the unbiased one), with momentum 0.1 in
-torch terms (flax 0.9) and eps 1e-5; dropout draws from an explicit
-`torch.Generator`. `flax_init_` initialises like flax's defaults.
+Train mode follows flax (`models/layers.py`): BatchNorm with the biased
+variance in `running_var`, dropout from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Optional
-
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ecgmm_torch.models.layers import BatchNorm1d, Dropout
 from ecgmm_torch.ops.se import fused_se
-
-# flax's truncated-normal initialisers divide the standard deviation by
-# the std of a unit normal truncated to [-2, 2]
-_TRUNC_STD = 0.87962566103423978
-
-
-class BatchNorm1d(nn.BatchNorm1d):
-    """`nn.BatchNorm1d` with flax's train-mode statistics: the batch's
-    biased variance both normalises and updates `running_var`. Eval mode
-    is torch's (the running statistics)."""
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        dims = (0, 2) if x.dim() == 3 else (0,)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
-
-
-class Dropout(nn.Module):
-    """Inverted dropout like flax's: keep with probability 1 - p and scale
-    by 1 / (1 - p). The mask comes from `generator` (torch's default
-    generator when None), which must lie on the input's device."""
-
-    def __init__(self, p: float):
-        super().__init__()
-        self.p = p
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
-        return x * keep / (1.0 - self.p)
 
 
 class SEBlock1D(nn.Module):
@@ -145,30 +99,3 @@ class ResNet1DSE(nn.Module):
             return logits, feats
         return logits
 
-
-def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialise `model` in place with flax's defaults, drawing from
-    `generator`: every Conv1d and Linear kernel lecun-normal (truncated
-    normal, std sqrt(1 / fan_in) / 0.8796, cut at two std), every bias 0,
-    BatchNorm scale 1, bias 0, running mean 0 and variance 1. A run from
-    scratch then starts from the same distribution as the JAX run (the
-    numbers differ: the generators do)."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv1d, nn.Linear)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
-                                      2.0 * std, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm1d):
-                m.reset_parameters()
-    return model
-
-
-def set_dropout_generator(model: nn.Module,
-                          generator: Optional[torch.Generator]) -> None:
-    """Make every `Dropout` of `model` draw from `generator`."""
-    for m in model.modules():
-        if isinstance(m, Dropout):
-            m.generator = generator

@@ -36,8 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ecgmm_torch.config import get_preset
-from ecgmm_torch.models.resnet1d_se import (BasicBlock1D, BatchNorm1d,
-                                            SEBlock1D)
+from ecgmm_torch.models.layers import BatchNorm1d
+from ecgmm_torch.models.resnet1d_se import BasicBlock1D, SEBlock1D
 from ecgmm_torch.train import engine
 from ecgmm_torch.workloads import run as train_run
 
@@ -93,7 +93,7 @@ def batch_plan(n_synth: int = 64):
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0,
                                      sample_weights=weights)
-    model, task = train_run.build_model_and_task(cfg, "cpu")
+    model, task, _ = train_run.build_model_and_task(cfg, "cpu")
     return cfg, train, idx, mask, model, task
 
 

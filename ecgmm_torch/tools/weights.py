@@ -1,8 +1,10 @@
 """Flax variables -> the port's state dict.
 
-`from_jax_variables` takes the canonical fusion model's variables tree
-(`{"params": ..., "batch_stats": ...}` with numpy leaves) and returns the
-state dict that `ecgmm_torch.models.ECGMultimodalModel` loads strictly.
+`from_jax_variables` takes a fusion model's variables tree (`{"params":
+..., "batch_stats": ...}` with numpy leaves), canonical (TabNet) or
+modal-balance (MLP clinical branch), and returns the state dict that
+`ecgmm_torch.models.ECGMultimodalModel` of that variant loads strictly;
+every BatchNorm's `batch_stats` become its running-statistics buffers.
 It is the port's own copy of the layout rules of the JAX exporters
 (`ecgmm_tpu/tools/export_pth.py`): Conv1d (W, I, O) -> (O, I, W), Conv2d
 (H, W, I, O) -> (O, I, H, W), Linear (I, O) -> (O, I), BatchNorm
@@ -145,6 +147,12 @@ def _tabnet(b: _Branch) -> None:
     b.linear("final_mapping", "final_mapping", bias=False)
 
 
+def _clinical_mlp(b: _Branch) -> None:
+    b.linear("0", "fc1")
+    b.bn("1", "bn")
+    b.linear("4", "fc2")
+
+
 def _fusion_tail(flat, sd) -> None:
     def p(path):
         return flat[f"params/{path}"]
@@ -180,13 +188,19 @@ def from_jax_resnet1d_se(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The canonical fusion model's flax variables (numpy leaves) as the
-    port's state dict, for `ECGMultimodalModel.load_state_dict(...,
-    strict=True)`."""
+    """A fusion model's flax variables (numpy leaves) as the port's state
+    dict, for `ECGMultimodalModel.load_state_dict(..., strict=True)`: the
+    layout of `export_fusion_modal_balance` where the clinical branch is
+    the MLP (it has `fc1`), else of `export_fusion_canonical`."""
     flat = _flatten(variables)
     sd: Dict[str, np.ndarray] = {}
     _resnet18(_Branch(flat, sd, "image_encoder", "image_encoder"))
     _resnet1d_se(_Branch(flat, sd, "signal_encoder", "signal_encoder"))
-    _tabnet(_Branch(flat, sd, "clinical_encoder", "clinical_encoder.tabnet"))
+    clinical = _Branch(flat, sd, "clinical_encoder", "clinical_encoder")
+    if clinical.has("fc1/kernel"):
+        _clinical_mlp(clinical)
+    else:
+        _tabnet(_Branch(flat, sd, "clinical_encoder",
+                        "clinical_encoder.tabnet"))
     _fusion_tail(flat, sd)
     return _tensors(sd)

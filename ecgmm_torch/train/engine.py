@@ -12,7 +12,10 @@ reference's (train.py:55-167), as the JAX engine keeps them:
     while the loss and accuracy mask them out;
   * the train loss is the sum of the batch losses over the number of
     batches; the eval loss is the mean of the per-batch losses, the
-    padded batch included;
+    padded batch included; a task's scalar metrics (the fusion task's
+    var_loss) are averaged over the eval batches and logged for val
+    (`VarLoss/Val`), and the last train step's soft attention weights
+    are logged per epoch (`AttentionWeights/*`);
   * a non-finite val loss neither improves `best` nor counts as a stale
     epoch; the counters update before the checkpoints are written; early
     stop and the plateau decay follow the config (0 disables them);
@@ -103,7 +106,7 @@ def _plan_on_device(idx: np.ndarray, mask: np.ndarray, device):
 def train_step(task: Task, state: TrainState,
                batch: Batch) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update; returns the step's
-    metrics as device scalars (no host synchronisation)."""
+    metrics as device tensors, detached (no host synchronisation)."""
     model = state.model
     model.train()
     outputs = task.apply(model, batch)
@@ -116,7 +119,8 @@ def train_step(task: Task, state: TrainState,
         preds = task.logits(outputs).argmax(-1)
         correct = ((preds == batch.labels).float() * batch.mask).sum()
     return {"loss": loss.detach(), "correct": correct,
-            "count": batch.mask.sum(), **mets}
+            "count": batch.mask.sum(),
+            **{k: v.detach() for k, v in mets.items()}}
 
 
 def _assemble_eval(losses, logits, labels, extra) -> EvalResult:
@@ -229,17 +233,25 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
                        gather_batch(train_arrays, idx_d[i], mask_d[i]))
             for i in range(n_batches)
         ]
+        # one read of the device per epoch: the three sums, then the last
+        # step's soft weights where the task has them
+        soft_weights = None
         if step_mets:
-            sums = torch.stack([
-                torch.stack([m[k] for m in step_mets]).sum()
-                for k in ("loss", "correct", "count")
-            ]).cpu().numpy()
+            last_sw = step_mets[-1].get("soft_weights")
+            host = torch.cat(
+                [torch.stack([torch.stack([m[k] for m in step_mets]).sum()
+                              for k in ("loss", "correct", "count")])]
+                + ([last_sw.float()] if last_sw is not None else [])
+            ).cpu().numpy()
+            sums = host[:3]
+            if last_sw is not None:
+                soft_weights = host[3:]
         else:
             sums = np.zeros(3, np.float32)
         avg_train_loss = float(sums[0]) / max(n_batches, 1)
         train_acc = float(sums[1]) / max(float(sums[2]), 1.0)
 
-        val = evaluate(task, state, val_arrays, cfg.batch_size)
+        val = evaluate(task, state, val_arrays, cfg.eval_bs)
         epoch_time = time.perf_counter() - t0
 
         scalars = {
@@ -249,6 +261,12 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
             "Accuracy/Val": val.accuracy,
             "Time/Epoch": epoch_time,
         }
+        if "var_loss" in val.metrics:
+            scalars["VarLoss/Val"] = val.metrics["var_loss"]
+        if soft_weights is not None:
+            for k, branch in enumerate(("Image", "Signal", "Clinical")):
+                scalars[f"AttentionWeights/{branch}_w"] = float(
+                    soft_weights[k])
         lr = state.optimizer.get_lr()
         if lr is not None:
             scalars["LR"] = lr

@@ -6,7 +6,8 @@ mask: the last batch of an epoch is padded, and pad rows carry mask 0.
   * focal_loss: alpha (1 - p_t)^gamma CE with p_t = exp(-CE), masked mean
     (reference signal_model.py:91-106), through the fused op
     `ecgmm_torch.ops.losses.fused_focal_loss` (the CUDA kernel for CUDA
-    tensors).
+    tensors);
+  * fusion_loss: CE(fusion) + 0.1 var_loss (reference train.py:78).
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ def focal_loss(logits, labels, mask=None, alpha: float = 1.0,
                           device=logits.device)
     return fused_focal_loss(logits.float().contiguous(), labels.contiguous(),
                             mask.float().contiguous(), alpha, gamma)
+
+
+def fusion_loss(fusion_logits, labels, var_loss, mask=None,
+                var_weight: float = 0.1):
+    return cross_entropy(fusion_logits, labels, mask) + var_weight * var_loss
 
 
 def make_loss_fn(name: str, alpha: float = 1.0, gamma: float = 2.0):

@@ -1,19 +1,26 @@
 """Train state (port of `ecgmm_tpu/train/state.py`): everything an exact
 resume needs. The JAX state is one immutable tree; here it is the module
 (parameters and BatchNorm statistics), the optimizer, the dropout
-generator and the loop counters, updated in place by the engine."""
+generator and the loop counters, updated in place by the engine.
+
+The JAX state splits the parameters into a trainable and a frozen
+partition by a path predicate; here the frozen parameters get
+`requires_grad_(False)` and the optimizer holds the trainable ones only.
+The model stays in train mode as a whole, so a frozen encoder's
+BatchNorms still update their running statistics, as the JAX step's
+`batch_stats` do, and the checkpoint holds the whole state dict."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from ecgmm_torch.config import TrainConfig
-from ecgmm_torch.models.resnet1d_se import set_dropout_generator
+from ecgmm_torch.models.layers import set_dropout_generator
 from ecgmm_torch.train.optim import Optimizer
 
 
@@ -51,16 +58,32 @@ class TrainState:
 
 
 def create_state(model: nn.Module, cfg: TrainConfig,
-                 steps_per_epoch: Optional[int] = None) -> TrainState:
-    """A fresh TrainState around `model` (already on its device): Adam
-    over every parameter and a dropout generator on the model's device
-    seeded with `cfg.seed`."""
+                 steps_per_epoch: Optional[int] = None,
+                 freeze: Optional[Callable[[str], bool]] = None
+                 ) -> TrainState:
+    """A fresh TrainState around `model` (already on its device): the
+    parameters whose names `freeze` selects stop requiring a gradient,
+    Adam runs over the others, and every `Dropout` of the model draws from
+    a generator on the model's device seeded with `cfg.seed`."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
     set_dropout_generator(model, generator)
+    trainable = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(freeze is None or not freeze(name))
+        if p.requires_grad:
+            trainable.append(p)
     return TrainState(
         model=model,
-        optimizer=Optimizer(model.parameters(), cfg, steps_per_epoch),
+        optimizer=Optimizer(trainable, cfg, steps_per_epoch),
         generator=generator,
     )
+
+
+ENCODER_PREFIXES = ("image_encoder.", "signal_encoder.", "clinical_encoder.")
+
+
+def encoder_freeze_predicate(name: str) -> bool:
+    """Freeze all three modality encoders (reference train.py:35-40)."""
+    return name.startswith(ENCODER_PREFIXES)

@@ -1,9 +1,11 @@
-"""Trainer CLI (port of `ecgmm_tpu/workloads/run.py` for the signal-only
-ResNet1D-SE presets):
+"""Trainer CLI (port of `ecgmm_tpu/workloads/run.py` for the trimodal
+fusion presets and the signal-only ResNet1D-SE presets):
 
+    python -m ecgmm_torch.workloads.run                 # --preset fusion
+    python -m ecgmm_torch.workloads.run --preset fusion_modal_balance
     python -m ecgmm_torch.workloads.run --preset ptbxl_af
     python -m ecgmm_torch.workloads.run --preset physionet_multi --epochs 3
-    python -m ecgmm_torch.workloads.run --preset ptbxl_af --device cpu \
+    python -m ecgmm_torch.workloads.run --preset fusion --device cpu \
         --epochs 1 --n-synth 48
 
 It trains on the card unless `--device cpu` is given, on the
@@ -26,16 +28,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ecgmm_torch.config import Config, get_preset
+from ecgmm_torch.config import CACHED_EMBEDDINGS_ITEM, Config, get_preset
 from ecgmm_torch.data import pipeline, preprocess, splits, synthetic
-from ecgmm_torch.models.resnet1d_se import ResNet1DSE, flax_init_
+from ecgmm_torch.models import ECGMultimodalModel, ResNet1DSE
+from ecgmm_torch.models.layers import flax_init_
 from ecgmm_torch.train import calibrate, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.report import test_report
-from ecgmm_torch.train.state import create_state
-from ecgmm_torch.workloads.tasks import make_signal_task
+from ecgmm_torch.train.state import create_state, encoder_freeze_predicate
+from ecgmm_torch.workloads.tasks import make_fusion_task, make_signal_task
 
+FUSION_FAMILIES = ("fusion", "fusion_modal_balance")
 SIGNAL_FAMILIES = ("ptbxl_af", "physionet", "physionet_multi")
 REAL_DATA_ITEM = ("ROADMAP.md section 1, 'Real-data training': the PTB-XL "
                   "and PhysioNet records and their manifests are not in the "
@@ -54,29 +58,46 @@ def _device(device) -> torch.device:
 
 def build_model_and_task(cfg: Config, device="cuda"):
     """The preset's model, initialised like flax's defaults from
-    `cfg.train.seed`, on `device`, and its task."""
-    if cfg.name not in SIGNAL_FAMILIES:
+    `cfg.train.seed`, on `device`, its task, and the predicate of the
+    parameters its train state freezes (None: none)."""
+    t = cfg.train
+    if cfg.name in FUSION_FAMILIES:
+        model = ECGMultimodalModel(cfg.model)
+        task = make_fusion_task(t)
+        freeze = encoder_freeze_predicate if t.freeze_encoders else None
+    elif cfg.name in SIGNAL_FAMILIES:
+        model = ResNet1DSE(
+            num_classes=cfg.model.num_classes,
+            input_channels=cfg.model.signal_input_channels,
+            base_filters=cfg.model.signal_base_filters,
+            dropout=cfg.model.dropout,
+        )
+        task = make_signal_task(t)
+        freeze = None
+    else:
         raise NotImplementedError(
             f"preset {cfg.name!r} is not ported yet (ROADMAP.md section 1)")
-    model = ResNet1DSE(
-        num_classes=cfg.model.num_classes,
-        input_channels=cfg.model.signal_input_channels,
-        base_filters=cfg.model.signal_base_filters,
-        dropout=cfg.model.dropout,
-    )
-    flax_init_(model, torch.Generator().manual_seed(cfg.train.seed))
-    return model.to(_device(device)), make_signal_task(cfg.train)
+    flax_init_(model, torch.Generator().manual_seed(t.seed))
+    return model.to(_device(device)), task, freeze
 
 
 def load_data(cfg: Config, n_synth: int,
               device="cuda") -> pipeline.MaterializedData:
     """The preset's synthetic cohort, split and preprocessed as its
-    reference trainer does, on `device`: PTB-XL is drawn at 500 Hz
+    reference trainer does, on `device`: the fusion presets' trimodal
+    cohort (images img_height x img_width, the preset's clinical columns)
+    through `materialize_trimodal`; PTB-XL is drawn at 500 Hz
     (2 x signal_len), split 60/20/20 and decimated, filtered and cut to
     signal_len; PhysioNet is split 80/10/10 (70/10/20 with three random
     classes for physionet_multi), band-passed and z-scored."""
     seed = cfg.train.seed
     rng = np.random.default_rng(seed)
+    if cfg.name in FUSION_FAMILIES:
+        c = synthetic.make_cohort(
+            n=n_synth, signal_len=cfg.data.signal_len,
+            img_hw=(cfg.data.img_height, cfg.data.img_width),
+            n_clinical=cfg.model.clinical_in_features, seed=seed)
+        return pipeline.materialize_trimodal(c, cfg, device=device)
     if cfg.name == "ptbxl_af":
         c = synthetic.make_cohort(n=n_synth, signal_len=2 * cfg.data.signal_len,
                                   img_hw=None, seed=seed)
@@ -127,9 +148,10 @@ def run(cfg: Config, data: pipeline.MaterializedData,
              else time.strftime("%m%d_%H%M%S"))
     run_dir = run_dir or os.path.join(t.checkpoint_dir, stamp)
 
-    model, task = build_model_and_task(cfg, device)
+    model, task, freeze = build_model_and_task(cfg, device)
     state = create_state(model, t,
-                         pipeline.num_batches(data.train.n, t.batch_size))
+                         pipeline.num_batches(data.train.n, t.batch_size),
+                         freeze=freeze)
     ckpt = CheckpointManager(run_dir, keep_epochs=t.keep_checkpoints)
     if resume and ckpt.exists("last"):
         ckpt.restore("last", state)
@@ -152,11 +174,11 @@ def run(cfg: Config, data: pipeline.MaterializedData,
         for tag in ("best", "last"):
             st = ckpt.restore(tag, result.state) if ckpt.exists(tag) \
                 else result.state
-            ev = engine.evaluate(task, st, data.test, t.batch_size)
+            ev = engine.evaluate(task, st, data.test, t.eval_bs)
             results[tag] = test_report(ev.logits, ev.labels, out_dir, tag,
                                        threshold_search=(t.loss == "focal"))
             if data.val.n > 0:
-                vev = engine.evaluate(task, st, data.val, t.batch_size)
+                vev = engine.evaluate(task, st, data.val, t.eval_bs)
                 temp = calibrate.fit_temperature(vev.logits, vev.labels)
                 temperatures[tag] = temp
                 results[tag].update(temperature=round(temp, 4))
@@ -195,7 +217,11 @@ def apply_train_overrides(cfg: Config, epochs=None, batch_size=None,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--preset", default="ptbxl_af", choices=SIGNAL_FAMILIES)
+    p.add_argument("--preset", default="fusion",
+                   choices=FUSION_FAMILIES + ("fusion_cached",)
+                   + SIGNAL_FAMILIES,
+                   help="fusion_cached waits for the cached-embedding path "
+                        "and raises")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -203,6 +229,9 @@ def main(argv=None):
                    help="override the reference's fixed seed 42 (drives "
                         "the cohort, splits, init and sampling)")
     p.add_argument("--n-synth", type=int, default=128)
+    p.add_argument("--cache-embeddings", action="store_true",
+                   help="fusion presets over precomputed frozen-encoder "
+                        "embeddings: not ported yet")
     p.add_argument("--data-dir", default=None,
                    help="real PTB-XL/PhysioNet records: not ported yet")
     p.add_argument("--run-dir", default=None)
@@ -212,6 +241,9 @@ def main(argv=None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
+    if args.cache_embeddings:
+        raise NotImplementedError(
+            f"--cache-embeddings waits for {CACHED_EMBEDDINGS_ITEM}")
     if args.data_dir is not None:
         raise FileNotFoundError(
             f"training on real records from {args.data_dir!r} waits for "

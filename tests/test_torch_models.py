@@ -154,17 +154,6 @@ def test_sparsemax_matches_jax(rng):
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
 
 
-def test_train_mode_waits_for_training_slice(models, inputs):
-    _, _, model = models
-    clin = torch.from_numpy(inputs[2])
-    model.clinical_encoder.train()
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.clinical_encoder(clin)
-    finally:
-        model.clinical_encoder.eval()
-
-
 def test_bf16_compute_dtype_runs(inputs):
     """cfg.dtype='bfloat16' runs the encoders under autocast; the fused
     embeddings and logits come out float32 and finite."""

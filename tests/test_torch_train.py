@@ -55,7 +55,8 @@ from ecgmm_tpu.workloads import make_signal_task as jax_make_signal_task
 from ecgmm_tpu.workloads import run as jax_run
 from ecgmm_torch.config import Config, ModelConfig, TrainConfig, get_preset
 from ecgmm_torch.data import pipeline, preprocess, splits, synthetic
-from ecgmm_torch.models.resnet1d_se import BatchNorm1d, ResNet1DSE, flax_init_
+from ecgmm_torch.models.layers import BatchNorm1d, flax_init_
+from ecgmm_torch.models.resnet1d_se import ResNet1DSE
 from ecgmm_torch.tools.weights import from_jax_resnet1d_se
 from ecgmm_torch.train import engine, metrics
 from ecgmm_torch.train.checkpoint import CheckpointManager
@@ -632,7 +633,9 @@ def test_run_refuses_mismatched_device_and_unported_presets(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_run.run(cfg, data, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_run.build_model_and_task(Config(name="fusion"), "cpu")
+        port_run.build_model_and_task(Config(name="image_only"), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_preset("fusion_cached")
     with pytest.raises(KeyError, match="ptbxl_af"):
         get_preset("signal_only")
     assert ModelConfig().signal_base_filters == 64
