@@ -7,7 +7,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   1. device: the card's name and power limit; compute capability 9.0;
   2. build: compile the CUDA kernels from `ecgmm_torch/ops/csrc/`;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the serving and training shapes: values, and the gradients of the
+     at the serving and training shapes (the signal_only stage's B=8
+     among them): values, and the gradients of the
      SE, fusion and focal backward kernels against autograd and their
      closed forms, within the stated bars, with bit-identical relaunches;
      a profiled focal backward of a train step runs one device kernel;
@@ -30,17 +31,29 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      on the card and the CPU (loss, gradients, trainable parameters, the
      encoders' BatchNorm statistics, frozen weights bit-equal), with 3 SE
      forwards, no SE backward and one fusion forward and backward a step;
-     `run()` trains `ptbxl_af` (2 epochs, 256 synthetic records),
-     `physionet_multi` (1 epoch, 96 records), `fusion` (bf16, 2 epochs,
-     256 records; its train loss must fall) and `fusion_modal_balance`
-     (1 epoch, 96 records) on the card through the kernels, checkpoints
-     restore, the best/last test reports and the logged scalars
-     (`VarLoss/Val`, `AttentionWeights/*` for fusion) have their keys, and
-     the launch counters equal the batch plan;
-  7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16 and
-     `fusion` at B=16 and 256, samples/s, epoch time, the device's busy
-     share and the top host ops (torch.profiler), and one `kernels` JSON
-     line whose `launches_by_path` names every path driven.
+     so do 3 full-width `image_only` steps (ResNet-18's backward), 3
+     clinical-probe steps (TabNet's backward) and the cached path
+     (`calibrate_bn_stats` buffers, `encode_raw` of the train split, 3
+     head steps, frozen weights bit-equal), all in float32 with TF32 off
+     as `run()` sets it; `run()` trains `ptbxl_af` (2 epochs, 256
+     synthetic records), `physionet_multi` (1 epoch, 96 records),
+     `fusion` (bf16, 2 epochs, 256 records; its train loss must fall),
+     `fusion_modal_balance` (1 epoch, 96 records), `fusion_cached` (bf16,
+     2 epochs, 256 records; its train loss must fall), `image_only` and
+     `signal_only` (1 epoch, 96 records) on the card through the kernels,
+     checkpoints restore, the best/last test reports and the logged
+     scalars (`VarLoss/Val`, `AttentionWeights/*` for fusion) have their
+     keys, and the launch counters equal the batch plan; `run_pipeline`
+     (one epoch a stage, 96 records, cached) warm-starts stage 4 from
+     each stage's best under the three filters, and its launches equal
+     each stage's plan;
+  7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16,
+     `fusion` and `fusion_cached` (head steps, after a timed calibration
+     and encoding of the train split) at B=16 and 256, `image_only` at
+     B=16, `ptbxl_af` and `image_only` also with cuDNN's TF32 on,
+     samples/s, epoch time, the device's busy share and the top host ops
+     (torch.profiler), and one `kernels` JSON line whose
+     `launches_by_path` names every path driven.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -51,6 +64,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -67,17 +81,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
-from ecgmm_torch.models import ECGMultimodalModel  # noqa: E402
-from ecgmm_torch.models.layers import Dropout  # noqa: E402
+from ecgmm_torch.models import ECGMultimodalModel, TabNetEncoder  # noqa: E402
+from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
 from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
-from ecgmm_torch.train import engine  # noqa: E402
+from ecgmm_torch.train import embed, engine  # noqa: E402
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
+from ecgmm_torch.workloads import pretrain  # noqa: E402
 from ecgmm_torch.workloads import run as train_run  # noqa: E402
+from ecgmm_torch.workloads.tasks import (  # noqa: E402
+    make_clinical_task, make_fusion_head_task)
 
 # (HBM bytes/s, non-tensor-core f32 FLOP/s) by card name (NVIDIA data
 # sheets; dense rates at the full power limit)
@@ -91,12 +108,16 @@ SE_SHAPES = [(619, 64), (310, 128), (155, 256)]  # (T, C) at signal 2476
 SE_EDGE_SHAPES = [(37, 16)]  # odd T, reduction width R = 1
 FUSION_DIMS = [(512, 128, 32), (256, 256, 256)]  # canonical, modal balance
 TRAIN_B = 16  # ptbxl_af batch
+SIGNAL_ONLY_B = 8  # the signal_only preset's batch (pretraining stage 2)
 # (B, T, C) of the SE blocks on the training paths: ptbxl_af (signal
-# 2476, B=16) and physionet_multi (signal 3000, B=8)
+# 2476, B=16), physionet_multi (signal 3000, B=8) and signal_only (signal
+# 2476, B=8)
 SE_TRAIN_SHAPES = ([(TRAIN_B, t, c) for t, c in SE_SHAPES]
-                   + [(8, 750, 64), (8, 375, 128), (8, 188, 256)])
-# (B, C): ptbxl_af, physionet_multi, the widest class count, a large batch
-FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2)]
+                   + [(8, 750, 64), (8, 375, 128), (8, 188, 256)]
+                   + [(SIGNAL_ONLY_B, t, c) for t, c in SE_SHAPES])
+# (B, C): ptbxl_af, physionet_multi, the widest class count, a large
+# batch, signal_only
+FOCAL_SHAPES = [(16, 2), (8, 3), (13, 4), (65536, 2), (SIGNAL_ONLY_B, 2)]
 FOCAL_MASKS = ("ones", "some_zero", "all_zero", "single")
 FUSION_B = 16  # the fusion presets' batch
 BENCH_B = 256  # bench.py's flagship batch, where TabNet's ghost BN splits
@@ -108,6 +129,9 @@ REPORT_KEYS = {
                         "test_ece", "test_ece_calibrated"},
     "fusion": FUSION_REPORT_KEYS,
     "fusion_modal_balance": FUSION_REPORT_KEYS,
+    "fusion_cached": FUSION_REPORT_KEYS,
+    "image_only": FUSION_REPORT_KEYS,
+    "signal_only": FUSION_REPORT_KEYS | {"threshold"},
 }
 RESPONSE_KEYS = ("label", "probability", "ecg_signal", "heatmap",
                  "feature_importance", "gpt_result", "digitization")
@@ -896,6 +920,13 @@ def _launch_counts():
             "fused_attention_fusion_backward": fusion.backward_launches}
 
 
+NO_LAUNCHES = {k: 0 for k in ("fused_focal_loss", "fused_se",
+                              "fused_attention_fusion",
+                              "fused_focal_loss_backward",
+                              "fused_se_backward",
+                              "fused_attention_fusion_backward")}
+
+
 def _zero_launch_counts():
     focal.launches = se.launches = fusion.launches = 0
     focal.backward_launches = se.backward_launches = 0
@@ -1060,65 +1091,101 @@ def compare_fusion_steps(n_steps: int = 3, n_synth: int = 48):
     train = train_run.load_data(cfg, n_synth, device="cpu").train
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0)
-    if idx.shape[0] < n_steps or mask[n_steps - 1].min() != 0.0:
-        raise AssertionError(f"batch plan {idx.shape} lacks a padded batch "
-                             f"within {n_steps} steps")
     cpu_model, task, freeze = train_run.build_model_and_task(cfg, "cpu")
     for m in cpu_model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
-    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
-    models = {"cuda": copy.deepcopy(cpu_model).cuda(), "cpu": cpu_model}
-    losses, grads, states, launches = {}, {}, {}, {}
-    for dev, model in models.items():
-        st = create_state(model, t, idx.shape[0], freeze=freeze)
-        arrays = _on(train, dev)
+    init, out = _steps_on_both(cpu_model, task, t, train, idx, mask, n_steps,
+                               freeze=freeze)
+    want_launches = dict(NO_LAUNCHES, fused_se=3 * n_steps,
+                         fused_attention_fusion=n_steps,
+                         fused_attention_fusion_backward=n_steps)
+    return _check_both("fusion steps", init, out, _trainable(cpu_model),
+                       n_steps * t.lr, 1e-3, 1e-4, want_launches)
+
+
+def _trainable(model):
+    """The state-dict names of the parameters that require a gradient
+    (every name of a Linear shared by several modules, as TabNet's)."""
+    return {k for k, p in model.named_parameters(remove_duplicate=False)
+            if p.requires_grad}
+
+
+def _steps_on_both(model, task, cfg, arrays, idx, mask, n_steps,
+                   freeze=None):
+    """n_steps train steps of `model` (on the CPU, float32) from one
+    initial state on the card and on the CPU, over the batch plan
+    (idx, mask). Returns the initial state dict and, per device, the
+    losses, the first step's gradients, the final state dict and (card)
+    the kernels' launches over the steps."""
+    if idx.shape[0] < n_steps or mask[n_steps - 1].min() != 0.0:
+        raise AssertionError(f"batch plan {idx.shape} lacks a padded batch "
+                             f"within {n_steps} steps")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    models = {"cuda": copy.deepcopy(model).cuda(), "cpu": model}
+    out = {}
+    for dev, m in models.items():
+        st = create_state(m, cfg, idx.shape[0], freeze=freeze)
+        a = _on(arrays, dev)
         idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
         mask_d = torch.from_numpy(mask).to(dev)
-        losses[dev] = []
         if dev == "cuda":
             torch.cuda.synchronize()
             _zero_launch_counts()
+        losses, grads = [], {}
         for i in range(n_steps):
             mets = engine.train_step(
-                task, st, engine.gather_batch(arrays, idx_d[i], mask_d[i]))
-            losses[dev].append(float(mets["loss"]))
+                task, st, engine.gather_batch(a, idx_d[i], mask_d[i]))
+            losses.append(float(mets["loss"]))
             if i == 0:
-                grads[dev] = {k: p.grad.detach().cpu()
-                              for k, p in model.named_parameters()
-                              if p.grad is not None}
+                grads = {k: p.grad.detach().cpu()
+                         for k, p in m.named_parameters()
+                         if p.grad is not None}
+        launches = None
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = _launch_counts()
-        states[dev] = {k: v.detach().cpu()
-                       for k, v in model.state_dict().items()}
-    sum_lr = n_steps * t.lr
-    print(f"fusion steps gpu vs cpu: losses {losses['cuda']} vs "
-          f"{losses['cpu']}; card launches {launches}", flush=True)
-    want_launches = {"fused_focal_loss": 0, "fused_se": 3 * n_steps,
-                     "fused_attention_fusion": n_steps,
-                     "fused_focal_loss_backward": 0, "fused_se_backward": 0,
-                     "fused_attention_fusion_backward": n_steps}
+        out[dev] = (losses, grads,
+                    {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                    launches)
+    return init, out
+
+
+def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
+                want_launches, count_turned=True, later_loss_bar=1e-3):
+    """The card against the CPU after `_steps_on_both`: losses (rtol 1e-4
+    at the first step, `later_loss_bar` later), the first step's gradients
+    within `grad_bar` of each tensor's largest component (None: held
+    elsewhere), the trainable
+    parameters within 2 sum(lr) (Adam moves an element by about lr
+    whatever its gradient's size, so one whose gradient lies within the
+    noise of zero moves either way) and, with `count_turned`, within 1e-6
+    for all but 1 in 2000 elements; the BatchNorm
+    buffers within `stat_bar` (relative and absolute); frozen parameters
+    bit-equal to the initial state on both devices; the launches."""
+    losses = {d: o[0] for d, o in out.items()}
+    grads = {d: o[1] for d, o in out.items()}
+    states = {d: o[2] for d, o in out.items()}
+    launches = out["cuda"][3]
     worst, failed = {}, []
-    if launches != want_launches:
-        failed.append(f"launches {launches} != {want_launches}")
 
     def note(kind, err, name, bar):
         worst[kind] = max(worst.get(kind, (0.0, "")), (err, name))
         if err > bar:
             failed.append(f"{kind} {name}: {err:.3g} > {bar:.3g}")
 
+    if launches != want_launches:
+        failed.append(f"launches {launches} != {want_launches}")
     for i, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         note("loss_rel", abs(a - b) / abs(b), f"step {i + 1}",
-             1e-4 if i == 0 else 1e-3)
-    if set(grads["cuda"]) != set(grads["cpu"]) or any(
-            freeze(k) for k in grads["cpu"]):
+             1e-4 if i == 0 else later_loss_bar)
+    if set(grads["cuda"]) != set(grads["cpu"]) or not set(
+            grads["cpu"]) <= trainable:
         failed.append(f"gradients of {sorted(grads['cuda'])} vs "
                       f"{sorted(grads['cpu'])}")
     for name, g in grads["cpu"].items():
-        note("grad_rel", gp.rel(grads["cuda"][name], g), name, 1e-3)
-    trainable = {k for k, p in cpu_model.named_parameters()
-                 if p.requires_grad}
+        note("grad_rel", gp.rel(grads["cuda"][name], g), name,
+             math.inf if grad_bar is None else grad_bar)
     n_off = n_all = 0
     for name, want in states["cpu"].items():
         got = states["cuda"][name]
@@ -1126,7 +1193,8 @@ def compare_fusion_steps(n_steps: int = 3, n_synth: int = 48):
             if not torch.equal(got, want):
                 failed.append(f"{name}: {got} vs {want}")
         elif "running_" in name:
-            err = ((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max()
+            err = ((got - want).abs() / (stat_bar
+                                         + stat_bar * want.abs())).max()
             note("bn_stat_over_bar", err.item(), name, 1.0)
         elif name in trainable:
             diff = (got - want).abs()
@@ -1136,15 +1204,227 @@ def compare_fusion_steps(n_steps: int = 3, n_synth: int = 48):
         elif not (torch.equal(got, init[name])
                   and torch.equal(want, init[name])):
             failed.append(f"frozen {name} moved")
-    if n_off > n_all // 2000:
+    if count_turned and n_off > n_all // 2000:
         failed.append(f"{n_off} of {n_all} trainable elements off by > 1e-6")
-    print(f"fusion steps gpu vs cpu, worst (err, tensor): {worst}; "
-          f"{n_off} of {n_all} trainable elements off by > 1e-6; sum(lr) = "
-          f"{sum_lr:.3g}", flush=True)
+    print(f"{where} gpu vs cpu: losses {losses['cuda']} vs {losses['cpu']};"
+          f" worst (err, tensor): {worst}; {n_off} of {n_all} trainable "
+          f"elements off by > 1e-6; sum(lr) = {sum_lr:.3g}; card launches "
+          f"{launches}", flush=True)
     if failed:
-        raise AssertionError(f"fusion gpu vs cpu after {n_steps} steps: "
-                             f"{failed}")
+        raise AssertionError(f"{where} gpu vs cpu: {failed}")
     return {"losses": losses, "worst": worst, "launches": launches}
+
+
+def _image_choices(model, images, device, dtype):
+    """ResNet-18's discrete forward choices in train mode: the sign of
+    each ReLU's input (the stem's BatchNorm and every block's `bn1`; a
+    block's output is its ReLU's) and the max-pool's argmax with its
+    maximum (`tools/grad_precision.flips` compares them)."""
+    m = copy.deepcopy(model).to(device, dtype).train()
+    seen, hooks = {}, []
+    for name, mod in m.named_modules():
+        if isinstance(mod, torch.nn.MaxPool2d):
+            def fwd(mod, inp, out, name=name):
+                val, idx = F.max_pool2d(inp[0], mod.kernel_size, mod.stride,
+                                        mod.padding, return_indices=True)
+                seen[name] = (idx.cpu(), val.cpu())
+        elif (name == "bn1" or name.endswith(".bn1")
+              or type(mod).__name__ == "BasicBlock2D"):
+            def fwd(mod, inp, out, name=name):
+                seen[name] = (out > 0).cpu()
+        else:
+            continue
+        hooks.append(mod.register_forward_hook(fwd))
+    with torch.no_grad():
+        m(images.to(device, dtype) if dtype == torch.float64
+          else images.to(device))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def _image_grads(model, task, batch, device):
+    """The first image step's float32 gradients on `device`."""
+    m = copy.deepcopy(model).to(device).train()
+    b = batch._replace(images=batch.images.to(device),
+                       labels=batch.labels.to(device),
+                       mask=batch.mask.to(device))
+    loss, _ = task.loss(task.apply(m, b), b)
+    loss.backward()
+    return {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+
+def compare_image_steps(n_steps: int = 3, n_synth: int = 48):
+    """Phase 6d: n_steps `image_only` train steps (ResNet18 with 2
+    classes, float32, 224x224 uint8 images, B=16, CE, constant Adam 1e-4:
+    ResNet-18's first backward on the card) from one initial state on the
+    card and the CPU, TF32 off, over the first epoch's plan of the
+    preset's cohort (38 train rows: the third batch holds 10 pad rows).
+    No kernel of the port lies on this path (ResNet-18 runs through cuDNN
+    and ATen).
+
+    Each device's first-step float32 gradients are read against float64
+    on the CPU, beside the forward's discrete choices (ReLU signs,
+    max-pool argmax) that differ from float64's: at 224x224 and B=16 a
+    few of the ~3e7 ReLU and max-pool inputs lie within float32 rounding
+    of their threshold, and each one that flips reroutes its position's
+    gradient, most in the 7x7 maps of layer4, where one position weighs
+    most: on either device a few flips move a weight gradient by
+    percents of its largest component (PERF.md section 6, PR 6). So the
+    card's float32 is held to float64 by the choices it flips, at most
+    100, and its gradients within 0.1 of each tensor's largest component;
+    a TF32 control of the first step must flip more than 1000. Later losses differ by what the turned elements' Adam
+    steps move (rtol 5e-3); parameters 2 sum(lr); the BatchNorm buffers
+    1e-3 (`_check_both`)."""
+    cfg = get_preset("image_only")
+    t = cfg.train
+    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    model, task, _ = train_run.build_model_and_task(cfg, "cpu")
+    first = engine.gather_batch(train, torch.from_numpy(
+        idx[0].astype(np.int64)), torch.from_numpy(mask[0]))
+    if first.mask.min() != 1.0:
+        raise AssertionError("the first image batch is padded")
+    x64 = first.images.double() / 127.5 - 1.0
+    m64 = copy.deepcopy(model).double().train()
+    F.cross_entropy(m64.fc(m64.features(x64).mean(dim=(2, 3))),
+                    first.labels).backward()
+    g64 = {k: p.grad for k, p in m64.named_parameters()}
+    c64 = _image_choices(model, x64, "cpu", torch.float64)
+    reading, flipped = {}, {}
+    for label, dev, setting in (("cpu", "cpu", None), ("card", "cuda", None),
+                                ("card_tf32", "cuda", "tf32")):
+        old = gp.apply_setting(setting) if setting else None
+        try:
+            g = _image_grads(model, task, first, dev)
+            c = _image_choices(model, first.images, dev, torch.float32)
+        finally:
+            if old is not None:
+                gp.restore_setting(old)
+        reading[label] = gp.worst(g, g64)
+        flipped[label] = sum(n for n, _ in gp.flips(c, c64).values())
+    print(f"image_only first step against float64, worst (err, tensor): "
+          f"{reading}; forward choices off float64: {flipped}", flush=True)
+    if (reading["card"][0] > 0.1 or flipped["card"] > 100
+            or flipped["card_tf32"] <= 1000):
+        raise AssertionError(
+            f"image_only first step against float64: {reading}, flips "
+            f"{flipped} (bars: card 0.1 and 100 flips; TF32 over 1000)")
+    init, out = _steps_on_both(model, task, t, train, idx, mask, n_steps)
+    return _check_both("image_only steps", init, out, _trainable(model),
+                       n_steps * t.lr, None, 1e-3, NO_LAUNCHES,
+                       count_turned=False, later_loss_bar=5e-3)
+
+
+def compare_clinical_steps(n_steps: int = 3, n_synth: int = 48):
+    """Phase 6e: n_steps clinical-probe steps (TabNet on the canonical
+    cohort's 2 features under a linear probe, float32, B=16, CE + 1e-3
+    m_loss, the fusion preset's constant Adam 1e-4, as the pipeline's
+    stage 3: TabNet's first backward on the card) on the card and the
+    CPU, TF32 off, over the first epoch's plan. Bars as the image steps';
+    no kernel of the port lies on this path."""
+    cfg = get_preset("fusion")
+    t = dataclasses.replace(cfg.train, freeze_encoders=False)
+    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    task, probe = make_clinical_task(
+        TabNetEncoder(cfg.model.clinical_in_features,
+                      out_dim=cfg.model.clinical_dim), t,
+        cfg.model.num_classes)
+    flax_init_(probe, torch.Generator().manual_seed(t.seed))
+    init, out = _steps_on_both(probe, task, t, train, idx, mask, n_steps)
+    return _check_both("clinical probe steps", init, out, _trainable(probe),
+                       n_steps * t.lr, 2e-3, 1e-3, NO_LAUNCHES)
+
+
+def compare_cached(n_steps: int = 3, n_synth: int = 48):
+    """Phase 6f: the cached path at full width (the canonical model,
+    float32, dropout 0, frozen encoders) on the card and the CPU, TF32
+    off: `calibrate_bn_stats` over the train split's full batches at eval
+    batch 16 (38 rows: 2 batches, 3 passes), then every BatchNorm buffer
+    (rtol and atol 1e-4, as the fusion steps hold them); `encode_raw` of
+    every batch of the train split (`precompute_fusion_embeddings`: the
+    first batch is `encode_raw` of one batch) within 1e-4 of each
+    embedding's largest component (eval-mode float32 convolutions summed
+    in other orders); then n_steps head steps (`make_fusion_head_task`)
+    over the cached embeddings, held as the fusion steps are (losses,
+    gradients 1e-3, parameters, frozen weights bit-equal). On the card the
+    calibration runs 3 SE forwards and one fusion forward a batch, the
+    encoding 3 SE forwards a batch and no fusion kernel, a head step one
+    fusion forward and one six-gradient backward."""
+    cfg = get_preset("fusion_cached")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32", dropout=0.0))
+    t = cfg.train
+    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    model, _, freeze = train_run.build_model_and_task(cfg, "cpu")
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    task = make_fusion_head_task(t)
+    models = {"cuda": copy.deepcopy(model).cuda(), "cpu": model}
+    calibrated, cached, res = {}, {}, {}
+    for dev, m in models.items():
+        st = create_state(m, t, idx.shape[0], freeze=freeze)
+        a = _on(train, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+        embed.calibrate_bn_stats(st, a, t.eval_bs)
+        calibrated[dev] = {k: v.detach().cpu()
+                           for k, v in m.state_dict().items()}
+        c = embed.precompute_fusion_embeddings(m, a, t.eval_bs)
+        cached[dev] = c
+        idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        losses, grads = [], {}
+        for i in range(n_steps):
+            mets = engine.train_step(
+                task, st, engine.gather_batch(c, idx_d[i], mask_d[i]))
+            losses.append(float(mets["loss"]))
+            if i == 0:
+                grads = {k: p.grad.detach().cpu()
+                         for k, p in m.named_parameters()
+                         if p.grad is not None}
+        launches = None
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        res[dev] = (losses, grads, {k: v.detach().cpu()
+                                    for k, v in m.state_dict().items()},
+                    launches)
+    failed = []
+    for name, want in calibrated["cpu"].items():
+        if "running_" in name:
+            got = calibrated["cuda"][name]
+            moved = not torch.equal(want, init[name])
+            if not moved or ((got - want).abs()
+                             > 1e-4 + 1e-4 * want.abs()).any():
+                failed.append(f"calibrated {name}: moved {moved}, err "
+                              f"{(got - want).abs().max().item():.3g}")
+    emb_err = {}
+    for f in ("images", "signals", "clinical"):
+        want = getattr(cached["cpu"], f)
+        emb_err[f] = gp.rel(getattr(cached["cuda"], f), want)
+        if emb_err[f] > 1e-4 or want.shape[0] != train.n:
+            failed.append(f"embeddings {f}: {emb_err[f]:.3g}")
+    n_full = train.n // t.eval_bs
+    n_enc = -(-train.n // t.eval_bs)
+    want_launches = dict(NO_LAUNCHES, **{
+        "fused_se": 3 * (3 * n_full + n_enc),
+        "fused_attention_fusion": 3 * n_full + n_steps,
+        "fused_attention_fusion_backward": n_steps})
+    print(f"cached path gpu vs cpu: calibrated buffers checked, embedding "
+          f"error relative to the largest component {emb_err}", flush=True)
+    if failed:
+        raise AssertionError(f"cached path gpu vs cpu: {failed}")
+    return _check_both("cached head steps", init, res, _trainable(model),
+                       n_steps * t.lr, 1e-3, 1e-4, want_launches)
 
 
 def run_training(tmp: str, name: str, n_synth: int, epochs: int):
@@ -1166,7 +1446,21 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     # and for last. Three SE blocks per forward.
     n_fwd = epochs * (nb["train"] + nb["val"]) + 2 * (nb["test"] + nb["val"])
     steps = epochs * nb["train"]
-    if name in train_run.FUSION_FAMILIES:
+    if t.cache_embeddings:
+        # calibration: 3 passes of whole-model forwards over the train
+        # split's full batches at eval_bs; encoding: every batch of each
+        # split once, the encoders only (3 SE forwards, no fusion head);
+        # then the head alone at every step and eval batch
+        calib = 3 * (data.train.n // t.eval_bs)
+        enc = sum(pipeline.num_batches(getattr(data, s).n, t.eval_bs)
+                  for s in nb)
+        want = {"fused_focal_loss": 0, "fused_se": 3 * (calib + enc),
+                "fused_attention_fusion": calib + n_fwd,
+                "fused_focal_loss_backward": 0, "fused_se_backward": 0,
+                "fused_attention_fusion_backward": steps}
+    elif name == "image_only":  # ResNet-18 alone: no kernel of the port
+        want = dict(NO_LAUNCHES)
+    elif name in train_run.FUSION_FAMILIES:
         # the fusion head forward and its backward (all six gradients) at
         # every step; the frozen signal encoder runs no SE backward
         want = {"fused_focal_loss": 0, "fused_se": 3 * n_fwd,
@@ -1202,7 +1496,7 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     if len(logged) != epochs or not all(
             np.isfinite(rec[k]) for rec in logged for k in log_keys):
         raise AssertionError(f"{name}: bad metric log {logged}")
-    if name == "fusion" and not (
+    if name in ("fusion", "fusion_cached") and not (
             logged[-1]["Loss/Train"] < logged[0]["Loss/Train"]):
         raise AssertionError(f"{name}: the bf16 train loss did not fall: "
                              f"{[rec['Loss/Train'] for rec in logged]}")
@@ -1234,36 +1528,187 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     return result, launches
 
 
+def run_pretrain_pipeline(tmp: str, n_synth: int = 96):
+    """Phase 6g: `run_pipeline` at full width on the card, as `python -m
+    ecgmm_torch.workloads.pretrain --cache-embeddings` runs it, one epoch
+    a stage, with the launch counters set to 0 just before and read just
+    after, and read between the stages too (around `pretrain._fit_stage`).
+    The launches must equal each stage's batch plan: none for image_only
+    and the clinical probe; a signal_only step 3 SE forwards and
+    backwards and one focal forward and backward, a val batch the
+    forwards; in stage 4 a calibration batch 3 SE forwards and one fusion
+    forward, an encoded batch 3 SE forwards, a head step one fusion
+    forward and one six-gradient backward, an eval batch one fusion
+    forward. Stage 4's encoder weights must equal each stage's `best`
+    checkpoint under the three filters, and the filtered tensors the
+    fusion model's initial ones."""
+    cfg = get_preset("fusion")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=1, cache_embeddings=True))
+    t = cfg.train
+    data = train_run.load_data(cfg, n_synth, device="cuda")
+    run_dir = os.path.join(tmp, "pipeline")
+    stages = []
+    fit_stage = pretrain._fit_stage
+
+    def counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        out = fit_stage(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        stages.append((os.path.basename(args[4]), args[3],
+                       {k: after[k] - before[k] for k in after}))
+        return out
+
+    pretrain._fit_stage = counted
+    try:
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        result, ev = pretrain.run_pipeline(cfg, data, run_dir,
+                                           stage_epochs=1, device="cuda")
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    finally:
+        pretrain._fit_stage = fit_stage
+    n = {s: getattr(data, s).n for s in ("train", "val", "test")}
+
+    def nbat(split, bs):
+        return pipeline.num_batches(n[split], bs)
+
+    want, got = {}, {}
+    for stage, tcfg, counts in stages:
+        got[stage] = counts
+        if stage == "signal_only":
+            steps, val = nbat("train", tcfg.batch_size), nbat("val",
+                                                               tcfg.eval_bs)
+            want[stage] = dict(NO_LAUNCHES, **{
+                "fused_se": 3 * (steps + val), "fused_se_backward": 3 * steps,
+                "fused_focal_loss": steps + val,
+                "fused_focal_loss_backward": steps})
+        else:
+            want[stage] = dict(NO_LAUNCHES)
+    got["fusion"] = {k: launches[k] - sum(c[k] for *_, c in stages)
+                     for k in launches}
+    calib = 3 * (n["train"] // t.eval_bs)
+    enc = sum(nbat(s, t.eval_bs) for s in n)
+    steps = nbat("train", t.batch_size)
+    want["fusion"] = dict(NO_LAUNCHES, **{
+        "fused_se": 3 * (calib + enc),
+        "fused_attention_fusion": calib + steps + nbat("val", t.eval_bs)
+        + nbat("test", t.eval_bs),
+        "fused_attention_fusion_backward": steps})
+    print(f"pretrain pipeline: splits {n}; launches by stage {got} (batch "
+          f"plan {want}); fusion test accuracy {ev.accuracy:.4f}",
+          flush=True)
+    if got != want or [s for s, *_ in stages] != [
+            "image_only", "signal_only", "clinical"]:
+        raise AssertionError(f"pretrain launches {got} != {want}")
+    if not (np.isfinite(ev.loss) and np.all(np.isfinite(ev.logits))
+            and ev.logits.shape == (n["test"], 2)):
+        raise AssertionError(f"pretrain: bad test evaluation {ev.loss}")
+
+    init = flax_init_(ECGMultimodalModel(cfg.model),
+                      torch.Generator().manual_seed(t.seed)).state_dict()
+    model = result.state.model
+    checked = {}
+    for stage, prefix, sub in (("image_only", "image_encoder.", ""),
+                               ("signal_only", "signal_encoder.", ""),
+                               ("clinical", "clinical_encoder.", "encoder.")):
+        best = CheckpointManager(os.path.join(run_dir, stage)).load(
+            "best")["model"]
+        excluded = pretrain.WARM_START_FILTERS[stage.split("_")[0]][1]
+        n_warm = n_init = 0
+        for name, p in model.named_parameters():
+            if not name.startswith(prefix):
+                continue
+            key = name[len(prefix):]
+            if p.requires_grad:
+                raise AssertionError(f"pretrain: {name} is not frozen")
+            if key.startswith(excluded):
+                ok, n_init = torch.equal(p.cpu(), init[name]), n_init + 1
+            else:
+                ok, n_warm = torch.equal(p.cpu(), best[sub + key].cpu()), \
+                    n_warm + 1
+            if not ok:
+                raise AssertionError(f"pretrain: {name} is not the "
+                                     "warm start")
+        checked[stage] = (n_warm, n_init)
+    print(f"pretrain warm start: (tensors from the stage's best, tensors "
+          f"kept from the fusion init) {checked}", flush=True)
+    return result, launches
+
+
 def measure_train_step(name: str, batch_size: int, n_synth: int = 256,
-                       n: int = 30):
+                       n: int = 30, tf32: bool = False):
     """Phase 7: steady-state train steps of preset `name` at full width on
-    the card with the defaults a user gets (TF32 as PyTorch sets it,
-    dropout live, the preset's compute dtype), at `batch_size`: per-step
-    CUDA-event spans, host wall time, and the device's busy share under
-    torch.profiler. The batches are the first epoch's full batches of the
-    preset's synthetic cohort of `n_synth` records, or, where the train
-    split is smaller than `batch_size`, rows drawn with replacement."""
+    the card as `run()` takes them (TF32 off; with `tf32`, PyTorch's
+    defaults instead: cuDNN's TF32 on, cuBLAS's off), dropout live, the
+    preset's compute dtype, at `batch_size`: per-step CUDA-event spans,
+    host wall time, and the device's busy share under torch.profiler. The
+    batches are the first epoch's full batches of the preset's synthetic
+    cohort of `n_synth` records, or, where the train split is smaller than
+    `batch_size`, rows drawn with replacement. A cached preset first
+    calibrates the frozen encoders' BatchNorm statistics on the train
+    split and encodes it at `batch_size` (both timed, `calibrate_ms` and
+    `encode_ms`), then times the head steps over the cached embeddings."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _measure_steps(name, batch_size, n_synth, n, tf32)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _measure_steps(name, batch_size, n_synth, n, tf32):
     from torch.profiler import ProfilerActivity, profile
 
     cfg = get_preset(name)
     t = dataclasses.replace(cfg.train, batch_size=batch_size)
     data = train_run.load_data(cfg, n_synth, device="cuda")
     model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
-    if data.train.n >= batch_size:
-        idx, mask = engine.epoch_indices(data.train.n, batch_size,
+    train = data.train
+    full = train.n >= batch_size
+    state = create_state(model, t, train.n // batch_size if full else 8,
+                         freeze=freeze)
+    out = {"preset": name, "steps": n, "batch": batch_size,
+           # the signal and image presets' models run in float32
+           "dtype": (cfg.model.dtype if name in train_run.FUSION_FAMILIES
+                     else "float32"),
+           "cudnn_tf32": tf32}
+    if t.cache_embeddings:
+        rounds = {}
+        for key, fn in (
+                ("calibrate_ms", lambda: embed.calibrate_bn_stats(
+                    state, train, t.eval_bs)),
+                ("encode_ms", lambda: embed.precompute_fusion_embeddings(
+                    model, train, t.eval_bs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rounds[key] = fn()
+            torch.cuda.synchronize()
+            out[key] = (time.perf_counter() - t0) * 1e3
+        out["calibrate_batches"] = 3 * max(train.n // t.eval_bs, 1)
+        out["encode_batches"] = pipeline.num_batches(train.n, t.eval_bs)
+        train = rounds["encode_ms"]
+        task = make_fusion_head_task(t)
+    if full:
+        idx, mask = engine.epoch_indices(train.n, batch_size,
                                          shuffle=True, seed=t.seed, epoch=0)
         idx = idx[mask.min(axis=1) == 1.0]
     else:
         idx = np.random.default_rng(t.seed).integers(
-            0, data.train.n, (8, batch_size))
-    state = create_state(model, t, idx.shape[0], freeze=freeze)
+            0, train.n, (8, batch_size))
     idx_d = torch.from_numpy(idx.astype(np.int64)).cuda()
     ones = torch.ones(batch_size, device="cuda")
     torch.cuda.reset_peak_memory_stats()
 
     def step(i):
         return engine.train_step(task, state, engine.gather_batch(
-            data.train, idx_d[i % idx.shape[0]], ones))
+            train, idx_d[i % idx.shape[0]], ones))
 
     for i in range(5):
         step(i)
@@ -1277,15 +1722,11 @@ def measure_train_step(name: str, batch_size: int, n_synth: int = 256,
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     spans = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-    out = {"preset": name, "steps": n, "batch": batch_size,
-           # the signal presets' ResNet1D-SE runs in float32
-           "dtype": (cfg.model.dtype if name in train_run.FUSION_FAMILIES
-                     else "float32"),
-           "median_ms": statistics.median(spans),
-           "p90_ms": float(np.percentile(spans, 90)),
-           "wall_ms_per_step": wall_ms,
-           "samples_per_s": batch_size * 1e3 / wall_ms,
-           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out.update({"median_ms": statistics.median(spans),
+                "p90_ms": float(np.percentile(spans, 90)),
+                "wall_ms_per_step": wall_ms,
+                "samples_per_s": batch_size * 1e3 / wall_ms,
+                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
     k = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -1429,43 +1870,59 @@ def main() -> int:
         print(f"request {key}: median {statistics.median(vals):.3f} p90 "
               f"{float(np.percentile(vals, 90)):.3f} ({smi})", flush=True)
 
-    # 6. the training slice: first the algorithm against the CPU in
-    # float32 (TF32 off), then the runs with the defaults a user gets
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    compare_train_steps()
-    compare_fusion_steps()
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    # 6. the training slices: first the algorithm against the CPU in
+    # float32 (TF32 off, as `run()` sets it), then the runs through the
+    # entry points
+    with train_run.no_tf32():
+        compare_train_steps()
+        compare_fusion_steps()
+        compare_image_steps()
+        compare_clinical_steps()
+        compare_cached()
     with tempfile.TemporaryDirectory() as tmp:
         ptbxl, ptbxl_launches = run_training(tmp, "ptbxl_af", 256, 2)
         _, multi_launches = run_training(tmp, "physionet_multi", 96, 1)
         fusion_run, fusion_launches = run_training(tmp, "fusion", 256, 2)
         _, balance_launches = run_training(tmp, "fusion_modal_balance", 96,
                                            1)
+        cached_run, cached_launches = run_training(tmp, "fusion_cached", 256,
+                                                   2)
+        _, image_launches = run_training(tmp, "image_only", 96, 1)
+        _, signal_launches = run_training(tmp, "signal_only", 96, 1)
+        _, pretrain_launches = run_pretrain_pipeline(tmp)
 
     # 7. numbers
-    for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run)):
+    for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
+                          ("fusion_cached", cached_run)):
         for h in res.history:
             print(f"{run_name} epoch {h['epoch'] + 1} time "
                   f"{h['Time/Epoch'] * 1e3:.3f} ms (train + val, n_synth "
                   f"256; {smi})", flush=True)
-    for run_name, b in (("ptbxl_af", TRAIN_B), ("fusion", FUSION_B),
-                        ("fusion", BENCH_B)):
-        step = measure_train_step(run_name, b)
-        print(f"{run_name} train step B={b} ({smi}): {json.dumps(step)}",
-              flush=True)
+    for run_name, b, tf32 in (("ptbxl_af", TRAIN_B, False),
+                              ("ptbxl_af", TRAIN_B, True),
+                              ("fusion", FUSION_B, False),
+                              ("fusion", BENCH_B, False),
+                              ("fusion_cached", FUSION_B, False),
+                              ("fusion_cached", BENCH_B, False),
+                              ("image_only", FUSION_B, False),
+                              ("image_only", FUSION_B, True)):
+        step = measure_train_step(run_name, b, tf32=tf32)
+        print(f"{run_name} train step B={b} cudnn_tf32={tf32} ({smi}): "
+              f"{json.dumps(step)}", flush=True)
     paths = {
         "serve": launches,
         "train_ptbxl_af": ptbxl_launches,
         "train_physionet_multi": multi_launches,
         "train_fusion": fusion_launches,
         "train_fusion_modal_balance": balance_launches,
+        "train_fusion_cached": cached_launches,
+        "train_signal_only": signal_launches,
+        "train_image_only": image_launches,
+        "pretrain": pretrain_launches,
     }
 
     def by_path(kernel):
-        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
+        return {p: n.get(kernel, 0) for p, n in paths.items()}
 
     focal_picked = [r for r in focal_rows
                     if (r["B"], r["C"]) == (TRAIN_B, 2) and "us" in r]

@@ -4,10 +4,10 @@ There is no `use_pallas` switch: an op runs its CUDA kernel when its
 tensors lie on a CUDA device and its plain PyTorch version when they lie
 on the CPU (see `ecgmm_torch/ops`). There is no mesh either: the port
 trains on one card. The presets are those of the trimodal fusion trainers
-(`fusion`, `fusion_modal_balance`) and of the signal-only ResNet1D-SE
-trainers that run on the synthetic cohort; the others, and the
-cached-embedding, CV and streaming knobs, wait for their slices
-(ROADMAP.md)."""
+(`fusion`, `fusion_modal_balance`, `fusion_cached`), of the pretraining
+stages (`image_only`, `signal_only`) and of the signal-only ResNet1D-SE
+trainers that run on the synthetic cohort; the other signal presets, and
+the CV and streaming knobs, wait for their slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -94,6 +94,14 @@ class TrainConfig:
     output_dir: str = "./output"
     keep_checkpoints: int = 3
     eval_batch_size: int = 0  # 0 = same as batch_size
+    # Fusion only: encode each split once with the frozen encoders in eval
+    # mode and train the surface after them over the cached embeddings
+    # (`train/embed.py`). Needs freeze_encoders.
+    cache_embeddings: bool = False
+    # With cache_embeddings: first fit the frozen encoders' BatchNorm
+    # running statistics to the train split (3 train-mode passes, no
+    # gradients), as the reference's train-mode encoders keep doing.
+    cache_bn_calibrate: bool = True
 
     @property
     def eval_bs(self) -> int:
@@ -116,6 +124,43 @@ def fusion_preset() -> Config:
 def fusion_modal_balance_preset() -> Config:
     """Modal-balance fusion variant (reference train_paper_modal_balance.py)."""
     return Config(name="fusion_modal_balance", model=ModelConfig.modal_balance())
+
+
+def fusion_cached_preset() -> Config:
+    """Trimodal fusion over cached frozen-encoder embeddings (JAX
+    config.py:203-219): the encoders run once per split in eval mode after
+    a BatchNorm calibration, and the epochs train the fusion surface."""
+    return Config(name="fusion_cached",
+                  train=TrainConfig(cache_embeddings=True))
+
+
+def image_only_preset() -> Config:
+    """Image-only ResNet18 (reference train_image_only.py): bs 16,
+    constant lr 1e-4, CE, early stop 5, no plateau decay
+    (train_image_only.py:160-174)."""
+    return Config(
+        name="image_only",
+        train=TrainConfig(lr=1e-4, freeze_encoders=False,
+                          plateau_patience=0),
+    )
+
+
+def signal_only_preset() -> Config:
+    """Signal-only ResNet1D-SE on the trimodal cohort's signals (reference
+    train_signal_only.py:115,234-238: bs 8, lr 1e-3, focal, one-cycle;
+    early stopping is commented out there, :301-304)."""
+    return Config(
+        name="signal_only",
+        train=TrainConfig(
+            batch_size=8,
+            lr=1e-3,
+            loss="focal",
+            schedule="onecycle",
+            onecycle_peak_lr=1e-3,
+            freeze_encoders=False,
+            patience=0,
+        ),
+    )
 
 
 def ptbxl_preset() -> Config:
@@ -163,13 +208,12 @@ def physionet_multi_preset() -> Config:
     )
 
 
-CACHED_EMBEDDINGS_ITEM = (
-    "ROADMAP.md section 1, 'Next PRs' 1: the cached-embedding path "
-    "(train/embed.py, the fusion_cached preset)")
-
 PRESETS = {
     "fusion": fusion_preset,
     "fusion_modal_balance": fusion_modal_balance_preset,
+    "fusion_cached": fusion_cached_preset,
+    "image_only": image_only_preset,
+    "signal_only": signal_only_preset,
     "ptbxl_af": ptbxl_preset,
     "physionet": physionet_preset,
     "physionet_multi": physionet_multi_preset,
@@ -177,9 +221,6 @@ PRESETS = {
 
 
 def get_preset(name: str) -> Config:
-    if name == "fusion_cached":
-        raise NotImplementedError(
-            f"preset 'fusion_cached' waits for {CACHED_EMBEDDINGS_ITEM}")
     try:
         return PRESETS[name]()
     except KeyError:

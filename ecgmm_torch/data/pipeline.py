@@ -22,11 +22,12 @@ from ecgmm_torch.data.synthetic import SyntheticCohort
 
 class Arrays(NamedTuple):
     """One materialised split on the device. Fields may be None for
-    unimodal tasks."""
+    unimodal tasks. A cached split (`train/embed.py`) holds the frozen
+    encoders' raw (N, D) float32 embeddings in the three modality slots."""
 
-    images: Optional[torch.Tensor]    # (N, 3, H, W) uint8
-    signals: Optional[torch.Tensor]   # (N, T) or (N, C, T) float32
-    clinical: Optional[torch.Tensor]  # (N, C) float32
+    images: Optional[torch.Tensor]    # (N, 3, H, W) uint8, or (N, D) f32
+    signals: Optional[torch.Tensor]   # (N, T) or (N, C, T), or (N, D) f32
+    clinical: Optional[torch.Tensor]  # (N, C), or (N, D) float32
     labels: torch.Tensor              # (N,) int64
     indices: np.ndarray               # (N,) original patient ids (host)
 

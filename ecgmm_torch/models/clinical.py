@@ -37,7 +37,9 @@ from ecgmm_torch.models.layers import BatchNorm1d, Dropout
 
 def sparsemax(z, dim: int = -1):
     """Euclidean projection of z onto the probability simplex (Martins &
-    Astudillo 2016), as `ecgmm_tpu.models.clinical.sparsemax`."""
+    Astudillo 2016), as `ecgmm_tpu.models.clinical.sparsemax`. The last
+    step is torch.maximum against a zero tensor: at z == tau its VJP gives
+    each side half, as jnp.maximum's does (torch.clamp passes it all)."""
     z = z.transpose(dim, -1)
     k = z.shape[-1]
     z_sorted = torch.sort(z, dim=-1, descending=True).values
@@ -47,7 +49,7 @@ def sparsemax(z, dim: int = -1):
     k_z = support.sum(dim=-1, keepdim=True)
     tau_sum = torch.gather(z_cumsum, -1, k_z - 1)
     tau = (tau_sum - 1.0) / k_z.to(z.dtype)
-    return torch.clamp(z - tau, min=0.0).transpose(dim, -1)
+    return torch.maximum(z - tau, z.new_zeros(())).transpose(dim, -1)
 
 
 class _GBN(nn.Module):

@@ -15,6 +15,7 @@ import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ecgmm_torch.config import ModelConfig
@@ -83,12 +84,17 @@ def _chunk_variance_loss(img, sig, clin, mask=None):
 class ECGMultimodalModel(nn.Module):
     """Trimodal model. Inputs: image (B, 3, H, W) uint8 raw or float
     normalised, signal (B, T) or (B, 1, T), clinical (B, F). The encoders
-    run in `cfg.dtype` under autocast; everything after them runs in
-    float32 (the JAX model runs `fusion_hidden` in the compute dtype too;
-    the two agree exactly only in float32). `.train()` puts every module
-    in flax's train mode, the encoders included (batch statistics, live
-    dropout), as the JAX model's `train=True` does; the fusion head's
-    dropout draws from the generator `set_dropout_generator` gives it."""
+    run in `cfg.dtype` under autocast, and so do the head's hidden layer,
+    its ReLU and its dropout (`head`); the LayerNorms, the branch
+    classifiers, the attention fusion and the head's output layer run in
+    float32, as in the JAX model. `.train()` puts every module in flax's
+    train mode, the encoders included (batch statistics, live dropout), as
+    the JAX model's `train=True` does; the fusion head's dropout draws
+    from the generator `set_dropout_generator` gives it.
+
+    `encode_raw` and `from_embeddings` split the forward at the frozen
+    encoders' outputs: the cached-embedding path (`train/embed.py`)
+    encodes each split once and trains the surface after them."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -144,15 +150,20 @@ class ECGMultimodalModel(nn.Module):
         with self._autocast(signal.device):
             return self.signal_encoder(signal).float()
 
-    def encode_clinical(self, clinical):
-        """(LayerNorm'd clinical embedding, TabNet m_loss; 0 for the
-        MLP)."""
+    def _encode_clinical_raw(self, clinical):
+        """(raw clinical embedding f32, TabNet m_loss; 0 for the MLP)."""
         with self._autocast(clinical.device):
             clin = self.clinical_encoder(clinical)
         m_loss = clinical.new_zeros((), dtype=torch.float32)
         if isinstance(clin, tuple):
             clin, m_loss = clin
-        return self.clinical_norm(clin.float()), m_loss.float()
+        return clin.float(), m_loss.float()
+
+    def encode_clinical(self, clinical):
+        """(LayerNorm'd clinical embedding, TabNet m_loss; 0 for the
+        MLP)."""
+        clin, m_loss = self._encode_clinical_raw(clinical)
+        return self.clinical_norm(clin), m_loss
 
     def encode(self, image, signal, clinical, return_image_map=False):
         """Per-modality LayerNorm'd embeddings and m_loss (the XAI surface);
@@ -166,16 +177,49 @@ class ECGMultimodalModel(nn.Module):
             return img_feat, sig_feat, clin_feat, m_loss, img_map
         return img_feat, sig_feat, clin_feat, m_loss
 
+    def encode_raw(self, image, signal, clinical):
+        """The three encoders' raw (pre-LayerNorm) float32 outputs in eval
+        mode (running statistics, no dropout), as JAX's `encode_raw`
+        (`train=False`): the frozen-encoder boundary of the cached path.
+        The encoders' train/eval modes are restored afterwards."""
+        encoders = (self.image_encoder, self.signal_encoder,
+                    self.clinical_encoder)
+        modes = [m.training for m in encoders]
+        try:
+            for m in encoders:
+                m.eval()
+            img_raw, _ = self.encode_image(image)
+            sig_raw = self.encode_signal(signal)
+            clin_raw, _ = self._encode_clinical_raw(clinical)
+        finally:
+            for m, mode in zip(encoders, modes):
+                m.train(mode)
+        return img_raw, sig_raw, clin_raw
+
+    def head(self, fused):
+        """The fusion MLP over the fused (B, D) float32 embedding, as JAX's
+        `head`: the hidden layer, its ReLU and its dropout in the compute
+        dtype, the output layer in float32. In a low compute dtype the
+        hidden layer is flax's Dense: the product is rounded to that dtype,
+        then the bias is added in it (a fused bias would round once)."""
+        hidden, relu, dropout, out = self.fusion_classifier
+        dt = _DTYPES[self.cfg.dtype]
+        if dt == torch.float32:
+            x = hidden(fused.float())
+        else:
+            x = (F.linear(fused.to(dt), hidden.weight.to(dt))
+                 + hidden.bias.to(dt))
+        return out(dropout(relu(x)).float())
+
     def fuse_embeddings(self, img_feat, sig_feat, clin_feat):
         """Fusion logits from per-modality embeddings (the surface SHAP and
         clinical IG differentiate through)."""
         fused, _ = self.attention_fusion(img_feat, sig_feat, clin_feat)
-        return self.fusion_classifier(fused).float()
+        return self.head(fused)
 
-    def forward(self, image, signal, clinical, mask=None) -> FusionOutput:
-        img_feat, sig_feat, clin_feat, m_loss = self.encode(
-            image, signal, clinical
-        )
+    def _surface(self, img_feat, sig_feat, clin_feat, m_loss,
+                 mask) -> FusionOutput:
+        """Everything after the LayerNorm'd embeddings."""
         fused, soft_weights = self.attention_fusion(
             img_feat, sig_feat, clin_feat
         )
@@ -183,9 +227,24 @@ class ECGMultimodalModel(nn.Module):
             image_logits=self.image_classifier(img_feat),
             signal_logits=self.signal_classifier(sig_feat),
             clinical_logits=self.clinical_classifier(clin_feat),
-            fusion_logits=self.fusion_classifier(fused).float(),
+            fusion_logits=self.head(fused),
             var_loss=_chunk_variance_loss(img_feat, sig_feat, clin_feat,
                                           mask=mask),
             soft_weights=soft_weights,
             m_loss=m_loss,
         )
+
+    def from_embeddings(self, img_raw, sig_raw, clin_raw,
+                        mask=None) -> FusionOutput:
+        """The trainable surface over `encode_raw`'s outputs: the three
+        LayerNorms, the branch classifiers, the attention fusion, `head`
+        and the variance loss, with m_loss 0 (the fusion loss never reads
+        it), as JAX's `from_embeddings`."""
+        return self._surface(
+            self.image_norm(img_raw.float()),
+            self.signal_norm(sig_raw.float()),
+            self.clinical_norm(clin_raw.float()),
+            img_raw.new_zeros((), dtype=torch.float32), mask)
+
+    def forward(self, image, signal, clinical, mask=None) -> FusionOutput:
+        return self._surface(*self.encode(image, signal, clinical), mask)

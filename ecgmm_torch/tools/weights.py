@@ -10,12 +10,16 @@ It is the port's own copy of the layout rules of the JAX exporters
 (H, W, I, O) -> (O, I, H, W), Linear (I, O) -> (O, I), BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var plus
 `num_batches_tracked`, and the TabNet shared GLU fc weights aliased into
-every feature transformer.
+every feature transformer. The standalone models of the pretraining
+stages have their own entry points (`from_jax_resnet1d_se`,
+`from_jax_resnet18`, `from_jax_clinical_probe`), and `load_partial` merges
+one state dict into another with the warm-start filters of
+`ecgmm_tpu/tools/convert_pth.load_partial`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -185,6 +189,49 @@ def from_jax_resnet1d_se(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     _resnet1d_se(_Branch(_flatten(variables), sd, "", ""))
     return _tensors(sd)
+
+
+def from_jax_resnet18(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A standalone flax ResNet18's variables (the image-only stage) as
+    the state dict of `ecgmm_torch.models.ResNet18`."""
+    sd: Dict[str, np.ndarray] = {}
+    _resnet18(_Branch(_flatten(variables), sd, "", ""))
+    return _tensors(sd)
+
+
+def from_jax_clinical_probe(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The variables of the JAX clinical stage's `Probe` (`encoder/...`, a
+    TabNet or the MLP, and the Dense `probe`) as the state dict of
+    `ecgmm_torch.workloads.tasks.ClinicalProbe`."""
+    flat = _flatten(variables)
+    sd: Dict[str, np.ndarray] = {}
+    encoder = _Branch(flat, sd, "encoder", "encoder")
+    if encoder.has("fc1/kernel"):
+        _clinical_mlp(encoder)
+    else:
+        _tabnet(_Branch(flat, sd, "encoder", "encoder.tabnet"))
+    _Branch(flat, sd, "", "").linear("probe", "probe")
+    return _tensors(sd)
+
+
+def load_partial(target: Mapping[str, torch.Tensor],
+                 source: Mapping[str, torch.Tensor],
+                 exclude_prefixes: Iterable[str] = ()
+                 ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """`target` with every entry of `source` copied in (cast to the
+    target's dtype), except those whose name starts with one of
+    `exclude_prefixes`, is not in `target` or has another shape: the
+    reference's warm start (strict=False plus explicit filters). Returns
+    (merged, the names skipped)."""
+    merged = dict(target)
+    skipped = []
+    for k, v in source.items():
+        if (k.startswith(tuple(exclude_prefixes)) or k not in merged
+                or merged[k].shape != v.shape):
+            skipped.append(k)
+            continue
+        merged[k] = v.to(merged[k].dtype)
+    return merged, skipped
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:

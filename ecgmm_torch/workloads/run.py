@@ -1,8 +1,12 @@
 """Trainer CLI (port of `ecgmm_tpu/workloads/run.py` for the trimodal
-fusion presets and the signal-only ResNet1D-SE presets):
+fusion presets, the image-only and signal-only pretraining presets and
+the signal-only ResNet1D-SE presets):
 
     python -m ecgmm_torch.workloads.run                 # --preset fusion
     python -m ecgmm_torch.workloads.run --preset fusion_modal_balance
+    python -m ecgmm_torch.workloads.run --preset fusion_cached
+    python -m ecgmm_torch.workloads.run --preset fusion --cache-embeddings
+    python -m ecgmm_torch.workloads.run --preset image_only
     python -m ecgmm_torch.workloads.run --preset ptbxl_af
     python -m ecgmm_torch.workloads.run --preset physionet_multi --epochs 3
     python -m ecgmm_torch.workloads.run --preset fusion --device cpu \
@@ -12,6 +16,8 @@ It trains on the card unless `--device cpu` is given, on the
 deterministic synthetic cohort (as the JAX CLI does by default), and ends
 with the reference's test protocol over the best and the last checkpoint
 (train.py:174-336), with a temperature fit on the val split for each.
+Float32 work runs in float32 on the card: the run turns TF32 off in cuDNN
+and cuBLAS and restores the flags when it returns (`no_tf32`).
 Checkpoints go to `--run-dir` (default `./checkpoints/<stamp>`), the
 metric log to `./runs/<stamp>/metrics.jsonl` and the reports to
 `./output/<stamp>/report_{best,last}.txt`.
@@ -20,6 +26,7 @@ metric log to `./runs/<stamp>/metrics.jsonl` and the reports to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -28,18 +35,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ecgmm_torch.config import CACHED_EMBEDDINGS_ITEM, Config, get_preset
+from ecgmm_torch.config import Config, get_preset
 from ecgmm_torch.data import pipeline, preprocess, splits, synthetic
-from ecgmm_torch.models import ECGMultimodalModel, ResNet1DSE
+from ecgmm_torch.models import ECGMultimodalModel, ResNet18, ResNet1DSE
 from ecgmm_torch.models.layers import flax_init_
-from ecgmm_torch.train import calibrate, engine
+from ecgmm_torch.train import calibrate, embed, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.report import test_report
 from ecgmm_torch.train.state import create_state, encoder_freeze_predicate
-from ecgmm_torch.workloads.tasks import make_fusion_task, make_signal_task
+from ecgmm_torch.workloads.tasks import (make_fusion_task, make_image_task,
+                                         make_signal_task)
 
-FUSION_FAMILIES = ("fusion", "fusion_modal_balance")
+FUSION_FAMILIES = ("fusion", "fusion_modal_balance", "fusion_cached")
+# trained on the trimodal cohort, as in JAX (signal_only is not one of its
+# SIGNAL_FAMILIES, ecgmm_tpu/workloads/run.py:224-242)
+STAGE_PRESETS = ("image_only", "signal_only")
 SIGNAL_FAMILIES = ("ptbxl_af", "physionet", "physionet_multi")
 REAL_DATA_ITEM = ("ROADMAP.md section 1, 'Real-data training': the PTB-XL "
                   "and PhysioNet records and their manifests are not in the "
@@ -56,6 +67,24 @@ def _device(device) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions and cuBLAS matmuls in float32, not TF32, while
+    the context lasts; the flags are restored afterwards. Every float32
+    op of the JAX package is float32 (the signal models, the image-only
+    ResNet-18, the fusion head's float32 layers); bf16 work under
+    autocast is unaffected."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def build_model_and_task(cfg: Config, device="cuda"):
     """The preset's model, initialised like flax's defaults from
     `cfg.train.seed`, on `device`, its task, and the predicate of the
@@ -65,7 +94,11 @@ def build_model_and_task(cfg: Config, device="cuda"):
         model = ECGMultimodalModel(cfg.model)
         task = make_fusion_task(t)
         freeze = encoder_freeze_predicate if t.freeze_encoders else None
-    elif cfg.name in SIGNAL_FAMILIES:
+    elif cfg.name == "image_only":
+        model = ResNet18(num_classes=cfg.model.num_classes)
+        task = make_image_task(t)
+        freeze = None
+    elif cfg.name in SIGNAL_FAMILIES + ("signal_only",):
         model = ResNet1DSE(
             num_classes=cfg.model.num_classes,
             input_channels=cfg.model.signal_input_channels,
@@ -84,15 +117,15 @@ def build_model_and_task(cfg: Config, device="cuda"):
 def load_data(cfg: Config, n_synth: int,
               device="cuda") -> pipeline.MaterializedData:
     """The preset's synthetic cohort, split and preprocessed as its
-    reference trainer does, on `device`: the fusion presets' trimodal
-    cohort (images img_height x img_width, the preset's clinical columns)
-    through `materialize_trimodal`; PTB-XL is drawn at 500 Hz
-    (2 x signal_len), split 60/20/20 and decimated, filtered and cut to
-    signal_len; PhysioNet is split 80/10/10 (70/10/20 with three random
+    reference trainer does, on `device`: the trimodal cohort of the fusion,
+    image_only and signal_only presets (images img_height x img_width, the
+    preset's clinical columns) through `materialize_trimodal`; PTB-XL is
+    drawn at 500 Hz (2 x signal_len), split 60/20/20 and decimated,
+    filtered and cut to signal_len; PhysioNet is split 80/10/10 (70/10/20 with three random
     classes for physionet_multi), band-passed and z-scored."""
     seed = cfg.train.seed
     rng = np.random.default_rng(seed)
-    if cfg.name in FUSION_FAMILIES:
+    if cfg.name in FUSION_FAMILIES + STAGE_PRESETS:
         c = synthetic.make_cohort(
             n=n_synth, signal_len=cfg.data.signal_len,
             img_hw=(cfg.data.img_height, cfg.data.img_width),
@@ -135,8 +168,17 @@ def run(cfg: Config, data: pipeline.MaterializedData,
         run_dir: Optional[str] = None, verbose: bool = True,
         resume: bool = False, device="cuda"):
     """Train the preset on `data` (materialised on `device`), then run the
-    best/last test protocol. Returns (FitResult, {tag: metrics})."""
-    device = _device(device)
+    best/last test protocol, with TF32 off (`no_tf32`). With
+    `cache_embeddings` (the `fusion_cached` preset) the frozen encoders'
+    BatchNorm statistics are first calibrated on the train split, each
+    split is encoded once, and training and the test protocol run the
+    fusion head task over the cached splits (`train/embed.py`). Returns
+    (FitResult, {tag: metrics})."""
+    with no_tf32():
+        return _run(cfg, data, run_dir, verbose, resume, _device(device))
+
+
+def _run(cfg, data, run_dir, verbose, resume, device):
     if data.train.labels.device.type != device.type:
         raise ValueError(f"data lies on {data.train.labels.device}, the run "
                          f"on {device}")
@@ -159,6 +201,9 @@ def run(cfg: Config, data: pipeline.MaterializedData,
             print(f"resumed from {run_dir} at epoch {state.epoch}")
     writer = MetricWriter(os.path.join(t.log_dir, stamp))
     try:
+        data, head_task = embed.cache_run_splits(state, data, t,
+                                                 frozen=t.freeze_encoders)
+        task = head_task or task
         weights = None
         if cfg.name == "ptbxl_af":
             weights = ptbxl_sample_weights(data.train.labels.cpu().numpy(),
@@ -205,10 +250,13 @@ def run(cfg: Config, data: pipeline.MaterializedData,
 
 
 def apply_train_overrides(cfg: Config, epochs=None, batch_size=None,
-                          lr=None, seed=None) -> Config:
+                          lr=None, seed=None,
+                          cache_embeddings=False) -> Config:
     overrides = {k: v for k, v in (("num_epochs", epochs),
                                    ("batch_size", batch_size), ("lr", lr),
                                    ("seed", seed)) if v is not None}
+    if cache_embeddings:
+        overrides["cache_embeddings"] = True
     if overrides:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **overrides))
@@ -218,10 +266,7 @@ def apply_train_overrides(cfg: Config, epochs=None, batch_size=None,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="fusion",
-                   choices=FUSION_FAMILIES + ("fusion_cached",)
-                   + SIGNAL_FAMILIES,
-                   help="fusion_cached waits for the cached-embedding path "
-                        "and raises")
+                   choices=FUSION_FAMILIES + STAGE_PRESETS + SIGNAL_FAMILIES)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -230,8 +275,8 @@ def main(argv=None):
                         "the cohort, splits, init and sampling)")
     p.add_argument("--n-synth", type=int, default=128)
     p.add_argument("--cache-embeddings", action="store_true",
-                   help="fusion presets over precomputed frozen-encoder "
-                        "embeddings: not ported yet")
+                   help="train a fusion preset's head over embeddings its "
+                        "frozen encoders compute once per split")
     p.add_argument("--data-dir", default=None,
                    help="real PTB-XL/PhysioNet records: not ported yet")
     p.add_argument("--run-dir", default=None)
@@ -241,9 +286,6 @@ def main(argv=None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.cache_embeddings:
-        raise NotImplementedError(
-            f"--cache-embeddings waits for {CACHED_EMBEDDINGS_ITEM}")
     if args.data_dir is not None:
         raise FileNotFoundError(
             f"training on real records from {args.data_dir!r} waits for "
@@ -251,7 +293,8 @@ def main(argv=None):
             "cohort")
     cfg = apply_train_overrides(get_preset(args.preset), epochs=args.epochs,
                                 batch_size=args.batch_size, lr=args.lr,
-                                seed=args.seed)
+                                seed=args.seed,
+                                cache_embeddings=args.cache_embeddings)
     device = _device(args.device)
     data = load_data(cfg, args.n_synth, device=device)
     run(cfg, data, run_dir=args.run_dir, resume=args.resume, device=device)

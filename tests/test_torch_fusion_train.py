@@ -694,8 +694,9 @@ def test_run_end_to_end_on_cpu(name, tmp_path):
 
 def test_fusion_cli_and_the_waiting_paths(tmp_path, monkeypatch):
     """`--preset fusion --device cpu` trains and reports (here at the
-    small size, through `main`); the cached-embedding path raises,
-    naming the ROADMAP item it waits for."""
+    small size, through `main`), and so do the cached-embedding path's
+    two spellings, `--cache-embeddings` and `--preset fusion_cached`: the
+    run encodes its splits once and trains the fusion head over them."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(port_run, "get_preset",
                         lambda name: _small(get_preset(name)))
@@ -704,6 +705,16 @@ def test_fusion_cli_and_the_waiting_paths(tmp_path, monkeypatch):
     for path in ("checkpoints/r/best.pt", "checkpoints/r/last.pt",
                  "output/r/report_best.txt", "output/r/report_last.txt"):
         assert (tmp_path / path).is_file(), path
-    for argv in (["--cache-embeddings"], ["--preset", "fusion_cached"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_run.main(argv + ["--device", "cpu"])
+    from ecgmm_torch.train import embed
+
+    encoded = []
+    real = embed.precompute_fusion_embeddings
+    monkeypatch.setattr(embed, "precompute_fusion_embeddings",
+                        lambda *a: encoded.append(a[1].n) or real(*a))
+    for i, argv in enumerate((["--cache-embeddings"],
+                              ["--preset", "fusion_cached"])):
+        encoded.clear()
+        port_run.main(argv + ["--device", "cpu", "--epochs", "1",
+                              "--n-synth", "40", "--run-dir", f"c{i}"])
+        assert len(encoded) == 3  # train, val, test: once each
+        assert (tmp_path / "output" / f"c{i}" / "report_last.txt").is_file()
