@@ -35,12 +35,19 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      clinical-probe steps (TabNet's backward) and the cached path
      (`calibrate_bn_stats` buffers, `encode_raw` of the train split, 3
      head steps, frozen weights bit-equal), all in float32 with TF32 off
-     as `run()` sets it; `run()` trains `ptbxl_af` (2 epochs, 256
-     synthetic records), `physionet_multi` (1 epoch, 96 records),
-     `fusion` (bf16, 2 epochs, 256 records; its train loss must fall),
+     as `run()` sets it; so do 3 full-width steps of
+     `physionet_transformer` (B=8, T=3000), `physionet_crnn` (B=16) and
+     `signal_12lead` (B=8), whose first step with TF32 on is read too (the
+     Transformer's must fall outside the float32 bar), and the CRNN's
+     LSTM alone with cuDNN's TF32 off and on; `run()` trains `ptbxl_af`
+     (2 epochs, 256 synthetic records), `physionet_multi` (1 epoch, 96
+     records), `fusion` (bf16, 2 epochs, 256 records; its train loss must
+     fall),
      `fusion_modal_balance` (1 epoch, 96 records), `fusion_cached` (bf16,
      2 epochs, 256 records; its train loss must fall), `image_only` and
-     `signal_only` (1 epoch, 96 records) on the card through the kernels,
+     `signal_only`, `signal_arr`, `signal_12lead`, `physionet_crnn` and
+     `physionet_transformer` (1 epoch, 96 records) and `signal_af` (1
+     epoch, 60 records: no val split) on the card through the kernels,
      checkpoints restore, the best/last test reports and the logged
      scalars (`VarLoss/Val`, `AttentionWeights/*` for fusion) have their
      keys, and the launch counters equal the batch plan; `run_pipeline`
@@ -51,9 +58,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      `fusion` and `fusion_cached` (head steps, after a timed calibration
      and encoding of the train split) at B=16 and 256, `image_only` at
      B=16, `ptbxl_af` and `image_only` also with cuDNN's TF32 on,
-     samples/s, epoch time, the device's busy share and the top host ops
-     (torch.profiler), and one `kernels` JSON line whose
-     `launches_by_path` names every path driven.
+     `physionet_transformer` at B=8 and `physionet_crnn` at B=16,
+     samples/s, peak device memory, epoch time, the device's busy share
+     and the top host ops (torch.profiler), and one `kernels` JSON line
+     whose `launches_by_path` names every path driven.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -81,7 +89,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
-from ecgmm_torch.models import ECGMultimodalModel, TabNetEncoder  # noqa: E402
+from ecgmm_torch.models import (  # noqa: E402
+    CRNN, ECGMultimodalModel, TabNetEncoder)
+from ecgmm_torch.models.crnn import GemmConv2d  # noqa: E402
 from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
@@ -90,6 +100,7 @@ from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
 from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
 from ecgmm_torch.train import embed, engine  # noqa: E402
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from ecgmm_torch.train.optim import Optimizer  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
 from ecgmm_torch.workloads import pretrain  # noqa: E402
 from ecgmm_torch.workloads import run as train_run  # noqa: E402
@@ -132,7 +143,15 @@ REPORT_KEYS = {
     "fusion_cached": FUSION_REPORT_KEYS,
     "image_only": FUSION_REPORT_KEYS,
     "signal_only": FUSION_REPORT_KEYS | {"threshold"},
+    "signal_arr": FUSION_REPORT_KEYS | {"threshold"},
+    "signal_12lead": FUSION_REPORT_KEYS | {"threshold"},
+    "physionet_crnn": FUSION_REPORT_KEYS | {"threshold"},
+    "physionet_transformer": FUSION_REPORT_KEYS | {"threshold"},
+    # 60 records: no val split, so no temperature and no ECE
+    "signal_af": {"threshold", "accuracy", "f1", "auroc"},
 }
+# the signal presets whose models hold no SE block
+NO_SE = ("physionet_crnn", "physionet_transformer")
 RESPONSE_KEYS = ("label", "probability", "ecg_signal", "heatmap",
                  "feature_importance", "gpt_result", "digitization")
 
@@ -1152,7 +1171,8 @@ def _steps_on_both(model, task, cfg, arrays, idx, mask, n_steps,
 
 
 def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
-                want_launches, count_turned=True, later_loss_bar=1e-3):
+                want_launches, count_turned=True, later_loss_bar=1e-3,
+                noise=None):
     """The card against the CPU after `_steps_on_both`: losses (rtol 1e-4
     at the first step, `later_loss_bar` later), the first step's gradients
     within `grad_bar` of each tensor's largest component (None: held
@@ -1162,7 +1182,13 @@ def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
     noise of zero moves either way) and, with `count_turned`, within 1e-6
     for all but 1 in 2000 elements; the BatchNorm
     buffers within `stat_bar` (relative and absolute); frozen parameters
-    bit-equal to the initial state on both devices; the launches."""
+    bit-equal to the initial state on both devices; the launches.
+    `noise` ({name: slice}) names the parameter elements whose gradient is
+    zero in exact arithmetic (`_zero_gradient_entries`): their gradients
+    are float32 noise of either sign, left out of the gradient bar, and
+    Adam moves each by about lr either way, so they are held to 2 sum(lr)
+    alone and not counted."""
+    noise = noise or {}
     losses = {d: o[0] for d, o in out.items()}
     grads = {d: o[1] for d, o in out.items()}
     states = {d: o[2] for d, o in out.items()}
@@ -1184,7 +1210,11 @@ def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
         failed.append(f"gradients of {sorted(grads['cuda'])} vs "
                       f"{sorted(grads['cpu'])}")
     for name, g in grads["cpu"].items():
-        note("grad_rel", gp.rel(grads["cuda"][name], g), name,
+        got = grads["cuda"][name]
+        if name in noise:
+            got, g = got.clone(), g.clone()
+            got[noise[name]] = g[noise[name]] = 0.0
+        note("grad_rel", gp.rel(got, g), name,
              math.inf if grad_bar is None else grad_bar)
     n_off = n_all = 0
     for name, want in states["cpu"].items():
@@ -1199,6 +1229,8 @@ def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
         elif name in trainable:
             diff = (got - want).abs()
             note("param", diff.max().item(), name, 2 * sum_lr + 1e-7)
+            if name in noise:
+                diff[noise[name]] = 0.0
             n_off += int((diff > 1e-6).sum())
             n_all += diff.numel()
         elif not (torch.equal(got, init[name])
@@ -1213,6 +1245,157 @@ def _check_both(where, init, out, trainable, sum_lr, grad_bar, stat_bar,
     if failed:
         raise AssertionError(f"{where} gpu vs cpu: {failed}")
     return {"losses": losses, "worst": worst, "launches": launches}
+
+
+def _zero_gradient_entries(model):
+    """{state-dict name: slice} of the parameter elements whose gradient
+    is zero in exact arithmetic: the bias of every convolution that feeds
+    a BatchNorm (the ResNet1D-SE's and the CRNN's; the BatchNorm removes
+    it) and the key third of each attention's packed bias (the softmax
+    over the keys removes it)."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)) and (
+                type(model).__name__ != "ECGTransformer1D"):
+            out[f"{name}.bias"] = slice(None)
+        if hasattr(m, "in_proj_bias"):
+            d = m.in_proj_bias.shape[0] // 3
+            out[f"{name}.in_proj_bias"] = slice(d, 2 * d)
+    return out
+
+
+def compare_signal_steps(name: str, n_synth: int, count_turned: bool = True,
+                         n_steps: int = 3):
+    """Phase 6h: n_steps full-width float32 train steps of preset `name`
+    (`physionet_transformer`: B=8, T=3000, 2 layers of (8, 4, 3000, 3000)
+    attention; `physionet_crnn`: B=16 spectrograms (33, 95) through the
+    convolutions and the 3-layer bidirectional LSTM, the LSTM's second
+    biases frozen; `signal_12lead`: the ResNet1D-SE on 12 leads of 2476
+    samples, B=8), focal loss, the preset's Adam schedule, from one
+    initial state on the card and on the CPU, TF32 off as `run()` sets
+    it, dropout 0 (the devices' generators draw different masks), over
+    the first epoch's plan of `n_synth` records (the third batch padded).
+    The first step is also taken on the card with TF32 on in cuDNN and
+    cuBLAS: its gradients against the CPU's are printed, and the
+    Transformer's (cuBLAS products alone) must fall outside the gradient
+    bar, as `ptbxl_af`'s do.
+
+    Bars (`_check_both`): loss rtol 1e-4 at the first step, 1e-3 later;
+    the first step's gradients within 2e-3 of each tensor's largest
+    component, as for `ptbxl_af` (a ReLU or max-pool input within float32
+    rounding of its threshold reroutes its gradient,
+    `tools/grad_precision`), the zero-gradient elements
+    (`_zero_gradient_entries`) left out; parameters 2 sum(lr) and, with
+    `count_turned`, at most 1 in 2000 elements off by more than 1e-6
+    (without it, as for `image_only`: Adam's first update is lr times the
+    gradient's sign, so every element whose gradient lies within float32
+    noise of zero turns, and a model fresh from its init has many:
+    `signal_12lead` read 706 and 3114 of 471390 in two runs on the H100,
+    as cuDNN's choices vary); BatchNorm buffers
+    1e-4; frozen tensors bit-equal; one focal forward and backward a
+    step, and 3 SE forwards and backwards for the ResNet. The CRNN's
+    first step is also read against float64 on the CPU, beside the same
+    step on the card with cuDNN's convolutions in place of the model's
+    im2col products (`GemmConv2d`)."""
+    grad_bar = 2e-3
+    cfg = get_preset(name)
+    t = cfg.train
+    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    model, task, freeze = train_run.build_model_and_task(cfg, "cpu")
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    first = engine.gather_batch(train, torch.from_numpy(
+        idx[0].astype(np.int64)), torch.from_numpy(mask[0]))
+    old = gp.apply_setting("tf32")
+    try:
+        g_tf32 = gp.step_grads32(model, first, task, "cuda")
+    finally:
+        gp.restore_setting(old)
+    noise = _zero_gradient_entries(model)
+    if name == "physionet_crnn":  # before the steps train the CPU model
+        m64 = copy.deepcopy(model).double().train()
+        gp.focal64(m64(first.signals.double()), first.labels,
+                   first.mask).backward()
+        g64 = {k: p.grad for k, p in m64.named_parameters()
+               if p.grad is not None and k not in noise}
+        library = copy.deepcopy(model)
+        for mod in library.modules():
+            if isinstance(mod, GemmConv2d):
+                mod.__class__ = torch.nn.Conv2d
+        g_library = gp.step_grads32(library, first, task, "cuda")
+    init, out = _steps_on_both(model, task, t, train, idx, mask, n_steps,
+                               freeze=freeze)
+    if name == "physionet_crnn":
+        print(f"{name} first step against float64, worst (err, tensor): "
+              f"card {gp.worst(out['cuda'][1], g64)}, CPU "
+              f"{gp.worst(out['cpu'][1], g64)}, card with cuDNN's "
+              f"convolutions {gp.worst(g_library, g64)}", flush=True)
+    tf32 = (0.0, "")
+    for k, g in out["cpu"][1].items():
+        got = g_tf32[k]
+        if k in noise:
+            got, g = got.clone(), g.clone()
+            got[noise[k]] = g[noise[k]] = 0.0
+        tf32 = max(tf32, (gp.rel(got, g), k))
+    print(f"{name} first step, TF32 on against the CPU, worst (err, "
+          f"tensor): {tf32} (float32 bar {grad_bar})", flush=True)
+    if name == "physionet_transformer" and tf32[0] <= grad_bar:
+        raise AssertionError(f"{name}: the TF32 control reads {tf32}, "
+                             f"within the float32 bar {grad_bar}")
+    se_calls = 0 if name in NO_SE else 3 * n_steps
+    want = dict(NO_LAUNCHES, fused_focal_loss=n_steps,
+                fused_focal_loss_backward=n_steps, fused_se=se_calls,
+                fused_se_backward=se_calls)
+    lr = (Optimizer(
+        [torch.nn.Parameter(torch.zeros(1))], t, idx.shape[0]).schedule
+        or (lambda k: t.lr))
+    res = _check_both(f"{name} steps", init, out, _trainable(model),
+                      sum(lr(k) for k in range(n_steps)), grad_bar, 1e-4,
+                      want, count_turned=count_turned, noise=noise)
+    res["tf32"] = tf32
+    return res
+
+
+def lstm_tf32_check(batch: int = 16, steps: int = 11, seed: int = 0):
+    """Phase 6h: the CRNN's 3-layer bidirectional LSTM alone (input 512,
+    hidden 200) at the `physionet_crnn` step's shape (B=16, 11 frames
+    after the convolutions): output and weight gradients on the card with
+    cuDNN's TF32 off (`no_tf32`, as `run()` runs) and on, each against the
+    CPU, relative to each tensor's largest component. TF32 off must stay
+    within 1e-4 (float32 sums in other orders over 11 steps); the TF32
+    reading shows whether cuDNN's RNN math follows the flag."""
+    model = flax_init_(CRNN(2), torch.Generator().manual_seed(seed))
+    lstm = model.bilstm
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, steps, lstm.input_size, generator=gen)
+    w = torch.randn(batch, steps, 2 * lstm.hidden_size, generator=gen)
+
+    def run(device, tf32):
+        m = copy.deepcopy(lstm).to(device)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            out, _ = m(x.to(device))
+            (out * w.to(device)).sum().backward()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        return {"output": out.detach().cpu(), **{
+            k: p.grad.cpu() for k, p in m.named_parameters()
+            if p.grad is not None}}
+
+    want = run("cpu", False)
+    reading = {}
+    for label, tf32 in (("tf32_off", False), ("tf32_on", True)):
+        got = run("cuda", tf32)
+        reading[label] = max((gp.rel(got[k], v), k) for k, v in want.items())
+    print(f"LSTM (B={batch}, {steps} steps) card against CPU, worst (err, "
+          f"tensor): {reading}", flush=True)
+    if reading["tf32_off"][0] > 1e-4:
+        raise AssertionError(f"LSTM with TF32 off: {reading['tf32_off']}")
+    return reading
 
 
 def _image_choices(model, images, device, dtype):
@@ -1468,10 +1651,11 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
                 "fused_focal_loss_backward": 0, "fused_se_backward": 0,
                 "fused_attention_fusion_backward": steps}
     else:  # the SE and focal backwards run at every train step
-        want = {"fused_focal_loss": n_fwd, "fused_se": 3 * n_fwd,
+        se = 0 if name in NO_SE else 3
+        want = {"fused_focal_loss": n_fwd, "fused_se": se * n_fwd,
                 "fused_attention_fusion": 0,
                 "fused_focal_loss_backward": steps,
-                "fused_se_backward": 3 * steps,
+                "fused_se_backward": se * steps,
                 "fused_attention_fusion_backward": 0}
     run_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
@@ -1488,7 +1672,12 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     log_path = os.path.join(t.log_dir, name, "metrics.jsonl")
     with open(log_path) as f:
         logged = [json.loads(line) for line in f]
-    log_keys = ("Loss/Train", "Loss/Val")
+    # an empty val split (signal_af at 60 records) logs a NaN val loss,
+    # as in JAX; the run then saves no `best`
+    log_keys = ("Loss/Train", "Loss/Val") if data.val.n else ("Loss/Train",)
+    if not data.val.n and not all(np.isnan(rec["Loss/Val"])
+                                  for rec in logged):
+        raise AssertionError(f"{name}: a val loss without a val split")
     if name in train_run.FUSION_FAMILIES:
         log_keys += ("VarLoss/Val", "AttentionWeights/Image_w",
                      "AttentionWeights/Signal_w",
@@ -1511,7 +1700,12 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     # best and last restore into a fresh state; `run` leaves `last` in
     # result.state
     ckpt = CheckpointManager(run_dir)
+    if ckpt.exists("best") != (result.best_epoch >= 0):
+        raise AssertionError(f"{name}: best epoch {result.best_epoch}, "
+                             f"best checkpoint {ckpt.exists('best')}")
     for tag, epoch in (("best", result.best_epoch + 1), ("last", epochs)):
+        if not ckpt.exists(tag):
+            continue
         model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
         st = ckpt.restore(tag, create_state(model, t, nb["train"],
                                             freeze=freeze))
@@ -1879,6 +2073,10 @@ def main() -> int:
         compare_image_steps()
         compare_clinical_steps()
         compare_cached()
+        compare_signal_steps("physionet_transformer", 24)
+        compare_signal_steps("physionet_crnn", 48, count_turned=False)
+        compare_signal_steps("signal_12lead", 24, count_turned=False)
+        lstm_tf32_check()
     with tempfile.TemporaryDirectory() as tmp:
         ptbxl, ptbxl_launches = run_training(tmp, "ptbxl_af", 256, 2)
         _, multi_launches = run_training(tmp, "physionet_multi", 96, 1)
@@ -1890,6 +2088,11 @@ def main() -> int:
         _, image_launches = run_training(tmp, "image_only", 96, 1)
         _, signal_launches = run_training(tmp, "signal_only", 96, 1)
         _, pretrain_launches = run_pretrain_pipeline(tmp)
+        new_launches = {
+            name: run_training(tmp, name, 60 if name == "signal_af" else 96,
+                               1)[1]
+            for name in ("signal_af", "signal_arr", "signal_12lead",
+                         "physionet_crnn", "physionet_transformer")}
 
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
@@ -1905,7 +2108,9 @@ def main() -> int:
                               ("fusion_cached", FUSION_B, False),
                               ("fusion_cached", BENCH_B, False),
                               ("image_only", FUSION_B, False),
-                              ("image_only", FUSION_B, True)):
+                              ("image_only", FUSION_B, True),
+                              ("physionet_transformer", 8, False),
+                              ("physionet_crnn", 16, False)):
         step = measure_train_step(run_name, b, tf32=tf32)
         print(f"{run_name} train step B={b} cudnn_tf32={tf32} ({smi}): "
               f"{json.dumps(step)}", flush=True)
@@ -1919,6 +2124,7 @@ def main() -> int:
         "train_signal_only": signal_launches,
         "train_image_only": image_launches,
         "pretrain": pretrain_launches,
+        **{f"train_{name}": n for name, n in new_launches.items()},
     }
 
     def by_path(kernel):

@@ -3,11 +3,14 @@
 There is no `use_pallas` switch: an op runs its CUDA kernel when its
 tensors lie on a CUDA device and its plain PyTorch version when they lie
 on the CPU (see `ecgmm_torch/ops`). There is no mesh either: the port
-trains on one card. The presets are those of the trimodal fusion trainers
-(`fusion`, `fusion_modal_balance`, `fusion_cached`), of the pretraining
-stages (`image_only`, `signal_only`) and of the signal-only ResNet1D-SE
-trainers that run on the synthetic cohort; the other signal presets, and
-the CV and streaming knobs, wait for their slices (ROADMAP.md)."""
+trains on one card. The presets are the JAX package's thirteen: the
+trimodal fusion trainers (`fusion`, `fusion_modal_balance`,
+`fusion_cached`), the pretraining stages (`image_only`, `signal_only`),
+the signal-only ResNet1D-SE trainers (`ptbxl_af`, `physionet`,
+`physionet_multi`, `signal_af`, `signal_arr`, `signal_12lead`) and the
+spectrogram CRNN and 1-D Transformer (`physionet_crnn`,
+`physionet_transformer`), all on the synthetic cohort; the CV and
+streaming knobs wait for their slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -208,6 +211,50 @@ def physionet_multi_preset() -> Config:
     )
 
 
+def signal_af_preset() -> Config:
+    """AF-vs-rest tiny-positive task (reference train_signal_only_af.py:
+    manual split, 2 positive train samples)."""
+    return dataclasses.replace(signal_only_preset(), name="signal_af")
+
+
+def signal_arr_preset() -> Config:
+    """Arrhythmia(1) vs Abnormal(0) (reference train_signal_only_arr.py)."""
+    return dataclasses.replace(signal_only_preset(), name="signal_arr")
+
+
+def signal_12lead_preset() -> Config:
+    """12-lead AF task (reference train_signal_12_af.py:246:
+    ResNet1D_SE(input_channels=12)); unlike the other signal trainers its
+    early stopping is active (patience 5, train_signal_12_af.py:312-316)."""
+    base = signal_only_preset()
+    return dataclasses.replace(
+        base,
+        name="signal_12lead",
+        model=ModelConfig(signal_input_channels=12),
+        train=dataclasses.replace(base.train, patience=5),
+    )
+
+
+def physionet_crnn_preset() -> Config:
+    """Spectrogram CRNN on PhysioNet (reference train_physionet2.py: bs 16
+    and lr 1e-4 from its Config :163-170, constant-LR Adam with no
+    scheduler and no plateau block; early stopping is commented out
+    :226-229)."""
+    base = physionet_preset()
+    return dataclasses.replace(
+        base,
+        name="physionet_crnn",
+        train=dataclasses.replace(base.train, batch_size=16, lr=1e-4,
+                                  schedule="constant", plateau_patience=0),
+    )
+
+
+def physionet_transformer_preset() -> Config:
+    """1-D Transformer on PhysioNet (reference train_physionet.py:211)."""
+    return dataclasses.replace(physionet_preset(),
+                               name="physionet_transformer")
+
+
 PRESETS = {
     "fusion": fusion_preset,
     "fusion_modal_balance": fusion_modal_balance_preset,
@@ -217,6 +264,11 @@ PRESETS = {
     "ptbxl_af": ptbxl_preset,
     "physionet": physionet_preset,
     "physionet_multi": physionet_multi_preset,
+    "signal_af": signal_af_preset,
+    "signal_arr": signal_arr_preset,
+    "signal_12lead": signal_12lead_preset,
+    "physionet_crnn": physionet_crnn_preset,
+    "physionet_transformer": physionet_transformer_preset,
 }
 
 
@@ -225,6 +277,5 @@ def get_preset(name: str) -> Config:
         return PRESETS[name]()
     except KeyError:
         raise KeyError(
-            f"unknown preset {name!r}; available in the port: "
-            f"{sorted(PRESETS)} (the others wait, ROADMAP.md)"
+            f"unknown preset {name!r}; available: {sorted(PRESETS)}"
         ) from None

@@ -18,6 +18,7 @@ import torch
 
 from ecgmm_torch.data import preprocess, splits
 from ecgmm_torch.data.synthetic import SyntheticCohort
+from ecgmm_torch.ops.spectrogram import log_spectrogram
 
 
 class Arrays(NamedTuple):
@@ -26,7 +27,8 @@ class Arrays(NamedTuple):
     encoders' raw (N, D) float32 embeddings in the three modality slots."""
 
     images: Optional[torch.Tensor]    # (N, 3, H, W) uint8, or (N, D) f32
-    signals: Optional[torch.Tensor]   # (N, T) or (N, C, T), or (N, D) f32
+    signals: Optional[torch.Tensor]   # (N, T), (N, C, T), (N, F, frames)
+    #                                   spectrograms, or (N, D) f32
     clinical: Optional[torch.Tensor]  # (N, C), or (N, D) float32
     labels: torch.Tensor              # (N,) int64
     indices: np.ndarray               # (N,) original patient ids (host)
@@ -101,22 +103,27 @@ def materialize_signal(
     labels: np.ndarray,
     split: splits.Split,
     preprocess_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    spectrogram: bool = False,
     device="cuda",
 ) -> MaterializedData:
     """Signal-only task materialisation (the reference's
     train_signal_only* / train_physionet* / train_signal_only_ptb
     families): `preprocess_fn` maps a split's (N, ..., T) host signals to
-    (N, ..., T'), then each split moves to `device` once."""
+    (N, ..., T'); with `spectrogram` the result becomes (N, F, frames)
+    log-spectrograms on the host, for the CRNN (train_physionet2.py);
+    then each split moves to `device` once."""
     device = torch.device(device)
 
     def build(idx: np.ndarray) -> Arrays:
         sig = signals[idx]
         if preprocess_fn is not None:
             sig = preprocess_fn(sig)
+        sig = torch.from_numpy(np.ascontiguousarray(sig, np.float32))
+        if spectrogram:
+            sig = log_spectrogram(sig).contiguous()
         return Arrays(
             images=None,
-            signals=torch.from_numpy(
-                np.ascontiguousarray(sig, np.float32)).to(device),
+            signals=sig.to(device),
             clinical=None,
             labels=torch.from_numpy(
                 np.asarray(labels[idx], np.int64)).to(device),

@@ -46,7 +46,9 @@ def remove_baseline_drift(x: np.ndarray, window_size: int = 200
     x64 = np.asarray(x, np.float64)
     kernel = np.full(window_size, 1.0 / window_size)
     flat = x64.reshape(-1, x64.shape[-1])
-    base = np.stack([np.convolve(row, kernel, mode="same") for row in flat])
+    base = np.empty_like(flat)  # an empty split stays empty
+    for i, row in enumerate(flat):
+        base[i] = np.convolve(row, kernel, mode="same")
     return (flat - base).reshape(x64.shape).astype(np.float32)
 
 

@@ -7,7 +7,9 @@ sets equal sklearn's: `StratifiedShuffleSplit` with integer sizes
 (n_test = ceil(test_size * n)), class members by a stable argsort of the
 class ids, `_approximate_mode` for the per-class train and test counts, a
 `RandomState` permutation within each class, then a permutation of each
-side. The nested and exhaustive CV splits wait with CV (ROADMAP.md).
+side. `manual_split` pins val and test index lists, and
+`manual_af_split` is the tiny-positive AF split of the `signal_af`
+preset. The nested and exhaustive CV splits wait with CV (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -104,3 +106,37 @@ def stratified_622(labels: np.ndarray, seed: int = 42) -> Split:
 def stratified_712(labels: np.ndarray, seed: int = 42) -> Split:
     """70/10/20 (reference train_physionet_multi.py:91-96)."""
     return _three_way(labels, 0.3, 2 / 3, seed)
+
+
+def manual_split(n: int, val_indices, test_indices) -> Split:
+    """Pinned val and test index lists, everything else train (reference
+    signal_model_split.py:170-171)."""
+    val = np.asarray(sorted(val_indices), dtype=np.int64)
+    test = np.asarray(sorted(test_indices), dtype=np.int64)
+    if np.intersect1d(val, test).size:
+        raise ValueError("val/test index lists overlap")
+    mask = np.ones(n, dtype=bool)
+    mask[val] = False
+    mask[test] = False
+    return Split(np.arange(n)[mask], val, test)
+
+
+def manual_af_split(labels: np.ndarray, seed: int = 42) -> Split:
+    """The tiny-positive AF split (reference train_signal_only_af.py:
+    95-112): the shuffled AF positives go 2 to train and the rest to test,
+    none to val; the shuffled negatives 68 to train, 22 to val and the
+    rest to test. One `RandomState(seed)` stream shuffles the positives,
+    then the negatives, as the reference's `np.random.seed` does."""
+    rng = np.random.RandomState(seed)
+    af_idx = np.where(labels == 1)[0].copy()
+    neg_idx = np.where(labels == 0)[0].copy()
+    rng.shuffle(af_idx)
+    rng.shuffle(neg_idx)
+    n_train_neg = min(68, len(neg_idx))
+    n_val_neg = min(22, max(0, len(neg_idx) - n_train_neg))
+    return Split(
+        train=np.concatenate([af_idx[:2], neg_idx[:n_train_neg]]),
+        val=neg_idx[n_train_neg:n_train_neg + n_val_neg],
+        test=np.concatenate([af_idx[2:],
+                             neg_idx[n_train_neg + n_val_neg:]]),
+    )

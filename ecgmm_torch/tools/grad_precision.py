@@ -149,7 +149,8 @@ def step_grads32(model, batch, task, device):
                        mask=batch.mask.to(device))
     loss, _ = task.loss(task.apply(m, b), b)
     loss.backward()
-    return {k: p.grad.cpu() for k, p in m.named_parameters()}
+    return {k: p.grad.cpu() for k, p in m.named_parameters()
+            if p.grad is not None}
 
 
 def op_grads(mod, x, g, device, dtype):

@@ -11,8 +11,9 @@ It is the port's own copy of the layout rules of the JAX exporters
 scale/bias/mean/var -> weight/bias/running_mean/running_var plus
 `num_batches_tracked`, and the TabNet shared GLU fc weights aliased into
 every feature transformer. The standalone models of the pretraining
-stages have their own entry points (`from_jax_resnet1d_se`,
-`from_jax_resnet18`, `from_jax_clinical_probe`), and `load_partial` merges
+stages and the other signal models have their own entry points
+(`from_jax_resnet1d_se`, `from_jax_resnet18`, `from_jax_clinical_probe`,
+`from_jax_crnn`, `from_jax_transformer1d`), and `load_partial` merges
 one state dict into another with the warm-start filters of
 `ecgmm_tpu/tools/convert_pth.load_partial`.
 """
@@ -211,6 +212,91 @@ def from_jax_clinical_probe(variables: Mapping) -> Dict[str, torch.Tensor]:
     else:
         _tabnet(_Branch(flat, sd, "encoder", "encoder.tabnet"))
     _Branch(flat, sd, "", "").linear("probe", "probe")
+    return _tensors(sd)
+
+
+def from_jax_crnn(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax CRNN's variables as the state dict of
+    `ecgmm_torch.models.CRNN` (the layout of
+    `ecgmm_tpu/tools/export_pth.export_crnn`): the per-gate kernels
+    stacked in torch's (i, f, g, o) order, the first layer's input columns
+    permuted from flax's (F', C) flatten to torch's (C, F'), the one bias
+    of each gate as `bias_ih_*` and zeros as `bias_hh_*`."""
+    flat = _flatten(variables)
+    sd: Dict[str, np.ndarray] = {}
+    b = _Branch(flat, sd, "", "")
+    for name in ("conv1", "conv2", "conv3"):
+        b.put(f"{name}.block.0.weight",
+              _conv2d(b.param(f"{name}/conv/kernel")))
+        b.put(f"{name}.block.0.bias", b.param(f"{name}/conv/bias"))
+        b.bn(f"{name}.block.1", f"{name}/bn")
+    c_out = b.param("conv3/conv/kernel").shape[-1]
+    in_dim = b.param("bilstm0/OptimizedLSTMCell_0/ii/kernel").shape[0]
+    f_out = in_dim // c_out
+    # torch column c * F' + f is flax row f * C + c
+    torch_to_flax = (np.arange(f_out)[None, :] * c_out
+                     + np.arange(c_out)[:, None]).ravel()
+    n_layers = len({k.split("/")[1] for k in flat
+                    if k.startswith("params/bilstm")})
+    for k in range(n_layers):
+        for d, cell in enumerate(("OptimizedLSTMCell_0",
+                                  "OptimizedLSTMCell_1")):
+            sfx = "_reverse" if d else ""
+            base = f"bilstm{k}/{cell}"
+            w_ih, w_hh, bias = [], [], []
+            for g in "ifgo":
+                w = b.param(f"{base}/i{g}/kernel")
+                if k == 0:
+                    w = w[torch_to_flax]
+                w_ih.append(w.T)
+                w_hh.append(b.param(f"{base}/h{g}/kernel").T)
+                bias.append(b.param(f"{base}/h{g}/bias"))
+            bias = np.concatenate(bias, 0)
+            b.put(f"bilstm.weight_ih_l{k}{sfx}", np.concatenate(w_ih, 0))
+            b.put(f"bilstm.weight_hh_l{k}{sfx}", np.concatenate(w_hh, 0))
+            b.put(f"bilstm.bias_ih_l{k}{sfx}", bias)
+            b.put(f"bilstm.bias_hh_l{k}{sfx}", np.zeros_like(bias))
+    b.linear("classifier.0", "head_dense")
+    b.linear("classifier.3", "head_out")
+    return _tensors(sd)
+
+
+def from_jax_transformer1d(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ECGTransformer1D's variables as the state dict of
+    `ecgmm_torch.models.ECGTransformer1D` (the layout of
+    `ecgmm_tpu/tools/export_pth.export_transformer1d`): the per-head q, k,
+    v kernels (D, H, hd) packed into `in_proj_weight` (3D, D), the output
+    kernel (H, hd, D) as `out_proj.weight` (D, D)."""
+    flat = _flatten(variables)
+    sd: Dict[str, np.ndarray] = {}
+    b = _Branch(flat, sd, "", "")
+    b.put("conv.weight", _conv1d(b.param("embed_conv/kernel")))
+    b.put("conv.bias", b.param("embed_conv/bias"))
+    b.put("pos_embedding", b.param("pos_embedding"))
+    layers = sorted({int(k.split("/")[1][len("layer"):]) for k in flat
+                     if k.startswith("params/layer")})
+    for i in layers:
+        src, dst = f"layer{i}", f"transformer_encoder.layers.{i}."
+        w, bias = [], []
+        for name in ("query", "key", "value"):
+            kern = b.param(f"{src}/self_attn/{name}/kernel")  # (D, H, hd)
+            d = kern.shape[0]
+            w.append(kern.reshape(d, d).T)
+            bias.append(b.param(f"{src}/self_attn/{name}/bias").reshape(d))
+        b.put(dst + "self_attn.in_proj_weight", np.concatenate(w, 0))
+        b.put(dst + "self_attn.in_proj_bias", np.concatenate(bias, 0))
+        wo = b.param(f"{src}/self_attn/out/kernel")  # (H, hd, D)
+        b.put(dst + "self_attn.out_proj.weight",
+              wo.reshape(-1, wo.shape[-1]).T)
+        b.put(dst + "self_attn.out_proj.bias",
+              b.param(f"{src}/self_attn/out/bias"))
+        b.linear(dst + "linear1", f"{src}/ff1")
+        b.linear(dst + "linear2", f"{src}/ff2")
+        for n in ("norm1", "norm2"):
+            b.put(dst + n + ".weight", b.param(f"{src}/{n}/scale"))
+            b.put(dst + n + ".bias", b.param(f"{src}/{n}/bias"))
+    b.linear("classifier.1", "head_dense")
+    b.linear("classifier.4", "head_out")
     return _tensors(sd)
 
 

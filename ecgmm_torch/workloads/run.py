@@ -1,6 +1,7 @@
-"""Trainer CLI (port of `ecgmm_tpu/workloads/run.py` for the trimodal
-fusion presets, the image-only and signal-only pretraining presets and
-the signal-only ResNet1D-SE presets):
+"""Trainer CLI (port of `ecgmm_tpu/workloads/run.py`) for every preset
+of the JAX package: the trimodal fusion presets, the image-only and
+signal-only pretraining presets, the signal-only ResNet1D-SE presets, the
+spectrogram CRNN and the 1-D Transformer:
 
     python -m ecgmm_torch.workloads.run                 # --preset fusion
     python -m ecgmm_torch.workloads.run --preset fusion_modal_balance
@@ -9,6 +10,9 @@ the signal-only ResNet1D-SE presets):
     python -m ecgmm_torch.workloads.run --preset image_only
     python -m ecgmm_torch.workloads.run --preset ptbxl_af
     python -m ecgmm_torch.workloads.run --preset physionet_multi --epochs 3
+    python -m ecgmm_torch.workloads.run --preset signal_12lead
+    python -m ecgmm_torch.workloads.run --preset physionet_crnn
+    python -m ecgmm_torch.workloads.run --preset physionet_transformer
     python -m ecgmm_torch.workloads.run --preset fusion --device cpu \
         --epochs 1 --n-synth 48
 
@@ -37,7 +41,9 @@ import torch
 
 from ecgmm_torch.config import Config, get_preset
 from ecgmm_torch.data import pipeline, preprocess, splits, synthetic
-from ecgmm_torch.models import ECGMultimodalModel, ResNet18, ResNet1DSE
+from ecgmm_torch.models import (CRNN, ECGMultimodalModel, ECGTransformer1D,
+                                ResNet18, ResNet1DSE)
+from ecgmm_torch.models.crnn import lstm_bias_frozen
 from ecgmm_torch.models.layers import flax_init_
 from ecgmm_torch.train import calibrate, embed, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
@@ -45,13 +51,16 @@ from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.report import test_report
 from ecgmm_torch.train.state import create_state, encoder_freeze_predicate
 from ecgmm_torch.workloads.tasks import (make_fusion_task, make_image_task,
-                                         make_signal_task)
+                                         make_signal_task,
+                                         make_spectrogram_task)
 
 FUSION_FAMILIES = ("fusion", "fusion_modal_balance", "fusion_cached")
 # trained on the trimodal cohort, as in JAX (signal_only is not one of its
 # SIGNAL_FAMILIES, ecgmm_tpu/workloads/run.py:224-242)
 STAGE_PRESETS = ("image_only", "signal_only")
-SIGNAL_FAMILIES = ("ptbxl_af", "physionet", "physionet_multi")
+SIGNAL_FAMILIES = ("ptbxl_af", "physionet", "physionet_multi",
+                   "physionet_crnn", "physionet_transformer", "signal_af",
+                   "signal_arr", "signal_12lead")
 REAL_DATA_ITEM = ("ROADMAP.md section 1, 'Real-data training': the PTB-XL "
                   "and PhysioNet records and their manifests are not in the "
                   "repository")
@@ -98,6 +107,15 @@ def build_model_and_task(cfg: Config, device="cuda"):
         model = ResNet18(num_classes=cfg.model.num_classes)
         task = make_image_task(t)
         freeze = None
+    elif cfg.name == "physionet_crnn":
+        model = CRNN(num_classes=cfg.model.num_classes)
+        task = make_spectrogram_task(t)
+        freeze = lstm_bias_frozen
+    elif cfg.name == "physionet_transformer":
+        model = ECGTransformer1D(num_classes=cfg.model.num_classes,
+                                 seq_len=cfg.data.signal_len)
+        task = make_signal_task(t)
+        freeze = None
     elif cfg.name in SIGNAL_FAMILIES + ("signal_only",):
         model = ResNet1DSE(
             num_classes=cfg.model.num_classes,
@@ -108,8 +126,7 @@ def build_model_and_task(cfg: Config, device="cuda"):
         task = make_signal_task(t)
         freeze = None
     else:
-        raise NotImplementedError(
-            f"preset {cfg.name!r} is not ported yet (ROADMAP.md section 1)")
+        raise ValueError(f"unknown preset {cfg.name!r}")
     flax_init_(model, torch.Generator().manual_seed(t.seed))
     return model.to(_device(device)), task, freeze
 
@@ -117,12 +134,18 @@ def build_model_and_task(cfg: Config, device="cuda"):
 def load_data(cfg: Config, n_synth: int,
               device="cuda") -> pipeline.MaterializedData:
     """The preset's synthetic cohort, split and preprocessed as its
-    reference trainer does, on `device`: the trimodal cohort of the fusion,
-    image_only and signal_only presets (images img_height x img_width, the
-    preset's clinical columns) through `materialize_trimodal`; PTB-XL is
-    drawn at 500 Hz (2 x signal_len), split 60/20/20 and decimated,
-    filtered and cut to signal_len; PhysioNet is split 80/10/10 (70/10/20 with three random
-    classes for physionet_multi), band-passed and z-scored."""
+    reference trainer does, on `device`, with the JAX package's draws
+    (`ecgmm_tpu/workloads/run.py:95-221`): the trimodal cohort of the
+    fusion, image_only and signal_only presets (images img_height x
+    img_width, the preset's clinical columns) through
+    `materialize_trimodal`; PTB-XL is drawn at 500 Hz (2 x signal_len),
+    split 60/20/20 and decimated, filtered and cut to signal_len;
+    PhysioNet is split 80/10/10 (70/10/20 with three random classes for
+    physionet_multi), band-passed and z-scored, and turned into
+    log-spectrograms for physionet_crnn; the hospital presets take the
+    hospital filter: signal_af a cohort of at least 60 with exactly 6
+    random positives and the manual AF split, signal_12lead 12 leads of
+    random gains, split 80/10/10 as signal_arr is."""
     seed = cfg.train.seed
     rng = np.random.default_rng(seed)
     if cfg.name in FUSION_FAMILIES + STAGE_PRESETS:
@@ -131,9 +154,15 @@ def load_data(cfg: Config, n_synth: int,
             img_hw=(cfg.data.img_height, cfg.data.img_width),
             n_clinical=cfg.model.clinical_in_features, seed=seed)
         return pipeline.materialize_trimodal(c, cfg, device=device)
+    if cfg.name not in SIGNAL_FAMILIES:
+        raise ValueError(f"unknown preset {cfg.name!r}")
+
+    def cohort(n, signal_len=cfg.data.signal_len):
+        return synthetic.make_cohort(n=n, signal_len=signal_len,
+                                     img_hw=None, seed=seed)
+
     if cfg.name == "ptbxl_af":
-        c = synthetic.make_cohort(n=n_synth, signal_len=2 * cfg.data.signal_len,
-                                  img_hw=None, seed=seed)
+        c = cohort(n_synth, 2 * cfg.data.signal_len)  # at 500 Hz
         return pipeline.materialize_signal(
             c.signals, c.labels, splits.stratified_622(c.labels, seed),
             preprocess_fn=lambda s: preprocess.preprocess_ptbxl(
@@ -141,8 +170,7 @@ def load_data(cfg: Config, n_synth: int,
             device=device,
         )
     if cfg.name.startswith("physionet"):
-        c = synthetic.make_cohort(n=n_synth, signal_len=cfg.data.signal_len,
-                                  img_hw=None, seed=seed)
+        c = cohort(n_synth)
         labels = c.labels
         if cfg.model.num_classes > 2:
             labels = rng.integers(0, 3, len(labels))
@@ -151,10 +179,29 @@ def load_data(cfg: Config, n_synth: int,
             split = splits.stratified_811(labels, seed)
         return pipeline.materialize_signal(
             c.signals, labels, split,
-            preprocess_fn=preprocess.preprocess_physionet, device=device,
+            preprocess_fn=preprocess.preprocess_physionet,
+            spectrogram=(cfg.name == "physionet_crnn"), device=device,
         )
-    raise NotImplementedError(
-        f"preset {cfg.name!r} is not ported yet (ROADMAP.md section 1)")
+    if cfg.name == "signal_af":
+        # exactly 6 AF positives (reference train_signal_only_af.py:93)
+        c = cohort(max(n_synth, 60))
+        labels = np.zeros(len(c.labels), np.int64)
+        labels[rng.choice(len(labels), 6, replace=False)] = 1
+        split = splits.manual_af_split(labels, seed)
+        signals = c.signals
+    elif cfg.name == "signal_12lead":
+        c = cohort(n_synth)
+        lead_gain = rng.uniform(0.5, 1.5, (1, 12, 1)).astype(np.float32)
+        signals = c.signals[:, None, :] * lead_gain  # (N, 12, T)
+        labels = c.labels
+        split = splits.stratified_811(labels, seed)
+    else:  # signal_arr
+        c = cohort(n_synth)
+        signals, labels = c.signals, c.labels
+        split = splits.stratified_811(labels, seed)
+    return pipeline.materialize_signal(
+        signals, labels, split,
+        preprocess_fn=preprocess.preprocess_hospital, device=device)
 
 
 def ptbxl_sample_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:

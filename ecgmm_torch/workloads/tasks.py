@@ -7,9 +7,8 @@ train_signal_only_ptb.py, train_physionet*.py), the image task
 (train_image_only.py), the clinical-encoder pretraining task (encoder plus
 a linear probe, for the clinical checkpoint multimodal.py:388 loads), the
 fusion task (train.py / train_paper_modal_balance.py: CE(fusion) + 0.1
-var_loss, the encoders frozen by the train state) and the fusion head task
-over cached embeddings. The spectrogram task waits for its slice
-(ROADMAP.md).
+var_loss, the encoders frozen by the train state), the fusion head task
+over cached embeddings and the spectrogram task (train_physionet2.py).
 """
 
 from __future__ import annotations
@@ -87,6 +86,14 @@ def make_signal_task(cfg: TrainConfig) -> Task:
         return model(x)
 
     return Task(apply=apply, loss=_classification_loss(cfg),
+                logits=lambda outputs: outputs)
+
+
+def make_spectrogram_task(cfg: TrainConfig) -> Task:
+    """The CRNN over precomputed (B, F, T) log-spectrograms held in the
+    batch's signal slot (reference train_physionet2.py)."""
+    return Task(apply=lambda model, batch: model(batch.signals),
+                loss=_classification_loss(cfg),
                 logits=lambda outputs: outputs)
 
 

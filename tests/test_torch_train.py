@@ -632,15 +632,19 @@ def test_run_refuses_mismatched_device_and_unported_presets(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_run.run(cfg, data, device="cuda")
-    # image_only, fusion_cached and signal_only are ported; a preset of a
-    # later slice is still refused, naming the ROADMAP or the presets
+    # every preset of the JAX package is ported; a name that is no preset
+    # is refused, and the message names the presets
     model, _, freeze = port_run.build_model_and_task(
         Config(name="image_only"), "cpu")
     assert type(model).__name__ == "ResNet18" and freeze is None
     assert get_preset("fusion_cached").train.cache_embeddings
     assert get_preset("signal_only").train.batch_size == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_run.build_model_and_task(Config(name="physionet_crnn"), "cpu")
+    model, _, freeze = port_run.build_model_and_task(
+        get_preset("physionet_crnn"), "cpu")
+    assert type(model).__name__ == "CRNN" and freeze("bilstm.bias_hh_l0")
+    assert get_preset("signal_af").train.batch_size == 8
+    with pytest.raises(ValueError, match="unknown preset"):
+        port_run.build_model_and_task(Config(name="physionet_lstm"), "cpu")
     with pytest.raises(KeyError, match="ptbxl_af"):
-        get_preset("signal_af")
+        get_preset("physionet_lstm")
     assert ModelConfig().signal_base_filters == 64
