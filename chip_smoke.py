@@ -14,15 +14,31 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      a profiled focal backward of a train step runs one device kernel;
      plus per-shape device times of forward, backward and both, beside
      the parent's path (kernel forward, plain backward) and the bounds,
-     the focal forward's cluster sweep, and the SE forward alone in bf16
+     the focal forward's cluster sweep, the SE forward alone in bf16
      (the frozen signal encoder's form) at the fusion presets' B=16 and
-     bench.py's B=256;
+     bench.py's B=256, and the shapes of the batched request program: the
+     SE forward in f32 at B = 2 ... 16, the fusion forward at b, 8b and
+     32b rows and its backward at 8b (IG) and 32b (SHAP) rows, up to 512;
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
      kernels' launch counters (forward and backward) prove the requests
-     ran through them, and 2 requests match the same pipeline on the CPU;
+     ran through them, and 2 requests match the same pipeline on the CPU
+     with the card's TF32 flags at torch's defaults (the request program
+     turns TF32 off itself);
   5. numbers: request latency;
+  8. (run after phase 5) the front end: the upload decoder turns the
+     committed fixtures into Pillow's bytes (SHA-256); the HTTP server
+     (`serve(ServingPipeline.demo(device="cuda"), port=0,
+     background=True)`) with the micro-batcher on (20 ms window, buckets
+     1-16) answers 16 client threads posting the hammer's JPEG, every
+     response checked, with the launch counters equal to dispatches x
+     (3 SE forwards, 3 fusion forwards, 2 fusion backwards), coalescence
+     above 1 in /stats and /metrics parsed; a b=16 dispatch matches the
+     CPU with TF32 at torch's defaults (and a TF32 control is read);
+     requests/s and p50/p90 at 1, 4 and 16 clients batched and unbatched,
+     device ms per bucket, the busy share, decode ms; a drain with 16
+     requests in flight loses none;
   6. the training slices: 3 full-width `ptbxl_af` train steps from one
      initial state on the card and on the CPU agree (loss, gradients,
      parameters, BatchNorm buffers), and the same first step with TF32 on
@@ -69,8 +85,10 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -78,7 +96,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -86,17 +106,27 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ecgmm_torch.config import ModelConfig, get_preset  # noqa: E402
+from ecgmm_torch.config import get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
+from ecgmm_torch.explain.shap_fusion import (  # noqa: E402
+    modality_contributions)
 from ecgmm_torch.models import (  # noqa: E402
     CRNN, ECGMultimodalModel, TabNetEncoder)
 from ecgmm_torch.models.crnn import GemmConv2d  # noqa: E402
 from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
+from ecgmm_torch.precision import no_tf32  # noqa: E402
+from ecgmm_torch.serve import http as serve_http  # noqa: E402
+from ecgmm_torch.serve import pipeline as serve_pipeline  # noqa: E402
+from ecgmm_torch.serve import request as request_host  # noqa: E402
+from ecgmm_torch.serve.imdecode import decode_upload  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
+from ecgmm_torch.serve.wire import ENDPOINT  # noqa: E402
+from ecgmm_torch.tools import fusion_rounding  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
+from ecgmm_torch.tools import serve_hammer  # noqa: E402
 from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
 from ecgmm_torch.train import embed, engine  # noqa: E402
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
@@ -118,6 +148,10 @@ PEAKS = {
 SE_SHAPES = [(619, 64), (310, 128), (155, 256)]  # (T, C) at signal 2476
 SE_EDGE_SHAPES = [(37, 16)]  # odd T, reduction width R = 1
 FUSION_DIMS = [(512, 128, 32), (256, 256, 256)]  # canonical, modal balance
+# the micro-batcher's buckets: a dispatch of b requests runs the SE blocks
+# at B=b, the fusion head's forward at b, 32*b (SHAP) and 8*b (IG) rows
+# and its backward at 32*b and 8*b rows
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
 TRAIN_B = 16  # ptbxl_af batch
 SIGNAL_ONLY_B = 8  # the signal_only preset's batch (pretraining stage 2)
 # (B, T, C) of the SE blocks on the training paths: ptbxl_af (signal
@@ -314,80 +348,102 @@ def check_fusion(gen, peaks):
     soft weights (to the bit), the forward's (mu, rstd) residual against
     `reference_fusion_stats` (atol 1e-6 + rtol 1e-5), three more forward
     launches bit-identical, and the gradients of sum(out**2) w.r.t. all
-    six inputs (through the backward kernels) against plain autograd."""
+    six inputs (through the backward kernels) against plain autograd
+    (`_fusion_grads_agree`)."""
     bw, flops = peaks
     rows = []
     eps = 1e-5
-    for b in (1, 8, 16, 32, 256):
-        for dims in FUSION_DIMS:
-            d = sum(dims)
-            ins = [torch.randn(b, w, generator=gen) for w in dims] + [
-                torch.randn(3, generator=gen),
-                torch.randn(d, generator=gen) + 1,
-                torch.randn(d, generator=gen)]
-            ins = [t.cuda() for t in ins]
-            leaves = [t.clone().requires_grad_(True) for t in ins]
-            out, sw = fusion.fused_attention_fusion(*leaves, eps=eps)
-            g_kernel = torch.autograd.grad((out ** 2).sum(), leaves)
-            ref_leaves = [t.clone().requires_grad_(True) for t in ins]
-            ref, ref_sw = fusion.reference_attention_fusion(*ref_leaves,
-                                                            eps=eps)
-            g_ref = torch.autograd.grad((ref ** 2).sum(), ref_leaves)
-            _, _, stats = fusion._launch(*fusion._prepare(*ins), eps,
-                                         keep_stats=True)
-            want_stats = fusion.reference_fusion_stats(*ins[:4], eps)
-            repeats = [fusion.fused_attention_fusion(*ins, eps=eps)
-                       for _ in range(3)]
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            sw_err = (sw - ref_sw).abs().max().item()
-            stats_diff = (stats - want_stats).abs()
-            stats_err = stats_diff.max().item()
-            if err > 1e-5 or sw_err != 0.0 or (
-                    stats_diff > 1e-6 + 1e-5 * want_stats.abs()).any():
-                raise AssertionError(
-                    f"fusion B={b} D={d}: value err {err}, sw err {sw_err}, "
-                    f"(mu, rstd) err {stats_err}")
-            if not all(torch.equal(o, out) and torch.equal(w, sw)
-                       for o, w in repeats):
-                raise AssertionError(
-                    f"fusion B={b} D={d}: repeated launches differ")
-            for name, ga, gb in zip(
-                    ("img", "sig", "clin", "weights", "scale", "bias"),
-                    g_kernel, g_ref):
-                # rtol 1e-5 / atol 1e-4 elementwise, except for the three
-                # `weights` components: each sums B*D terms that cancel, so
-                # its float32 rounding (the plain version's too: 3e-3 off
-                # float64 at B=256, D=768 on the CPU) scales with the
-                # largest component, and the relative bar is taken
-                # against that
-                ref_scale = gb.abs().max() if name == "weights" else gb.abs()
-                if ((ga - gb).abs() > 1e-4 + 1e-5 * ref_scale).any():
-                    raise AssertionError(
-                        f"fusion B={b} D={d}: grad {name} max err "
-                        f"{(ga - gb).abs().max().item()}")
-            with torch.no_grad():
-                fused = torch.cat([ref_sw[i] * ins[i] for i in range(3)], -1)
-                nbytes = 4 * (2 * b * d + 2 * d + 6)
-                rows.append({
-                    "B": b, "D": d, "max_abs_err": err, "sw_err": sw_err,
-                    "stats_err": stats_err,
-                    "layout": fusion.layout(b, dims),
-                    "us": device_us(
-                        lambda: fusion.fused_attention_fusion(*ins, eps=eps)),
-                    "plain_us": device_us(
-                        lambda: fusion.reference_attention_fusion(
-                            *ins, eps=eps)),
-                    "bound_us": max(nbytes / bw, 9 * b * d / flops) * 1e6,
-                    "library_us": device_us(
-                        lambda: F.layer_norm(fused, (d,), ins[4], ins[5],
-                                             eps)),
-                })
-            print(f"fused_attention_fusion {rows[-1]}", flush=True)
+    cases = [(b, dims) for b in (1, 8, 16, 32, 256) for dims in FUSION_DIMS]
+    # b, 8b and 32b rows for the buckets b of SERVE_BUCKETS, at D=672
+    cases += [(b, FUSION_DIMS[0]) for b in (2, 4, 64, 128, 512)]
+    for b, dims in cases:
+        d = sum(dims)
+        ins = [torch.randn(b, w, generator=gen) for w in dims] + [
+            torch.randn(3, generator=gen),
+            torch.randn(d, generator=gen) + 1,
+            torch.randn(d, generator=gen)]
+        ins = [t.cuda() for t in ins]
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        out, sw = fusion.fused_attention_fusion(*leaves, eps=eps)
+        g_kernel = torch.autograd.grad((out ** 2).sum(), leaves)
+        ref_leaves = [t.clone().requires_grad_(True) for t in ins]
+        ref, ref_sw = fusion.reference_attention_fusion(*ref_leaves,
+                                                        eps=eps)
+        g_ref = torch.autograd.grad((ref ** 2).sum(), ref_leaves)
+        _, _, stats = fusion._launch(*fusion._prepare(*ins), eps,
+                                     keep_stats=True)
+        want_stats = fusion.reference_fusion_stats(*ins[:4], eps)
+        repeats = [fusion.fused_attention_fusion(*ins, eps=eps)
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        sw_err = (sw - ref_sw).abs().max().item()
+        stats_diff = (stats - want_stats).abs()
+        stats_err = stats_diff.max().item()
+        if err > 1e-5 or sw_err != 0.0 or (
+                stats_diff > 1e-6 + 1e-5 * want_stats.abs()).any():
+            raise AssertionError(
+                f"fusion B={b} D={d}: value err {err}, sw err {sw_err}, "
+                f"(mu, rstd) err {stats_err}")
+        if not all(torch.equal(o, out) and torch.equal(w, sw)
+                   for o, w in repeats):
+            raise AssertionError(
+                f"fusion B={b} D={d}: repeated launches differ")
+        grad_err = _fusion_grads_agree(f"fusion B={b} D={d}", g_kernel,
+                                       g_ref, ins, eps)
+        with torch.no_grad():
+            fused = torch.cat([ref_sw[i] * ins[i] for i in range(3)], -1)
+            nbytes = 4 * (2 * b * d + 2 * d + 6)
+            rows.append({
+                "B": b, "D": d, "max_abs_err": err, "sw_err": sw_err,
+                "stats_err": stats_err, "grad_err": grad_err,
+                "layout": fusion.layout(b, dims),
+                "us": device_us(
+                    lambda: fusion.fused_attention_fusion(*ins, eps=eps)),
+                "plain_us": device_us(
+                    lambda: fusion.reference_attention_fusion(
+                        *ins, eps=eps)),
+                "bound_us": max(nbytes / bw, 9 * b * d / flops) * 1e6,
+                "library_us": device_us(
+                    lambda: F.layer_norm(fused, (d,), ins[4], ins[5],
+                                         eps)),
+            })
+        print(f"fused_attention_fusion {rows[-1]}", flush=True)
     return rows
 
 
 FUSION_GRADS = ("img", "sig", "clin", "weights", "scale", "bias")
+
+
+def _fusion_grads_agree(where, g_kernel, g_plain, ins, eps):
+    """The kernels' gradients of sum(out**2) w.r.t. the six inputs: `img`,
+    `sig`, `clin`, `scale` and `bias` against plain autograd in float32 on
+    the card (rtol 1e-5 / atol 1e-4 elementwise); `weights` against
+    float64 (plain autograd on the CPU) within 1e-4 + 1e-6 * S, S the size
+    of the terms its sums cancel (`tools/fusion_rounding.py`). Float32
+    rounding, the kernel's and plain autograd's alike, stays near 1e-7 * S
+    (PERF.md section 6), while a row left out or summed twice moves the
+    gradient by that row's own sum. Returns, per gradient, the max abs
+    errors (kernel vs plain, kernel vs float64, plain vs float64) and S."""
+    g64, s_sw = fusion_rounding.float64_grads(ins, eps)
+    errs = {}
+    for name, ga, gb, g in zip(FUSION_GRADS, g_kernel, g_plain, g64):
+        diff = (ga - gb).abs()
+        k64 = (ga.cpu().double() - g).abs()
+        errs[name] = (diff.max().item(), k64.max().item(),
+                      (gb.cpu().double() - g).abs().max().item())
+        if name == "weights":
+            errs["weights_S"] = s_sw
+            bad = (k64 > 1e-4 + 1e-6 * s_sw).any()
+        else:
+            bad = (diff > 1e-4 + 1e-5 * gb.abs()).any()
+        if bad:
+            raise AssertionError(
+                f"{where}: grad {name} max err (vs plain, kernel vs "
+                f"float64, plain vs float64) {errs[name]}")
+    return errs
+
+
 FROZEN = (True, True, True, False, False, False)
 ALL6 = (True,) * 6
 # (B, dims, kind, inputs that need a gradient): the serving request's SHAP
@@ -399,7 +455,12 @@ FUSION_BWD_CASES = [
     (32, FUSION_DIMS[0], "shap", FROZEN), (32, FUSION_DIMS[0], "all", ALL6),
     (8, FUSION_DIMS[0], "ig", (False, False, True, False, False, False)),
     (8, FUSION_DIMS[0], "all", ALL6),
-] + [(b, dims, "all", ALL6) for dims in FUSION_DIMS for b in (16, 256)]
+] + [(b, dims, "all", ALL6) for dims in FUSION_DIMS for b in (16, 256)] + [
+    # the batched request program: SHAP at 32*b and IG at 8*b rows for the
+    # buckets b = 2, 4, 8, 16
+    (32 * b, FUSION_DIMS[0], "shap", FROZEN) for b in SERVE_BUCKETS[1:]
+] + [(8 * b, FUSION_DIMS[0], "ig", (False, False, True, False, False, False))
+     for b in SERVE_BUCKETS[1:]]
 
 
 def check_fusion_backward(gen, peaks):
@@ -780,6 +841,14 @@ def check_se_train(gen, peaks):
             for b, t, c in SE_TRAIN_SHAPES]
 
 
+def check_se_serving(gen, peaks):
+    """fused_se in float32, forward only, at the serving widths for the
+    micro-batcher's buckets above 1 (B = 2 ... 16), as a batched dispatch
+    of the request program runs it (`se_row`)."""
+    return [se_row(gen, b, t, c, torch.float32, peaks, backward=False)
+            for b in SERVE_BUCKETS[1:] for t, c in SE_SHAPES]
+
+
 def check_se_fusion(gen, peaks):
     """fused_se in the forward-only form the frozen signal encoder of the
     fusion presets runs, in its compute dtype (bf16): at the preset's B=16
@@ -863,17 +932,11 @@ def run_slice():
     device_busy(pipe, reqs[:2],
                 statistics.median(t["device_ms"] for t in timings))
 
-    # the same weights on the CPU: cuDNN's TF32 default is turned off so
-    # that both sides compute in float32
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cpu_model = ECGMultimodalModel(cfg=ModelConfig(dtype="float32"))
-    cpu_pipe = ServingPipeline(
-        cpu_model, {k: v.cpu() for k, v in pipe.model.state_dict().items()},
-        device="cpu",
-    )
+    # the same weights on the CPU; the card's TF32 flags stay at torch's
+    # defaults: the request program turns TF32 off itself
+    print(f"TF32 flags while serving: cudnn {torch.backends.cudnn.allow_tf32}"
+          f" matmul {torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    cpu_pipe = _cpu_twin(pipe)
     for img, q, _ in make_requests(2, seed=2):
         a = pipe.predict(img, q, "cam")
         b = cpu_pipe.predict(img, q, "cam")
@@ -889,7 +952,6 @@ def run_slice():
         if a["label"] != b["label"] or p_err > 1e-3 or cam_err > 1e-3 \
                 or fi_err > 0.5:
             raise AssertionError("GPU and CPU answers disagree")
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return launches, timings
 
 
@@ -922,6 +984,324 @@ def device_busy(pipe, reqs, unprofiled_ms):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/req "
               f"{e.count // n:5d}x/req  {e.key[:90]}", flush=True)
+
+
+def _cpu_twin(pipe):
+    """The pipeline's weights and draws in a pipeline on the CPU."""
+    cpu_model = ECGMultimodalModel(cfg=pipe.model.cfg)
+    return ServingPipeline(
+        cpu_model, {k: v.cpu() for k, v in pipe.model.state_dict().items()},
+        background_embeddings=pipe.background.cpu().numpy(),
+        signal_len=pipe.signal_len, img_hw=pipe.img_hw,
+        temperature=pipe.temperature, device="cpu",
+        shap_draws=(pipe.shap_bidx.cpu().numpy(),
+                    pipe.shap_alphas.cpu().numpy()))
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ecgmm_torch", "serve", "fixtures")
+HTTP_WINDOW_MS = 20.0
+SERVE_PLAN = {"fused_se": 3, "fused_attention_fusion": 3,
+              "fused_se_backward": 0, "fused_attention_fusion_backward": 2,
+              "fused_focal_loss": 0, "fused_focal_loss_backward": 0}
+
+
+def check_decoder(smi):
+    """The upload decoder where the script runs: each committed fixture
+    decodes to the SHA-256 that Pillow's decode gave where the fixtures
+    were made; decode time of the hammer's strip (host clock, median of
+    20)."""
+    with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
+        hashes = json.load(f)
+    for name, want in hashes.items():
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        rgb = decode_upload(data)
+        got = hashlib.sha256(rgb.tobytes()).hexdigest()
+        print(f"decode {name}: {rgb.shape} sha256 {got}", flush=True)
+        if list(rgb.shape) != want["shape"] or got != want["rgb_sha256"]:
+            raise AssertionError(f"{name}: the decode differs from Pillow's "
+                                 f"(sha256 {want['rgb_sha256']})")
+    with open(os.path.join(FIXTURES, "strip.jpg"), "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        decode_upload(data)
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    print(f"decode strip.jpg (250x2500 JPEG 4:2:0): median {ms:.3f} ms "
+          f"(host clock; {smi})", flush=True)
+    return ms
+
+
+def compare_batched_with_cpu(pipe, cpu_pipe):
+    """A b=16 dispatch of 16 distinct requests on the card against the
+    same pipeline on the CPU, with the card's TF32 flags at torch's
+    defaults, within phase 4's bars (probability and CAM 1e-3, feature
+    importance 0.5 points, label equal); then the same dispatch with the
+    request program's TF32 section taken out (the parent's served path) as
+    a control, which must miss at least one of those bars: else the
+    comparison could not tell whether the section takes effect."""
+    rows = []
+    for img, q, _ in make_requests(16, seed=3):
+        img_norm, sig, clin = request_host.prepare_inputs(pipe, img, q)[:3]
+        rows.append((img_norm[0].transpose(2, 0, 1), sig[0], clin[0]))
+    ins = [np.stack([r[i] for r in rows]) for i in range(3)]
+    want, _ = cpu_pipe._dispatch(*ins)
+
+    def errors(got):
+        p_err = cam_err = fi_err = 0.0
+        flips = 0
+        for g, w in zip(got, want):
+            gp, gpred, gcam, gattr, gca = pipe._unpack(g)
+            wp, wpred, wcam, wattr, wca = pipe._unpack(w)
+            flips += gpred != wpred
+            p_err = max(p_err, float(np.abs(gp - wp).max()))
+            cam_err = max(cam_err, float(np.abs(gcam - wcam).max()))
+            fi_err = max(fi_err, float(np.abs(
+                _importance(pipe, gattr, gca)
+                - _importance(pipe, wattr, wca)).max()))
+        return {"pred_flips": int(flips), "prob_err": p_err,
+                "cam_err": cam_err, "importance_err_pp": fi_err}
+
+    def within_bars(e):
+        return not e["pred_flips"] and e["prob_err"] <= 1e-3 \
+            and e["cam_err"] <= 1e-3 and e["importance_err_pp"] <= 0.5
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    got, _ = pipe._dispatch(*ins)
+    off = errors(got)
+    print(f"batched b=16 card vs cpu, TF32 flags {flags} (torch's "
+          f"defaults): {off}", flush=True)
+    if not within_bars(off):
+        raise AssertionError("batched GPU and CPU answers disagree")
+    # the control: the parent's served path, cuDNN's TF32 at its default
+    saved = serve_pipeline.no_tf32
+    serve_pipeline.no_tf32 = contextlib.nullcontext
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        control = errors(pipe._dispatch(*ins)[0])
+    finally:
+        serve_pipeline.no_tf32 = saved
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    print(f"TF32 control (the request program without its TF32 section, "
+          f"cudnn TF32 on) b=16 card vs cpu: {control}", flush=True)
+    if within_bars(control):
+        raise AssertionError(
+            "the TF32 control meets the bars: the comparison cannot tell "
+            "whether the request program turns TF32 off")
+    return off, control
+
+
+def _importance(pipe, attr, ca):
+    """The response's four feature-importance percentages."""
+    contrib = modality_contributions(attr, pipe.dims)
+    share = np.abs(ca) / max(float(np.abs(ca).sum()), 1e-30)
+    clin = float(contrib["Clinical_%"][0])
+    return np.array([float(contrib["Image_%"][0]),
+                     float(contrib["Signal_%"][0]),
+                     clin * share[0], clin * share[1]])
+
+
+def bucket_device_ms(pipe, smi):
+    """The request program's device ms per bucket (CUDA events around
+    `_predict_many`, median of 5 after one warm-up)."""
+    out = {}
+    for b in SERVE_BUCKETS:
+        zeros = pipe._zeros(b)
+        pipe._dispatch(*zeros)
+        out[b] = statistics.median(pipe._dispatch(*zeros)[1]
+                                   for _ in range(5))
+    print(f"device ms per dispatch by bucket: {out} ({smi})", flush=True)
+    return out
+
+
+def hammer_window(url, clients, seconds, pipe):
+    """`serve_hammer.hammer` with every response checked against the
+    contract, and the dispatches' device ms summed over the window."""
+    spans = []
+    inner = pipe._dispatch
+
+    def timed(*args):
+        rows, ms = inner(*args)
+        spans.append(ms)
+        return rows, ms
+
+    pipe._dispatch = timed
+    try:
+        t = time.perf_counter()
+        res = serve_hammer.hammer(
+            url, clients, seconds,
+            on_response=lambda b: check_response(json.loads(b), "png"))
+        wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        del pipe._dispatch
+    res["device_program_share"] = sum(spans) / wall_ms
+    res["dispatches"] = len(spans)
+    if res["errors"]:
+        raise AssertionError(f"{res['errors']} requests failed: {res}")
+    return res
+
+
+def profiled_busy(url, clients, seconds, smi):
+    """The device's busy share under `clients` hammering clients: the
+    kernels' and copies' device time (torch.profiler) over the window's
+    wall time, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        res = serve_hammer.hammer(url, clients, seconds)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0.0:
+        print("front end busy share: not measured (the profiler saw no "
+              "device time)", flush=True)
+        return None
+    share = busy_ms / wall_ms
+    print(f"front end busy share, {clients} clients batched: {share:.4f} "
+          f"({busy_ms:.3f} ms busy over {wall_ms:.3f} ms, "
+          f"{res['requests']} requests, profiled; {smi})", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}", flush=True)
+    return share
+
+
+def drain_in_flight(pipe, n=16):
+    """A graceful shutdown with n requests in flight loses none: n
+    connections send all but the last bytes of an upload, the drain
+    fires (the accept loop exits), then the rest arrives and every one of
+    them is answered 200 before server_close() returns."""
+    import socket
+
+    httpd = serve_http.GracefulHTTPServer(("127.0.0.1", 0),
+                                          serve_http.make_handler(pipe))
+    loop = threading.Thread(target=httpd.serve_forever)
+    loop.start()
+    body, ctype = serve_hammer.request_body("png")
+    head = (f"POST {ENDPOINT} HTTP/1.1\r\nHost: t\r\nContent-Type: {ctype}"
+            f"\r\nContent-Length: {len(body)}\r\n\r\n").encode()
+    socks = [socket.create_connection(("127.0.0.1", httpd.server_address[1]),
+                                      timeout=120) for _ in range(n)]
+    try:
+        for s in socks:
+            s.sendall(head + body[:-64])
+        time.sleep(0.5)
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        loop.join(timeout=30)
+        if loop.is_alive():
+            raise AssertionError("the accept loop did not stop")
+        codes = []
+        for s in socks:
+            s.sendall(body[-64:])
+        for s in socks:
+            chunks = []
+            while True:
+                c = s.recv(1 << 16)
+                if not c:
+                    break
+                chunks.append(c)
+            raw = b"".join(chunks)
+            codes.append(raw[:12])
+            if raw.startswith(b"HTTP/1.0 200"):
+                check_response(json.loads(raw.split(b"\r\n\r\n", 1)[1]),
+                               "png")
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()
+    ok = sum(c.startswith(b"HTTP/1.0 200") for c in codes)
+    print(f"graceful drain: {ok} of {n} in-flight requests answered 200",
+          flush=True)
+    if ok != n:
+        raise AssertionError(f"the drain lost requests: {codes}")
+
+
+def run_front_end(smi):
+    """Phase 8: the serving front end on the card. The decoder's
+    fixtures; `serve(ServingPipeline.demo(device="cuda"), port=0,
+    background=True)` with the micro-batcher on (window 20 ms, buckets
+    1-16) under 16 client threads posting the hammer's JPEG, every
+    response checked, with the launch counters equal to dispatches times
+    the plan (3 SE forwards, 3 fusion forwards, 2 fusion backwards);
+    /stats and /metrics; a b=16 dispatch against the CPU; requests/s and
+    latency at 1, 4 and 16 clients batched and unbatched; device ms per
+    bucket; the drain. Returns the launches of the batched HTTP run."""
+    decode_ms = check_decoder(smi)
+    pipe = ServingPipeline.demo(device="cuda", seed=0)
+    pipe.enable_batching(HTTP_WINDOW_MS, max_batch=max(SERVE_BUCKETS),
+                         buckets=SERVE_BUCKETS)
+    pipe.warmup()
+    pipe.warmup_batched()
+    httpd = serve_http.serve(pipe, port=0, background=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    url = base + ENDPOINT
+    try:
+        before = pipe.stats()["batching"]["dispatches"]
+        _zero_launch_counts()
+        res16 = hammer_window(url, 16, 6.0, pipe)
+        launches = _launch_counts()
+        stats = json.load(urllib.request.urlopen(base + "/stats",
+                                                 timeout=60))
+        dispatches = stats["batching"]["dispatches"] - before
+        print(f"http batched 16 clients: {res16['requests']} requests in "
+              f"{dispatches} dispatches, launches {launches}, /stats "
+              f"batching {stats['batching']}", flush=True)
+        if launches != {k: n * dispatches for k, n in SERVE_PLAN.items()}:
+            raise AssertionError("the batched front end did not run through "
+                                 "the kernels' plan per dispatch")
+        if not stats["batching"]["mean_coalescence"] > 1:
+            raise AssertionError("16 clients did not coalesce")
+        m = serve_hammer._scrape_metrics(base)
+        if m["ecgmm_batching_enabled"] != 1 or \
+                m["ecgmm_request_latency_seconds_count"] != stats["requests"] \
+                or "ecgmm_live_buffer_bytes" not in m:
+            raise AssertionError(f"/metrics does not agree with /stats: {m}")
+        print(f"/metrics: {m}", flush=True)
+        busy = profiled_busy(url, 16, 2.0, smi)
+        cpu_pipe = _cpu_twin(pipe)
+        tf32 = compare_batched_with_cpu(pipe, cpu_pipe)
+        served = {"batched": {16: res16}, "unbatched": {}}
+        for clients in (1, 4):
+            served["batched"][clients] = hammer_window(url, clients, 4.0,
+                                                       pipe)
+        pipe.close_batching()
+        for clients in (1, 4, 16):
+            served["unbatched"][clients] = hammer_window(url, clients, 4.0,
+                                                         pipe)
+        for mode, by_clients in served.items():
+            for clients, r in sorted(by_clients.items()):
+                print(f"served {mode} {clients} clients: "
+                      f"{r['req_per_sec']:.3f} req/s, p50 "
+                      f"{r['latency_median_ms']:.3f} ms, p90 "
+                      f"{r['latency_p90_ms']:.3f} ms, device-program share "
+                      f"{r['device_program_share']:.3f} ({r['requests']} "
+                      f"requests, {r['dispatches']} dispatches; {smi})",
+                      flush=True)
+        device_ms = bucket_device_ms(pipe, smi)
+        pipe.enable_batching(HTTP_WINDOW_MS, max_batch=max(SERVE_BUCKETS),
+                             buckets=SERVE_BUCKETS)
+        drain_in_flight(pipe)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        pipe.close_batching()
+    print(json.dumps({"front_end": {
+        "device": smi, "decode_ms": decode_ms, "busy_share_16": busy,
+        "bucket_device_ms": device_ms, "tf32_off": tf32[0],
+        "tf32_control": tf32[1],
+        "served": {mode: {c: {k: r[k] for k in (
+            "req_per_sec", "latency_median_ms", "latency_p90_ms",
+            "device_program_share", "requests", "dispatches")}
+            for c, r in by.items()} for mode, by in served.items()}}}),
+        flush=True)
+    return launches
 
 
 def _on(arrays, device):
@@ -2054,6 +2434,7 @@ def main() -> int:
     focal_sweep = focal_cluster_sweep(gen)
     se_train_rows = check_se_train(gen, peaks)
     se_fusion_rows = check_se_fusion(gen, peaks)
+    se_serving_rows = check_se_serving(gen, peaks)
 
     # 4. the slice
     launches, timings = run_slice()
@@ -2064,10 +2445,13 @@ def main() -> int:
         print(f"request {key}: median {statistics.median(vals):.3f} p90 "
               f"{float(np.percentile(vals, 90)):.3f} ({smi})", flush=True)
 
+    # 8. the front end: decoder, HTTP server, micro-batcher
+    http_launches = run_front_end(smi)
+
     # 6. the training slices: first the algorithm against the CPU in
     # float32 (TF32 off, as `run()` sets it), then the runs through the
     # entry points
-    with train_run.no_tf32():
+    with no_tf32():
         compare_train_steps()
         compare_fusion_steps()
         compare_image_steps()
@@ -2116,6 +2500,7 @@ def main() -> int:
               f"{json.dumps(step)}", flush=True)
     paths = {
         "serve": launches,
+        "serve_http_batched": http_launches,
         "train_ptbxl_af": ptbxl_launches,
         "train_physionet_multi": multi_launches,
         "train_fusion": fusion_launches,
@@ -2136,7 +2521,7 @@ def main() -> int:
     kernels = [
         summarize("fused_se", "ecgmm_torch/ops/csrc/se.cu",
                   "ecgmm_tpu/ops/pallas_se.py:85", by_path("fused_se"),
-                  se_rows + se_train_rows, se_picked,
+                  se_rows + se_train_rows + se_serving_rows, se_picked,
                   "ptbxl_af train step: 3 forward calls at B=16",
                   backward=(by_path("fused_se_backward"), se_picked,
                             "ptbxl_af train step: 3 calls at B=16")),

@@ -2,10 +2,11 @@
 `ecgmm_tpu/explain/shap_fusion.py`).
 
 For each row x: baselines b ~ background and alpha ~ U(0, 1), attribution
-= mean over draws of grad f(b + alpha (x - b))[class] * (x - b). All draws
-of a row go through `f` as one batch: every module is in eval mode and
-rows are independent, so the gradient of the summed class score w.r.t.
-the batch is each point's own gradient.
+= mean over draws of grad f(b + alpha (x - b))[class] * (x - b). The
+draws of every row go through `f` as one batch of rows * n_samples
+points: every module is in eval mode and rows are independent, so the
+gradient of the summed class scores w.r.t. the batch is each point's own
+gradient. Each row has its own class.
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ def draw_shap_samples(n_rows: int, n_samples: int, n_background: int,
 def gradient_shap(f: Callable[[torch.Tensor], torch.Tensor], x, background,
                   class_idx, n_samples: int = 64, bidx=None, alphas=None,
                   generator=None):
-    """Attributions (shape of x) of f(.)[:, class_idx] for each row of x.
+    """Attributions (shape of x) of f(.)[:, class] for each row of x.
 
-    f: (N, D) -> (N, C) logits; background: (M, D). bidx/alphas are the
-    draws, shaped (rows, n_samples); when absent they are drawn from
-    `generator`."""
+    f: (N, D) -> (N, C) logits; background: (M, D); class_idx: one class
+    for every row, or (rows,) classes. bidx/alphas are the draws, shaped
+    (rows, n_samples); when absent they are drawn from `generator`."""
     rows = x.shape[0]
     if bidx is None:
         if generator is None:
@@ -42,19 +43,18 @@ def gradient_shap(f: Callable[[torch.Tensor], torch.Tensor], x, background,
     bidx = torch.as_tensor(bidx, device=x.device).reshape(rows, n_samples)
     alphas = torch.as_tensor(alphas, dtype=x.dtype,
                              device=x.device).reshape(rows, n_samples)
-    # a 0-d index tensor keeps a device-side class off the host
-    cls = torch.as_tensor(class_idx, device=x.device)
-    out = []
-    for i in range(rows):
-        xi = x[i].detach()
-        bases = background[bidx[i]]
-        delta = xi[None, :] - bases
-        with torch.enable_grad():
-            points = (bases + alphas[i][:, None] * delta).requires_grad_(True)
-            score = f(points)[:, cls].sum()
-            (grads,) = torch.autograd.grad(score, points)
-        out.append((grads * delta).mean(dim=0))
-    return torch.stack(out)
+    # a tensor index keeps a device-side class off the host
+    cls = torch.as_tensor(class_idx, device=x.device).expand(rows)
+    bases = background[bidx]  # (rows, n_samples, D)
+    delta = x.detach()[:, None, :] - bases
+    with torch.enable_grad():
+        points = (bases + alphas[..., None] * delta).reshape(
+            rows * n_samples, -1).requires_grad_(True)
+        logits = f(points)
+        score = logits[torch.arange(rows * n_samples, device=x.device),
+                       cls.repeat_interleave(n_samples)].sum()
+        (grads,) = torch.autograd.grad(score, points)
+    return (grads.reshape(rows, n_samples, -1) * delta).mean(dim=1)
 
 
 def modality_contributions(

@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import tempfile
 import threading
 from typing import Optional
@@ -34,6 +35,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -152,3 +154,14 @@ def check(status: int, name: str) -> None:
     synchronize would not report it)."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def count(module: str, counter: str) -> None:
+    """Add one to the launch counter `counter` (an int attribute of the
+    module named `module`, which chip_smoke.py sets to 0 and reads).
+    Request threads launch concurrently, and `+=` on a module global is a
+    read-modify-write that the language does not make atomic between
+    threads, so the increment holds a lock."""
+    with _count_lock:
+        mod = sys.modules[module]
+        setattr(mod, counter, getattr(mod, counter) + 1)

@@ -192,8 +192,7 @@ def _launch(img, sig, clin, weights, scale, bias, eps, keep_stats=False,
             int(in_registers(dims)), vec, float(eps), stream,
         )
     _ext.check(status, "ecgmm_attention_fusion_forward")
-    global launches
-    launches += 1
+    _ext.count(__name__, "launches")
     return out, sw, stats
 
 
@@ -233,8 +232,7 @@ def launch_backward(inputs, stats, grad_out, grad_sw, needs=(True,) * 6,
             w, int(in_registers(dims)), vec, param_groups(b), stream,
         )
     _ext.check(status, "ecgmm_attention_fusion_backward")
-    global backward_launches
-    backward_launches += 1
+    _ext.count(__name__, "backward_launches")
     return tuple(grads)
 
 

@@ -141,8 +141,7 @@ def _launch(logits, labels, mask, alpha, gamma, k=None):
             float(gamma), stream,
         )
     _ext.check(status, entry)
-    global launches
-    launches += 1
+    _ext.count(__name__, "launches")
     return out, res
 
 
@@ -172,8 +171,7 @@ def launch_backward(inputs, res, alpha, gamma, grad, needs=(True, True)):
             float(alpha), float(gamma), stream,
         )
     _ext.check(status, entry)
-    global backward_launches
-    backward_launches += 1
+    _ext.count(__name__, "backward_launches")
     return dlogits, dmask
 
 

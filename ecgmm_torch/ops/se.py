@@ -128,8 +128,7 @@ def _launch(x, w1, b1, w2, b2):
             int(vector_loads(c, t, k, esize, x.data_ptr())), stream,
         )
     _ext.check(status, entry)
-    global launches
-    launches += 1
+    _ext.count(__name__, "launches")
     return out, state
 
 
@@ -169,8 +168,7 @@ def launch_backward(x, w1, b1, w2, state, grad, needs=(True,) * 5):
             stream,
         )
     _ext.check(status, entry)
-    global backward_launches
-    backward_launches += 1
+    _ext.count(__name__, "backward_launches")
     return (dx, *dws)
 
 

@@ -1,0 +1,594 @@
+"""The upload decoder: JPEG and PNG bytes -> an (H, W, 3) uint8 RGB array,
+turned upright by the EXIF orientation.
+
+It is the port's counterpart of the Pillow calls of the JAX HTTP handler
+(`ecgmm_tpu/serve/http.py:101-112`),
+`np.asarray(ImageOps.exif_transpose(Image.open(b)).convert("RGB"))`, and
+aims to be bit-equal to them; the machines the port serves on have no
+Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
+
+- baseline and extended sequential JPEG (Huffman-coded, 8-bit samples),
+  1 or 3 components, any integral sampling factors, restart markers; the
+  accurate integer inverse DCT ("ISLOW"); fancy (triangle) upsampling of
+  2x1, 1x2 and 2x2 chroma, replication otherwise; libjpeg's integer
+  YCbCr->RGB arithmetic; the colour space from the JFIF marker, the Adobe
+  APP14 transform flag or the component ids, as libjpeg guesses it;
+- PNG of bit depth 8: gray, gray+alpha, RGB, RGBA and palette, the five
+  row filters and Adam7 interlacing; the alpha channel is dropped as
+  `.convert("RGB")` drops it;
+- the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
+  `eXIf` or ImageMagick's "Raw profile type exif" text), else of the XMP
+  packet, applied as `ImageOps.exif_transpose` applies its 8 cases.
+
+The Huffman decoding, the inverse DCT, the upsampling, the colour
+conversion and the PNG row filters are C++
+(`ecgmm_torch/native/imdecode.cpp`, built by g++ at first use); the
+markers and chunks are parsed here. Anything
+else (progressive, arithmetic-coded, lossless or hierarchical JPEG,
+12-bit samples, CMYK, PNG of another bit depth, other formats) raises
+`BadRequest` naming what it met.
+
+An upload may claim any size, so the decoder keeps Pillow's guards
+against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
+refused before anything is allocated, the PNG image data is inflated only
+as far as the header's size needs, and a PNG text chunk inflates to at
+most `MAX_TEXT_CHUNK` bytes, `MAX_TEXT_MEMORY` in all.
+"""
+
+from __future__ import annotations
+
+import re
+import struct
+import zlib
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ecgmm_torch import native
+from ecgmm_torch.serve.wire import BadRequest
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Pillow's limits: `Image.open` raises DecompressionBombError above twice
+# `Image.MAX_IMAGE_PIXELS`; PngImagePlugin's MAX_TEXT_CHUNK and
+# MAX_TEXT_MEMORY bound the inflated text
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+MAX_TEXT_CHUNK = 1024 * 1024
+MAX_TEXT_MEMORY = 64 * MAX_TEXT_CHUNK
+_NOT_DECODABLE = "'file' is not a decodable image"
+_UNSUPPORTED = ("is not supported by the port's upload decoder (ROADMAP.md "
+                "section 3)")
+_NATIVE_ERRORS = {-1: "bad Huffman table", -2: "bad Huffman code",
+                  -3: "bad PNG row filter"}
+# zigzag position -> natural (row-major) position of an 8x8 block
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_SOF_KINDS = {
+    0xC2: "progressive JPEG", 0xC3: "lossless JPEG",
+    0xC5: "hierarchical JPEG", 0xC6: "hierarchical JPEG",
+    0xC7: "hierarchical JPEG", 0xC9: "arithmetic-coded JPEG",
+    0xCA: "arithmetic-coded JPEG", 0xCB: "arithmetic-coded JPEG",
+    0xCC: "arithmetic-coded JPEG", 0xCD: "arithmetic-coded JPEG",
+    0xCE: "arithmetic-coded JPEG", 0xCF: "arithmetic-coded JPEG",
+}
+_XMP_ORIENTATION = rb'tiff:Orientation(="|>)([0-9])'
+_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
+                  b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
+# EXIF value types that hold one integer in the entry itself
+_INT_TYPES = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l"}
+# ImageOps.exif_transpose: orientation -> the transposition that undoes it
+_TRANSPOSE = {
+    2: lambda a: a[:, ::-1],                      # FLIP_LEFT_RIGHT
+    3: lambda a: a[::-1, ::-1],                   # ROTATE_180
+    4: lambda a: a[::-1],                         # FLIP_TOP_BOTTOM
+    5: lambda a: a.transpose(1, 0, 2),            # TRANSPOSE
+    6: lambda a: np.rot90(a, -1),                 # ROTATE_270
+    7: lambda a: a[::-1, ::-1].transpose(1, 0, 2),  # TRANSVERSE
+    8: lambda a: np.rot90(a, 1),                  # ROTATE_90
+}
+
+
+def _bad(what: str) -> BadRequest:
+    return BadRequest(f"{_NOT_DECODABLE}: {what}")
+
+
+def _unsupported(what: str) -> BadRequest:
+    return BadRequest(f"{_NOT_DECODABLE}: {what} {_UNSUPPORTED}")
+
+
+def _check_pixels(width: int, height: int) -> None:
+    if width * height > MAX_PIXELS:
+        raise _bad(f"an image of {width * height} pixels exceeds the limit "
+                   f"of {MAX_PIXELS} (a possible decompression bomb)")
+
+
+def _check(status: int) -> None:
+    if status != 0:
+        raise _bad(_NATIVE_ERRORS.get(status, f"decoder error {status}"))
+
+
+def decode_upload(data: bytes) -> np.ndarray:
+    """An uploaded JPEG or PNG as an upright (H, W, 3) uint8 RGB array."""
+    if data[:2] == b"\xff\xd8":
+        rgb, exif, xmp = _decode_jpeg(data)
+    elif data[:8] == PNG_SIGNATURE:
+        rgb, exif, xmp = _decode_png(data)
+    else:
+        raise _bad("not a JPEG or PNG file")
+    orientation = _orientation(exif, xmp)
+    if orientation in _TRANSPOSE:
+        rgb = _TRANSPOSE[orientation](rgb)
+    return np.ascontiguousarray(rgb)
+
+
+# ---------------------------------------------------------------- EXIF
+
+
+def _orientation(exif: Optional[bytes], xmp) -> object:
+    """The orientation Pillow's `getexif()` reports: the EXIF tag's value
+    (an int, or None where the tag holds no single integer), else the XMP
+    packet's `tiff:Orientation`, else 1."""
+    found, value = _exif_orientation(exif) if exif else (False, None)
+    if found:
+        return value
+    if xmp:
+        if isinstance(xmp, str):
+            xmp = xmp.encode("utf-8", "surrogateescape")
+        m = re.search(_XMP_ORIENTATION, xmp)
+        if m:
+            return int(m.group(2))
+    return 1
+
+
+def _exif_orientation(exif: bytes) -> Tuple[bool, object]:
+    """(whether IFD0 holds the orientation tag 0x0112, its value), read
+    from a TIFF-structured EXIF block as leniently as Pillow's reader: a
+    truncated directory ends the search."""
+    while exif.startswith(b"Exif\x00\x00"):
+        exif = exif[6:]
+    if not exif:
+        return False, None
+    if exif[:4] not in _TIFF_PREFIXES:
+        raise _bad("the EXIF block is not TIFF-structured")
+    if exif[2:4] in (b"\x00\x2b", b"\x2b\x00"):  # BigTIFF: no such EXIF
+        return False, None
+    end = "<" if exif[:2] == b"II" else ">"
+    (offset,) = struct.unpack(end + "L", exif[4:8])
+    if offset + 2 > len(exif):
+        return False, None
+    (n,) = struct.unpack(end + "H", exif[offset:offset + 2])
+    found, value = False, None
+    for i in range(n):
+        entry = exif[offset + 2 + 12 * i:offset + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, typ, count = struct.unpack(end + "HHL", entry[:8])
+        if tag != 0x0112:
+            continue
+        found, value = True, None
+        if count == 1 and typ in _INT_TYPES:
+            fmt = _INT_TYPES[typ]
+            (value,) = struct.unpack(
+                end + fmt, entry[8:8 + struct.calcsize(fmt)])
+    return found, value
+
+
+# ---------------------------------------------------------------- JPEG
+
+
+def _decode_jpeg(data: bytes):
+    buf = np.frombuffer(data, np.uint8)
+    n = len(data)
+    pos = 2
+    qtables = {}
+    huff_bits = np.zeros((8, 17), np.uint8)
+    huff_vals = np.zeros((8, 256), np.uint8)
+    huff_defined = set()
+    restart = 0
+    frame = None
+    planes = None  # per component: (coefficient offset, blocks_y, blocks_x)
+    coef = None
+    comp_q = {}
+    jfif = adobe = False
+    adobe_transform = None
+    exif = xmp = None
+    scanned = False
+    lib = native.library()
+    while True:
+        while pos < n and buf[pos] != 0xFF:  # libjpeg skips stray bytes
+            pos += 1
+        while pos < n and buf[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            if scanned:
+                break  # no EOI: libjpeg ends the image there
+            raise _bad("truncated JPEG")
+        marker = int(buf[pos])
+        pos += 1
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        if pos + 2 > n:
+            raise _bad("truncated JPEG")
+        (length,) = struct.unpack(">H", data[pos:pos + 2])
+        seg = data[pos + 2:pos + length]
+        if length < 2 or len(seg) < length - 2:
+            raise _bad("truncated JPEG marker segment")
+        pos += length
+        if marker in _SOF_KINDS:
+            raise _unsupported(_SOF_KINDS[marker])
+        if marker in (0xC0, 0xC1):
+            if frame is not None:
+                raise _bad("two frame headers")
+            frame = _parse_sof(seg)
+            planes, coef = _allocate_planes(frame)
+        elif marker == 0xC4:
+            _parse_dht(seg, huff_bits, huff_vals, huff_defined)
+        elif marker == 0xDB:
+            _parse_dqt(seg, qtables)
+        elif marker == 0xDD:
+            if len(seg) < 2:
+                raise _bad("bad restart interval")
+            (restart,) = struct.unpack(">H", seg[:2])
+        elif marker == 0xDC:
+            raise _unsupported("a JPEG whose height is set by a DNL marker")
+        elif marker == 0xDA:
+            if frame is None:
+                raise _bad("scan before the frame header")
+            pos = _decode_scan(lib, buf, pos, seg, frame, planes, coef,
+                               qtables, comp_q, restart, huff_bits,
+                               huff_vals, huff_defined)
+            scanned = True
+        elif not scanned and marker == 0xE0:
+            jfif = jfif or (seg[:5] == b"JFIF\x00" and len(seg) >= 14)
+        elif not scanned and marker == 0xEE:
+            if seg[:5] == b"Adobe" and len(seg) >= 12:
+                adobe, adobe_transform = True, seg[11]
+        elif not scanned and marker == 0xE1:
+            if seg.startswith(b"Exif\x00\x00"):
+                exif = seg if exif is None else exif + seg[6:]
+            elif seg.startswith(b"http://ns.adobe.com/xap/1.0/\x00"):
+                xmp = seg.split(b"\x00", 1)[1]
+    if frame is None or not scanned:
+        raise _bad("JPEG without image data")
+    height, width, comps = frame
+    samples = []
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    for (cid, h, v, _), (off, by, bx) in zip(comps, planes):
+        if cid not in comp_q:
+            raise _bad(f"component {cid} is in no scan")
+        plane = np.empty((by * 8, bx * 8), np.uint8)
+        _check(lib.ecgmm_jpeg_idct(coef[off:].ctypes.data,
+                                   comp_q[cid].ctypes.data, by, bx,
+                                   plane.ctypes.data))
+        dh = -(-height * v // vmax)
+        dw = -(-width * h // hmax)
+        full = _upsample(lib, plane[:dh, :dw], hmax // h, vmax // v)
+        samples.append(full[:height, :width])
+    if len(comps) == 1:
+        return np.repeat(samples[0][:, :, None], 3, axis=2), exif, xmp
+    if _jpeg_is_rgb(comps, jfif, adobe, adobe_transform):
+        return np.stack(samples, axis=2), exif, xmp
+    return _ycc_to_rgb(lib, *samples), exif, xmp
+
+
+def _parse_sof(seg: bytes):
+    if len(seg) < 6:
+        raise _bad("bad frame header")
+    precision, height, width, nf = struct.unpack(">BHHB", seg[:6])
+    if precision != 8:
+        raise _unsupported(f"{precision}-bit JPEG")
+    if height == 0:
+        raise _unsupported("a JPEG whose height is set by a DNL marker")
+    if width == 0:
+        raise _bad("JPEG of width 0")
+    _check_pixels(width, height)
+    if nf == 4:
+        raise _unsupported("CMYK (4-component) JPEG")
+    if nf not in (1, 3):
+        raise _unsupported(f"{nf}-component JPEG")
+    if len(seg) < 6 + 3 * nf:
+        raise _bad("bad frame header")
+    comps = []
+    for i in range(nf):
+        cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
+        h, v = hv >> 4, hv & 15
+        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+            raise _bad("bad frame header")
+        comps.append((cid, h, v, tq))
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    if any(hmax % c[1] or vmax % c[2] for c in comps):
+        raise _unsupported("JPEG with non-integral sampling ratios")
+    return height, width, comps
+
+
+def _allocate_planes(frame):
+    """One int16 coefficient buffer for all components, each plane covering
+    whole MCUs of the interleaved layout (which covers the non-interleaved
+    one too)."""
+    height, width, comps = frame
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    mcus_x = -(-width // (8 * hmax))
+    mcus_y = -(-height // (8 * vmax))
+    planes, off = [], 0
+    for _, h, v, _ in comps:
+        by, bx = mcus_y * v, mcus_x * h
+        planes.append((off, by, bx))
+        off += by * bx * 64
+    return planes, np.zeros(off, np.int16)
+
+
+def _parse_dht(seg, huff_bits, huff_vals, defined):
+    i = 0
+    while i < len(seg):
+        if i + 17 > len(seg):
+            raise _bad("bad Huffman table")
+        tc, th = seg[i] >> 4, seg[i] & 15
+        counts = np.frombuffer(seg[i + 1:i + 17], np.uint8)
+        total = int(counts.sum(dtype=np.int64))
+        vals = seg[i + 17:i + 17 + total]
+        if tc > 1 or th > 3 or total > 256 or len(vals) < total:
+            raise _bad("bad Huffman table")
+        if tc == 0 and any(s > 15 for s in vals):
+            raise _bad("bad Huffman table")
+        t = 4 * tc + th
+        huff_bits[t] = 0
+        huff_bits[t, 1:] = counts
+        huff_vals[t] = 0
+        huff_vals[t, :total] = np.frombuffer(vals, np.uint8)
+        defined.add(t)
+        i += 17 + total
+
+
+def _check_code_space(bits) -> None:
+    """libjpeg's check of a Huffman table a scan uses
+    (`jpeg_make_d_derived_tbl`): the codes of each length fit in the code
+    space the shorter ones leave, the all-ones code reserved. The native
+    decoder checks it too, before it fills its lookup table."""
+    code = 0
+    for length in range(1, 17):
+        code += int(bits[length])
+        if code >= 1 << length:
+            raise _bad("bad Huffman table")
+        code <<= 1
+
+
+def _parse_dqt(seg, qtables):
+    i = 0
+    while i < len(seg):
+        pq, tq = seg[i] >> 4, seg[i] & 15
+        size = 128 if pq else 64
+        body = seg[i + 1:i + 1 + size]
+        if tq > 3 or pq > 1 or len(body) < size:
+            raise _bad("bad quantisation table")
+        zz = np.frombuffer(body, ">u2" if pq else np.uint8).astype(np.int64)
+        q = np.zeros(64, np.int64)
+        q[_ZIGZAG] = zz
+        # libjpeg multiplies in ISLOW_MULT_TYPE, a short for 8-bit samples
+        qtables[tq] = q.astype(np.uint16).view(np.int16)
+        i += 1 + size
+
+
+def _decode_scan(lib, buf, pos, seg, frame, planes, coef, qtables, comp_q,
+                 restart, huff_bits, huff_vals, defined) -> int:
+    height, width, comps = frame
+    if not seg:
+        raise _bad("bad scan header")
+    ns = seg[0]
+    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+        raise _bad("bad scan header")
+    index = {c[0]: i for i, c in enumerate(comps)}
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    params, offsets = [], []
+    for j in range(ns):
+        cid, tables = seg[1 + 2 * j], seg[2 + 2 * j]
+        if cid not in index:
+            raise _bad(f"scan names unknown component {cid}")
+        _, h, v, tq = comps[index[cid]]
+        td, ta = tables >> 4, tables & 15
+        if td > 3 or ta > 3 or td not in defined or 4 + ta not in defined:
+            raise _bad("scan uses an undefined Huffman table")
+        for t in (td, 4 + ta):
+            _check_code_space(huff_bits[t])
+        if tq not in qtables:
+            raise _bad("component uses an undefined quantisation table")
+        comp_q.setdefault(cid, qtables[tq])  # latched at its first scan
+        off, _, bx = planes[index[cid]]
+        if ns == 1:
+            h = v = 1
+        params += [h, v, td, ta, bx]
+        offsets.append(off)
+    if ns == 1:
+        _, h, v, _ = comps[index[seg[1]]]
+        mcus_x = -(-(-(-width * h // hmax)) // 8)
+        mcus_y = -(-(-(-height * v // vmax)) // 8)
+    else:
+        mcus_x = -(-width // (8 * hmax))
+        mcus_y = -(-height // (8 * vmax))
+    params = np.array(params, np.int32)
+    offsets = np.array(offsets, np.int64)
+    end = np.zeros(1, np.int64)
+    _check(lib.ecgmm_jpeg_decode_scan(
+        buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
+        coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
+        huff_bits.ctypes.data, huff_vals.ctypes.data, end.ctypes.data))
+    return int(end[0])
+
+
+def _jpeg_is_rgb(comps, jfif, adobe, adobe_transform) -> bool:
+    """libjpeg's guess of a 3-component colour space
+    (`default_decompress_parms`): JFIF means YCbCr; else the Adobe
+    transform flag (0: RGB); else component ids 'R', 'G', 'B' mean RGB;
+    anything else YCbCr."""
+    if jfif:
+        return False
+    if adobe:
+        return adobe_transform == 0
+    return tuple(c[0] for c in comps) == (82, 71, 66)
+
+
+def _upsample(lib, x: np.ndarray, fh: int, fv: int) -> np.ndarray:
+    """libjpeg's upsampling of a component plane by (fh, fv)
+    (`ecgmm_jpeg_upsample`)."""
+    if (fh, fv) == (1, 1):
+        return x
+    x = np.ascontiguousarray(x)
+    out = np.empty((x.shape[0] * fv, x.shape[1] * fh), np.uint8)
+    _check(lib.ecgmm_jpeg_upsample(x.ctypes.data, x.shape[0], x.shape[1],
+                                   fh, fv, out.ctypes.data))
+    return out
+
+
+def _ycc_to_rgb(lib, y, cb, cr) -> np.ndarray:
+    """libjpeg's YCbCr->RGB conversion (`ecgmm_jpeg_ycc_rgb`)."""
+    y, cb, cr = (np.ascontiguousarray(p) for p in (y, cb, cr))
+    out = np.empty(y.shape + (3,), np.uint8)
+    _check(lib.ecgmm_jpeg_ycc_rgb(y.ctypes.data, cb.ctypes.data,
+                                  cr.ctypes.data, y.size, out.ctypes.data))
+    return out
+
+
+# ---------------------------------------------------------------- PNG
+
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _decode_png(data: bytes):
+    pos = 8
+    header = palette = None
+    idat = []
+    exif = xmp = raw_exif = None
+    text_bytes = 0
+    while True:
+        if pos + 8 > len(data):
+            raise _bad("truncated PNG")
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) < length or len(crc) < 4:
+            raise _bad("truncated PNG")
+        if ctype != b"IDAT" and zlib.crc32(ctype + body) != struct.unpack(
+                ">I", crc)[0]:
+            raise _bad(f"PNG chunk {ctype!r} fails its CRC")
+        pos += 12 + length
+        if header is None and ctype != b"IHDR":
+            raise _bad("PNG does not start with IHDR")
+        if ctype == b"IHDR":
+            header = _parse_ihdr(body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3],
+                                    np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"eXIf":
+            exif = b"Exif\x00\x00" + body
+        elif ctype in (b"tEXt", b"zTXt", b"iTXt"):
+            key, text = _png_text(ctype, body)
+            text_bytes += len(text or "")
+            if text_bytes > MAX_TEXT_MEMORY:
+                raise _bad(f"the PNG's text exceeds {MAX_TEXT_MEMORY} bytes")
+            if key == "Raw profile type exif":
+                raw_exif = text
+            elif key == "XML:com.adobe.xmp":
+                xmp = text
+        elif ctype == b"IEND":
+            break
+    if exif is None and raw_exif is not None:
+        exif = bytes.fromhex("".join(raw_exif.split("\n")[3:]))
+    width, height, color_type, interlace = header
+    ch = _PNG_CHANNELS[color_type]
+    passes = [p for p in (_pass_dims(width, height, p) for p in (
+        ((0, 0, 1, 1),) if interlace == 0 else _ADAM7)) if p[4] and p[5]]
+    need = sum(ph * (1 + pw * ch) for *_, pw, ph in passes)
+    try:
+        # no further than the image needs: what follows is ignored, as
+        # Pillow's decoder ends once the image is full
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise _bad(f"corrupt PNG image data ({e})")
+    if len(raw) < need:
+        raise _bad("truncated PNG image data")
+    pixels = np.empty((height, width, ch), np.uint8)
+    lib = native.library()
+    src = np.frombuffer(raw, np.uint8)
+    off = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        rows = np.ascontiguousarray(src[off:off + ph * (1 + pw * ch)])
+        out = np.empty((ph, pw, ch), np.uint8)
+        _check(lib.ecgmm_png_unfilter(rows.ctypes.data, ph, pw * ch, ch,
+                                      out.ctypes.data))
+        pixels[y0::dy, x0::dx] = out
+        off += ph * (1 + pw * ch)
+    return _png_rgb(pixels, color_type, palette), exif, xmp
+
+
+def _parse_ihdr(body: bytes):
+    if len(body) < 13:
+        raise _bad("bad PNG header")
+    width, height, depth, color_type, comp, filt, interlace = struct.unpack(
+        ">IIBBBBB", body[:13])
+    if depth != 8:
+        raise _unsupported(f"{depth}-bit PNG")
+    if color_type not in _PNG_CHANNELS or comp or filt or interlace > 1:
+        raise _bad("bad PNG header")
+    if width == 0 or height == 0:
+        raise _bad("PNG of size 0")
+    _check_pixels(width, height)
+    return width, height, color_type, interlace
+
+
+def _pass_dims(width, height, p):
+    """(x0, y0, dx, dy, pass width, pass height) of an interlace pass."""
+    x0, y0, dx, dy = p
+    return (x0, y0, dx, dy, max(0, -(-(width - x0) // dx)),
+            max(0, -(-(height - y0) // dy)))
+
+
+def _png_text(ctype: bytes, body: bytes):
+    key, _, rest = body.partition(b"\x00")
+    key = key.decode("latin-1")
+    try:
+        if ctype == b"tEXt":
+            return key, rest.decode("latin-1")
+        if ctype == b"zTXt":
+            return key, _inflate_text(rest[1:]).decode("latin-1")
+        flag, method = rest[0], rest[1]
+        _, _, rest = rest[2:].partition(b"\x00")  # language tag
+        _, _, text = rest.partition(b"\x00")      # translated keyword
+        if flag:
+            text = _inflate_text(text)
+        return key, text.decode("utf-8")
+    except (zlib.error, UnicodeDecodeError, IndexError):
+        return key, None
+
+
+def _inflate_text(data: bytes) -> bytes:
+    """A compressed text chunk's text, refused past MAX_TEXT_CHUNK bytes as
+    Pillow refuses it."""
+    inflater = zlib.decompressobj()
+    text = inflater.decompress(data, MAX_TEXT_CHUNK)
+    if inflater.unconsumed_tail:
+        raise _bad(f"a PNG text chunk inflates past {MAX_TEXT_CHUNK} bytes")
+    return text
+
+
+def _png_rgb(pixels, color_type, palette) -> np.ndarray:
+    if color_type in (0, 4):  # gray (+ alpha)
+        return np.repeat(pixels[:, :, :1], 3, axis=2)
+    if color_type in (2, 6):  # RGB (+ alpha)
+        return pixels[:, :, :3]
+    if palette is None:
+        raise _bad("palette PNG without a palette")
+    # an index past the palette's end reads black, as in Pillow
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:len(palette)] = palette[:256]
+    return lut[pixels[:, :, 0]]

@@ -1,20 +1,29 @@
 """Serving pipeline: digitize -> infer -> explain -> report (port of
-`ecgmm_tpu/serve/pipeline.py`, the single-request path).
+`ecgmm_tpu/serve/pipeline.py`).
 
 `ServingPipeline.predict` answers one request of the mobile app's
 contract (`Groove/app/(tabs)/ResultScreen.tsx:26-56`). Its device work,
-`_predict_all`, is the JAX request program written out in PyTorch:
+`_predict_many`, is the JAX request program written out in PyTorch over a
+bucket of b requests at once (JAX vmaps the single-request program over
+the bucket; every module here is in eval mode, so rows are independent):
   1. encode the three modalities once, without autograd;
-  2. Grad-CAM: the image-branch logit's gradient w.r.t. the layer-4 map;
-  3. SHAP: expected gradients of the fusion logit over the fused
-     embedding, 32 draws in one batch through `fuse_embeddings`;
-  4. clinical IG: 8-step midpoint integrated gradients over the raw
-     clinical inputs, as one 8-row batch that reuses the image and signal
-     embeddings (every module is in eval mode and rows are independent).
-The outputs are packed into one tensor and read back to the host once.
+  2. Grad-CAM: each row's image-branch logit of its own predicted class,
+     differentiated w.r.t. the layer-4 map;
+  3. SHAP: expected gradients of each row's fusion logit over its fused
+     embedding, the same 32 draws for every row, all 32*b points in one
+     pass through `fuse_embeddings`;
+  4. clinical IG: 8-step midpoint integrated gradients over each row's
+     raw clinical inputs, all 8*b points in one pass that reuses the
+     image and signal embeddings.
+Each row's outputs are packed into one f32 row, and a dispatch reads its
+(b, K) rows back to the host once. A request alone is a bucket of one.
 
-Micro-batching, mesh serving, AOT bundles and the HTTP front end are not
-ported yet (ROADMAP.md).
+The device program runs under the pipeline's device lock and with TF32
+off (`precision.no_tf32`), so float32 work is float32 whatever the
+process's flags. With `enable_batching` concurrent `predict` calls
+coalesce into bucketed dispatches on the micro-batcher's one worker
+thread (`serve/batching.py`). The HTTP front end is `serve/http.py`; the
+assembly recipes are in `serve/loaders.py`.
 """
 
 from __future__ import annotations
@@ -29,10 +38,29 @@ import torch
 from ecgmm_torch.explain.gradcam import cam_from_image_map
 from ecgmm_torch.explain.shap_fusion import draw_shap_samples, gradient_shap
 from ecgmm_torch.models import ECGMultimodalModel
+from ecgmm_torch.precision import no_tf32
+from ecgmm_torch.serve import batching
 from ecgmm_torch.serve import request as request_host
 
 SHAP_SAMPLES = 32
 IG_STEPS = 8
+# /metrics latency-histogram bucket upper bounds, in seconds (the JAX
+# package's series)
+LATENCY_BUCKETS = (0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4,
+                   float("inf"))
+PARALLEL_ITEM = ("ROADMAP.md section 1, item 'Parallel': serving over "
+                 "several devices is not ported yet")
+
+
+def _rss_bytes() -> int:
+    """Resident set size from /proc (no psutil needed)."""
+    import os
+
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
 
 
 class ServingPipeline:
@@ -42,7 +70,8 @@ class ServingPipeline:
     shap_draws: (bidx, alphas), each (32,), fixes SHAP's background
     indices and interpolation points (the tests pass the JAX draws). By
     default they are drawn once from a generator seeded 0, so, as in the
-    JAX pipeline, every request uses the same draws."""
+    JAX pipeline, every request, and every row of a bucket, uses the same
+    draws."""
 
     def __init__(
         self,
@@ -77,6 +106,8 @@ class ServingPipeline:
         self.clinical_scaler = clinical_scaler
         self.signal_len = signal_len
         self.img_hw = tuple(img_hw)
+        # every stride-2 stage of ResNet18 maps n to ceil(n / 2)
+        self.cam_hw = (-(-self.img_hw[0] // 32), -(-self.img_hw[1] // 32))
         cfg = model.cfg
         self.dims = (cfg.image_dim, cfg.signal_dim, cfg.clinical_dim)
         self.n_clin = cfg.clinical_in_features
@@ -104,11 +135,24 @@ class ServingPipeline:
             torch.arange(IG_STEPS, dtype=torch.float32, device=self.device)
             + 0.5
         ) / IG_STEPS
+        # one device program at a time: CUDA events of a dispatch then
+        # time that dispatch alone
+        self._device_lock = threading.RLock()
         self._stats_lock = threading.Lock()
         self._n_requests = 0
         self._latency_sum = 0.0
+        self._n_errors = 0
+        # per-bucket (non-cumulative) counts; metrics() cumulates them
+        self._latency_hist = [0] * len(LATENCY_BUCKETS)
+        self._batcher: Optional[batching.MicroBatcher] = None
+        self._serve_n_data = 1
+        # called after every served prediction (the --max-requests recycle
+        # of serve/http.py)
+        self.on_request_done = None
         # host-before / device / host-after split of the last request, ms
         self.last_timing: Dict[str, float] = {}
+
+    # -- constructors (assembly recipes live in serve/loaders.py) --------
 
     @classmethod
     def demo(cls, device: str = "cuda", seed: int = 0) -> "ServingPipeline":
@@ -118,54 +162,175 @@ class ServingPipeline:
 
         return demo_pipeline(cls, device=device, seed=seed)
 
-    def _predict_all(self, img, sig, clin):
-        """The request's device work; returns one packed f32 vector:
-        probs (C), pred (1), cam (h*w), attr (D), clinical IG (F)."""
-        m = self.model
-        d0, d1, _ = self.dims
-        with torch.no_grad():
-            img_f, sig_f, clin_f, _, img_map = m.encode(
-                img, sig, clin, return_image_map=True
-            )
-            logits = m.fuse_embeddings(img_f, sig_f, clin_f)
-            # temperature never moves argmax, only the probability
-            probs = torch.softmax(logits * (1.0 / self.temperature), dim=-1)
-            pred = probs[0].argmax()
-        cam, _ = cam_from_image_map(m, img_map, pred)
-        emb = torch.cat([img_f, sig_f, clin_f], dim=1)
-        attr = gradient_shap(
-            lambda e: m.fuse_embeddings(e[:, :d0], e[:, d0:d0 + d1],
-                                        e[:, d0 + d1:]),
-            emb, self.background, pred, n_samples=SHAP_SAMPLES,
-            bidx=self.shap_bidx, alphas=self.shap_alphas,
-        )
-        ca = self._clinical_ig(img_f, sig_f, clin, pred)
-        return torch.cat([
-            probs.reshape(-1), pred.reshape(1).float(), cam.reshape(-1),
-            attr.reshape(-1), ca.reshape(-1),
-        ])
+    @classmethod
+    def from_run(cls, run_dir: str, data, model=None, which: str = "best",
+                 device: str = "cuda") -> "ServingPipeline":
+        """A trained run's checkpoint — see loaders.pipeline_from_run."""
+        from ecgmm_torch.serve.loaders import pipeline_from_run
 
-    def _clinical_ig(self, img_f, sig_f, clin, cls):
-        """Per-dimension attribution over the raw clinical inputs:
-        integrated gradients of the predicted-class fusion logit from the
-        scaled cohort mean (zeros) to the request's vector, midpoint rule,
-        IG_STEPS steps, all steps as one batch."""
+        return pipeline_from_run(cls, run_dir, data, model=model,
+                                 which=which, device=device)
+
+    # -- the device program ----------------------------------------------
+
+    def _predict_many(self, img, sig, clin):
+        """The request program over a bucket of b rows: img (b, 3, H, W),
+        sig (b, T), clin (b, F) on the pipeline's device. Returns (b, K)
+        f32 rows, each packing that row's probs (C), pred (1), cam (h*w),
+        SHAP attribution (D) and clinical IG (F)."""
+        m = self.model
+        b = img.shape[0]
+        d0, d1, _ = self.dims
+        with self._device_lock, no_tf32():
+            with torch.no_grad():
+                img_f, sig_f, clin_f, _, img_map = m.encode(
+                    img, sig, clin, return_image_map=True
+                )
+                logits = m.fuse_embeddings(img_f, sig_f, clin_f)
+                # temperature never moves argmax, only the probability
+                probs = torch.softmax(logits * (1.0 / self.temperature),
+                                      dim=-1)
+                pred = probs.argmax(dim=-1)
+            cam, _ = cam_from_image_map(m, img_map, pred)
+            emb = torch.cat([img_f, sig_f, clin_f], dim=1)
+            attr = gradient_shap(
+                lambda e: m.fuse_embeddings(e[:, :d0], e[:, d0:d0 + d1],
+                                            e[:, d0 + d1:]),
+                emb, self.background, pred, n_samples=SHAP_SAMPLES,
+                bidx=self.shap_bidx.expand(b, -1),
+                alphas=self.shap_alphas.expand(b, -1),
+            )
+            ca = self._clinical_ig_many(img_f, sig_f, clin, pred)
+            return torch.cat([
+                probs, pred[:, None].float(), cam.reshape(b, -1), attr, ca,
+            ], dim=1)
+
+    def _clinical_ig_many(self, img_f, sig_f, clin, cls):
+        """Per-dimension attribution over each row's raw clinical inputs
+        (b, F): integrated gradients of the row's class (cls (b,)) fusion
+        logit from the scaled cohort mean (zeros) to its vector, midpoint
+        rule, IG_STEPS steps, all rows' steps as one batch."""
         m = self.model
         n = IG_STEPS
+        b = clin.shape[0]
         with torch.enable_grad():
-            path = (self.ig_alphas[:, None] * clin).requires_grad_(True)
+            path = (self.ig_alphas[None, :, None] * clin[:, None, :]
+                    ).reshape(b * n, -1).requires_grad_(True)
             clin_f, _ = m.encode_clinical(path)
-            logits = m.fuse_embeddings(img_f.expand(n, -1),
-                                       sig_f.expand(n, -1), clin_f)
-            (grads,) = torch.autograd.grad(logits[:, cls].sum(), path)
-        return clin[0] * grads.mean(dim=0)
+            logits = m.fuse_embeddings(img_f.repeat_interleave(n, dim=0),
+                                       sig_f.repeat_interleave(n, dim=0),
+                                       clin_f)
+            rows = torch.arange(b * n, device=clin.device)
+            score = logits[rows, cls.repeat_interleave(n)].sum()
+            (grads,) = torch.autograd.grad(score, path)
+        return clin * grads.reshape(b, n, -1).mean(dim=1)
 
-    def _unpack(self, flat: np.ndarray, cam_hw: Tuple[int, int]):
+    def _dispatch(self, img: np.ndarray, sig: np.ndarray, clin: np.ndarray):
+        """Host arrays of a bucket -> ((b, K) packed rows on the host, the
+        device program's ms). The rows cross back in one readback; on the
+        card CUDA events time the program."""
+        dev = self.device
+        ins = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+               for a in (img, sig, clin)]
+        with self._device_lock:
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                packed = self._predict_many(*ins)
+                end.record()
+                rows = packed.cpu().numpy()  # the readback; synchronises
+                return rows, start.elapsed_time(end)
+            t = time.perf_counter()
+            rows = self._predict_many(*ins).numpy()
+            return rows, (time.perf_counter() - t) * 1e3
+
+    def _batch_fn(self, img, sig, clin):
+        """The micro-batcher's device function: per row, its packed
+        outputs and its dispatch's device ms."""
+        rows, ms = self._dispatch(img, sig, clin)
+        return rows, np.full(rows.shape[0], ms)
+
+    def _unpack(self, row: np.ndarray):
         c, d, f = self.model.cfg.num_classes, sum(self.dims), self.n_clin
-        sizes = [c, 1, cam_hw[0] * cam_hw[1], d, f]
-        probs, pred, cam, attr, ca = np.split(flat, np.cumsum(sizes)[:-1])
+        h, w = self.cam_hw
+        sizes = [c, 1, h * w, d, f]
+        probs, pred, cam, attr, ca = np.split(row, np.cumsum(sizes)[:-1])
         return (probs, int(round(float(pred[0]))),
-                cam.reshape((1,) + cam_hw), attr.reshape(1, d), ca)
+                cam.reshape(1, h, w), attr.reshape(1, d), ca)
+
+    # -- micro-batching ----------------------------------------------------
+
+    def enable_batching(
+        self,
+        window_ms: float = 4.0,
+        max_batch: Optional[int] = None,
+        buckets: Optional[Tuple[int, ...]] = None,
+        n_data: int = 1,
+    ) -> None:
+        """Coalesce concurrent predict() calls into bucketed dispatches of
+        `_predict_many` (serve/batching.py). n_data > 1 (JAX's mesh
+        serving) raises: beyond the visible devices as in JAX, otherwise
+        because it waits for ROADMAP's parallel item."""
+        if n_data < 1:
+            raise ValueError(f"n_data must be >= 1, got {n_data}")
+        if n_data > 1:
+            visible = (torch.cuda.device_count()
+                       if self.device.type == "cuda" else 1)
+            if n_data > visible:
+                raise ValueError(
+                    f"n_data={n_data} exceeds the {visible} visible "
+                    "device(s)"
+                )
+            raise NotImplementedError(f"n_data={n_data}: {PARALLEL_ITEM}")
+        buckets = tuple(buckets) if buckets is not None else (1, 2, 4, 8)
+        if max_batch is None:
+            max_batch = max(buckets)
+        # construct (and validate) the new batcher before tearing down a
+        # live one, so a bad re-enable never leaves batching silently off
+        new = batching.MicroBatcher(self._batch_fn, window_ms=window_ms,
+                                    max_batch=max_batch, buckets=buckets)
+        self.close_batching()
+        self._batcher = new
+        self._serve_n_data = n_data
+
+    def close_batching(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+            self._batcher = None
+        self._serve_n_data = 1
+
+    def _zeros(self, b: int):
+        h, w = self.img_hw
+        return (np.zeros((b, 3, h, w), np.float32),
+                np.zeros((b, self.signal_len), np.float32),
+                np.zeros((b, self.n_clin), np.float32))
+
+    def warmup_batched(self) -> None:
+        """Run every batch bucket's program once up front (cuDNN plans and
+        allocator blocks for each bucket's shapes)."""
+        if self._batcher is None:
+            return
+        for b in self._batcher._buckets:
+            self._dispatch(*self._zeros(b))
+
+    def warmup(self, strip_hw: Tuple[int, int] = (250, 2500)) -> None:
+        """One request through the whole path at startup, so the first
+        real request does not pay the first-call costs; the counters are
+        reset afterwards."""
+        dummy = np.full(strip_hw + (3,), 255, np.uint8)
+        dummy[strip_hw[0] // 2, :, :] = 0
+        self.predict(dummy, {"age": 60, "weight": 70})
+        if self._batcher is not None:
+            # with batching on, predict() went through the batcher: run the
+            # unbatched program too, which a BatcherClosed race takes
+            self._dispatch(*self._zeros(1))
+        with self._stats_lock:
+            self._n_requests = 0
+            self._latency_sum = 0.0
+            self._latency_hist = [0] * len(LATENCY_BUCKETS)
+
+    # -- the request -------------------------------------------------------
 
     def predict(self, image_u8: np.ndarray, questionnaire: Dict,
                 heatmap_format: str = "png") -> Dict:
@@ -177,26 +342,26 @@ class ServingPipeline:
         request_host.check_heatmap_format(heatmap_format)
         (img_norm, sig, clin, mv, dig_info, age, image_u8
          ) = request_host.prepare_inputs(self, image_u8, questionnaire)
-        dev = self.device
-        img = torch.from_numpy(img_norm).permute(0, 3, 1, 2).contiguous()
-        img, sig_t, clin_t = (torch.as_tensor(a).to(dev) for a in
-                              (img, sig, clin))
-        # every stride-2 stage of ResNet18 maps n to ceil(n / 2)
-        cam_hw = (-(-self.img_hw[0] // 32), -(-self.img_hw[1] // 32))
+        img = img_norm.transpose(0, 3, 1, 2)  # (1, 3, H, W)
         t1 = time.perf_counter()
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            packed = self._predict_all(img, sig_t, clin_t)
-            end.record()
-            flat = packed.cpu().numpy()  # the one readback; synchronises
-            device_ms = start.elapsed_time(end)
-        else:
-            flat = self._predict_all(img, sig_t, clin_t).numpy()
-            device_ms = (time.perf_counter() - t1) * 1e3
+        # Snapshot the batcher once: a concurrent close_batching() between
+        # a None check and submit() would otherwise fail the request.
+        batcher = self._batcher
+        row = None
+        if batcher is not None:
+            try:
+                row, device_ms = batcher.submit(img[0], sig[0], clin[0])
+            except batching.BatcherClosed:
+                # close_batching() raced this request: it was never
+                # dispatched, so it takes the unbatched path. A
+                # BatchDispatchError propagates: a failing batched program
+                # must surface, not silently degrade.
+                row = None
+        if row is None:
+            rows, device_ms = self._dispatch(img, sig, clin)
+            row = rows[0]
         t2 = time.perf_counter()
-        probs, pred, cam, attr, ca = self._unpack(flat, cam_hw)
+        probs, pred, cam, attr, ca = self._unpack(row)
         resp = request_host.assemble_response(
             self, mv=mv, dig_info=dig_info, image_u8=image_u8,
             questionnaire=questionnaire, probs=probs, pred=pred,
@@ -206,22 +371,113 @@ class ServingPipeline:
         t3 = time.perf_counter()
         self.last_timing = {
             "host_before_ms": (t1 - t0) * 1e3,
-            "device_ms": device_ms,
+            "device_ms": float(device_ms),
             "host_after_ms": (t3 - t2) * 1e3,
             "total_ms": (t3 - t0) * 1e3,
         }
+        dt = t3 - t0
         with self._stats_lock:
             self._n_requests += 1
-            self._latency_sum += t3 - t0
+            self._latency_sum += dt
+            for i, ub in enumerate(LATENCY_BUCKETS):
+                if dt <= ub:
+                    self._latency_hist[i] += 1
+                    break
+        hook = self.on_request_done
+        if hook is not None:
+            hook()
         return resp
 
+    # -- counters ------------------------------------------------------------
+
+    def record_error(self) -> None:
+        """Count a request answered 4xx/5xx (called by the HTTP handler;
+        predict() itself sees only requests that reached the model)."""
+        with self._stats_lock:
+            self._n_errors += 1
+
     def stats(self) -> Dict:
-        """Operational counters."""
+        """Operational counters (the /stats endpoint)."""
         with self._stats_lock:
             n, lat = self._n_requests, self._latency_sum
-        return {
+            errs = self._n_errors
+        out = {
             "requests": n,
+            "errors": errs,
             "mean_latency_ms": (lat / n * 1e3) if n else 0.0,
+            "aot": False,
             "temperature": self.temperature,
             "device": str(self.device),
+            "batching": None,
         }
+        b = self._batcher
+        if b is not None:
+            out["batching"] = b.stats()
+            out["batching"]["n_data"] = self._serve_n_data
+        return out
+
+    def metrics(self) -> str:
+        """The /stats counters in Prometheus text exposition format
+        (version 0.0.4): request and error counters, the predict()
+        latency histogram over LATENCY_BUCKETS, the micro-batcher's
+        dispatch gauges, the process's RSS and, on the card, the bytes
+        PyTorch's allocator holds there."""
+        with self._stats_lock:
+            n, lat = self._n_requests, self._latency_sum
+            errs = self._n_errors
+            hist = list(self._latency_hist)
+        lines = [
+            "# HELP ecgmm_requests_total Requests served a prediction.",
+            "# TYPE ecgmm_requests_total counter",
+            f"ecgmm_requests_total {n}",
+            "# HELP ecgmm_request_errors_total Requests answered "
+            "4xx/5xx.",
+            "# TYPE ecgmm_request_errors_total counter",
+            f"ecgmm_request_errors_total {errs}",
+            "# HELP ecgmm_request_latency_seconds End-to-end predict() "
+            "latency (digitize + device dispatch + explainers + "
+            "heatmap encode).",
+            "# TYPE ecgmm_request_latency_seconds histogram",
+        ]
+        cum = 0
+        for ub, c in zip(LATENCY_BUCKETS, hist):
+            cum += c
+            le = "+Inf" if ub == float("inf") else f"{ub:g}"
+            lines.append(
+                f'ecgmm_request_latency_seconds_bucket{{le="{le}"}} {cum}'
+            )
+        lines.append(f"ecgmm_request_latency_seconds_sum {lat:.6f}")
+        lines.append(f"ecgmm_request_latency_seconds_count {n}")
+        b = self._batcher
+        lines += [
+            "# HELP ecgmm_batching_enabled Micro-batching active (gauge).",
+            "# TYPE ecgmm_batching_enabled gauge",
+            f"ecgmm_batching_enabled {0 if b is None else 1}",
+        ]
+        if b is not None:
+            s = b.stats()
+            lines += [
+                "# TYPE ecgmm_batch_dispatches_total counter",
+                f"ecgmm_batch_dispatches_total {s['dispatches']}",
+                "# TYPE ecgmm_batch_requests_total counter",
+                f"ecgmm_batch_requests_total {s['requests']}",
+                "# HELP ecgmm_batch_mean_coalescence Requests per device "
+                "dispatch since startup (gauge).",
+                "# TYPE ecgmm_batch_mean_coalescence gauge",
+                f"ecgmm_batch_mean_coalescence {s['mean_coalescence']:.4f}",
+            ]
+        lines += [
+            "# HELP ecgmm_process_rss_bytes Resident set size of the "
+            "serving process.",
+            "# TYPE ecgmm_process_rss_bytes gauge",
+            f"ecgmm_process_rss_bytes {_rss_bytes()}",
+        ]
+        if self.device.type == "cuda":
+            lines += [
+                "# HELP ecgmm_live_buffer_bytes Bytes of live tensors on "
+                "the serving device (torch.cuda.memory_allocated).",
+                "# TYPE ecgmm_live_buffer_bytes gauge",
+                "ecgmm_live_buffer_bytes "
+                f"{torch.cuda.memory_allocated(self.device)}",
+            ]
+        return "\n".join(lines) + "\n"

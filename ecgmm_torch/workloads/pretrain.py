@@ -42,6 +42,7 @@ from ecgmm_torch.data import pipeline
 from ecgmm_torch.models import ECGMultimodalModel, ResNet18, ResNet1DSE
 from ecgmm_torch.models.clinical import ClinicalMLPEncoder, TabNetEncoder
 from ecgmm_torch.models.layers import flax_init_
+from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.tools.weights import load_partial
 from ecgmm_torch.train import embed, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
@@ -105,7 +106,7 @@ def run_pipeline(cfg: Config, data: pipeline.MaterializedData, run_dir: str,
     on `device` (where `data` lies), with TF32 off. Each stage
     checkpoints under `run_dir/<stage>`; returns (the fusion stage's
     FitResult, its EvalResult on the test split)."""
-    with run_lib.no_tf32():
+    with no_tf32():
         return _pipeline(cfg, data, run_dir, stage_epochs, verbose,
                          run_lib._device(device))
 

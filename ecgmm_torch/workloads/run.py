@@ -30,7 +30,6 @@ metric log to `./runs/<stamp>/metrics.jsonl` and the reports to
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
 import time
@@ -45,6 +44,7 @@ from ecgmm_torch.models import (CRNN, ECGMultimodalModel, ECGTransformer1D,
                                 ResNet18, ResNet1DSE)
 from ecgmm_torch.models.crnn import lstm_bias_frozen
 from ecgmm_torch.models.layers import flax_init_
+from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.train import calibrate, embed, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
@@ -74,24 +74,6 @@ def _device(device) -> torch.device:
             "device='cpu' (--device cpu) to train on the CPU"
         )
     return device
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """cuDNN convolutions and cuBLAS matmuls in float32, not TF32, while
-    the context lasts; the flags are restored afterwards. Every float32
-    op of the JAX package is float32 (the signal models, the image-only
-    ResNet-18, the fusion head's float32 layers); bf16 work under
-    autocast is unaffected."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def build_model_and_task(cfg: Config, device="cuda"):

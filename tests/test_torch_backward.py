@@ -355,6 +355,40 @@ def test_fusion_reference_stats_match_float64(rng):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("b", [4, 64, 512])
+def test_fusion_rounding_scale_of_the_weights_gradient(b):
+    """`tools/fusion_rounding.float64_grads`, the float64 side of
+    chip_smoke.py's bar for the kernels' `weights` gradient: its six
+    gradients equal JAX's VJP of the reference in float64; plain float32
+    autograd on the CPU lies within the bar 1e-4 + 1e-6 * S of float64;
+    and a row left out of the sums moves the gradient past the bar."""
+    from ecgmm_torch.tools import fusion_rounding
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        ins = fusion_rounding.draw(torch.Generator().manual_seed(b), b)
+        g64, s = fusion_rounding.float64_grads(ins, 1e-5)
+        args = [jnp.asarray(t.double().numpy()) for t in ins]
+        out, vjp = jax.vjp(
+            lambda *a: jax_ref_fusion(*a, eps=1e-5)[0], *args)
+        want = vjp(2 * out)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    for name, got, w in zip(FUSION_NAMES, g64, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-9 * s, err_msg=name)
+    assert s > 0 and np.isfinite(s)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    out32, _ = fusion.reference_attention_fusion(*leaves, eps=1e-5)
+    g32 = torch.autograd.grad((out32 ** 2).sum(), leaves)
+    bar = 1e-4 + 1e-6 * s
+    assert (g32[3].double() - g64[3]).abs().max().item() <= bar
+    if b > 1:
+        fewer, _ = fusion_rounding.float64_grads(
+            [t[:-1] for t in ins[:3]] + ins[3:], 1e-5)
+        assert (fewer[3] - g64[3]).abs().max().item() > bar
+
+
 # (B, D) -> rows per block of the forward and the backward: one row per
 # block until the batch outgrows the 132 SMs, then doubled up to 8, then
 # halved while a block's shared memory does not fit (D > 1024 only; the

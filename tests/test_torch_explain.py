@@ -85,8 +85,8 @@ def test_clinical_integrated_gradients(models, batch):
             img_f, sig_f, _, _ = model.encode(
                 _nchw(img), torch.from_numpy(sig), torch.from_numpy(clin)
             )
-        got = pipe._clinical_ig(img_f, sig_f, torch.from_numpy(clin),
-                                torch.tensor(cls))
+        got = pipe._clinical_ig_many(img_f, sig_f, torch.from_numpy(clin),
+                                     torch.tensor(cls).reshape(1))[0]
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 

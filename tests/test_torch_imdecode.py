@@ -1,0 +1,411 @@
+"""The port's upload decoder (`ecgmm_torch.serve.imdecode`) against Pillow,
+which the JAX HTTP handler decodes uploads with
+(`np.asarray(ImageOps.exif_transpose(Image.open(b)).convert("RGB"))`,
+`ecgmm_tpu/serve/http.py:101-112`). Pillow is used here only, as the
+reference; the bar is bit equality.
+
+The committed fixtures under `ecgmm_torch/serve/fixtures/` were made with
+Pillow: `strip.jpg` is `ecgmm_tpu.data.synthetic.make_cohort(n=1,
+signal_len=2476, img_hw=(250, 2500)).images[0]` saved as JPEG with
+Pillow's defaults (the JAX serve hammer's body); `scene_exif6.jpg` is that
+strip on a 640x2900 table-coloured photo, stored rotated a quarter turn
+counter-clockwise with EXIF orientation 6, at quality 90;
+`pillow_rgb_sha256.json` holds the SHA-256 of Pillow's RGB decode of
+each."""
+
+import hashlib
+import io
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image, ImageOps
+
+from ecgmm_tpu.data import synthetic as jax_synthetic
+from ecgmm_torch import native
+from ecgmm_torch.serve import imdecode
+from ecgmm_torch.serve.imdecode import decode_upload
+from ecgmm_torch.serve.wire import BadRequest
+
+FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ecgmm_torch", "serve", "fixtures")
+
+
+def pillow(data: bytes) -> np.ndarray:
+    return np.asarray(
+        ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
+
+
+def assert_bit_equal(data: bytes):
+    got = decode_upload(data)
+    want = pillow(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def photo():
+    """A strip photo (the synthetic cohort's first strip, 250x2500) with
+    sensor-like noise added, so the chroma carries detail."""
+    strip = jax_synthetic.make_cohort(n=1, signal_len=2476,
+                                      img_hw=(250, 2500), seed=4).images[0]
+    noise = np.random.default_rng(0).integers(-12, 13, strip.shape)
+    return np.clip(strip.astype(np.int64) + noise, 0, 255).astype(np.uint8)
+
+
+def _jpeg(img, **kwargs) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", **kwargs)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("quality", [50, 75, 95])
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:2:2", "4:4:4", "gray"])
+@pytest.mark.parametrize("hw", [(101, 157), (250, 2500), (9, 3)])
+def test_jpeg_bit_equal_to_pillow(photo, hw, subsampling, quality):
+    img = photo[:hw[0], :hw[1]]
+    if subsampling == "gray":
+        data = _jpeg(img[:, :, 1], quality=quality)
+    else:
+        data = _jpeg(img, quality=quality, subsampling=subsampling)
+    assert_bit_equal(data)
+
+
+@pytest.mark.parametrize("restart", [{"restart_marker_blocks": 1},
+                                     {"restart_marker_blocks": 7},
+                                     {"restart_marker_rows": 1}])
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:4:4"])
+def test_jpeg_restart_intervals(photo, restart, subsampling):
+    assert_bit_equal(_jpeg(photo[:77, :301], subsampling=subsampling,
+                           **restart))
+
+
+def test_jpeg_adobe_rgb(photo):
+    """keep_rgb: an Adobe APP14 marker with transform 0 and no JFIF
+    marker, which libjpeg reads as RGB without conversion."""
+    data = _jpeg(photo[:50, :333], keep_rgb=True)
+    assert b"Adobe" in data and b"JFIF" not in data
+    assert_bit_equal(data)
+
+
+def _with_orientation(img, orientation, fmt):
+    im = Image.fromarray(img)
+    exif = im.getexif()
+    exif[0x0112] = orientation
+    buf = io.BytesIO()
+    im.save(buf, format=fmt, exif=exif.tobytes())
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientations(photo, orientation, fmt):
+    data = _with_orientation(photo[:40, :90], orientation, fmt)
+    assert_bit_equal(data)
+    if orientation in (5, 6, 7, 8):
+        assert decode_upload(data).shape[:2] == (90, 40)
+
+
+def test_xmp_orientation_when_exif_has_none(photo):
+    """Without an EXIF orientation tag Pillow reads XMP's
+    tiff:Orientation; an EXIF tag, where present, wins."""
+    xmp = (b'<x:xmpmeta xmlns:x="adobe:ns:meta/"><rdf:RDF><rdf:Description '
+           b'tiff:Orientation="6"/></rdf:RDF></x:xmpmeta>')
+    plain = _jpeg(photo[:30, :70], xmp=xmp)
+    assert_bit_equal(plain)
+    assert decode_upload(plain).shape[:2] == (70, 30)
+    im = Image.fromarray(photo[:30, :70])
+    exif = im.getexif()
+    exif[0x0112] = 3
+    buf = io.BytesIO()
+    im.save(buf, format="JPEG", xmp=xmp, exif=exif.tobytes())
+    assert_bit_equal(buf.getvalue())
+    assert decode_upload(buf.getvalue()).shape[:2] == (30, 70)
+
+
+# ---------------------------------------------------------------- PNG
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def _filter_row(ft, row, prev, bpp):
+    row = row.astype(np.int64)
+    prev = prev.astype(np.int64)
+    out = np.empty_like(row)
+    for x in range(len(row)):
+        a = row[x - bpp] if x >= bpp else 0
+        b = prev[x]
+        c = prev[x - bpp] if x >= bpp else 0
+        if ft == 0:
+            p = 0
+        elif ft == 1:
+            p = a
+        elif ft == 2:
+            p = b
+        elif ft == 3:
+            p = (a + b) // 2
+        else:
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[x] = (row[x] - p) % 256
+    return out.astype(np.uint8).tobytes()
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def write_png(pixels, color_type, interlace, palette=None, extra=b""):
+    """A PNG whose rows cycle through the five filter types (per pass,
+    Adam7 when interlaced)."""
+    h, w, ch = pixels.shape
+    raw = b""
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    k = 0
+    for x0, y0, dx, dy in passes:
+        sub = pixels[y0::dy, x0::dx]
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        prev = np.zeros(sub.shape[1] * ch, np.uint8)
+        for row in sub.reshape(sub.shape[0], -1):
+            ft = k % 5
+            k += 1
+            raw += bytes([ft]) + _filter_row(ft, row, prev, ch)
+            prev = row
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, color_type, 0, 0, interlace))
+    if palette is not None:
+        out += _chunk(b"PLTE", palette)
+    return (out + extra + _chunk(b"IDAT", zlib.compress(raw))
+            + _chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P"])
+def test_png_from_pillow(photo, mode):
+    buf = io.BytesIO()
+    Image.fromarray(photo[:61, :203]).convert(mode).save(buf, format="PNG")
+    assert_bit_equal(buf.getvalue())
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("color_type", [0, 2, 3, 4, 6])
+@pytest.mark.parametrize("hw", [(23, 37), (1, 5), (9, 1)])
+def test_png_filters_and_interlace(hw, color_type, interlace):
+    """Every colour type, each row filter, Adam7 (with empty passes at the
+    small sizes); a palette of 7 entries whose index 9 reads black."""
+    rng = np.random.default_rng(color_type + 10 * interlace)
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    pixels = rng.integers(0, 256, size=hw + (ch,), dtype=np.uint8)
+    palette = None
+    if color_type == 3:
+        pixels = rng.integers(0, 10, size=hw + (1,), dtype=np.uint8)
+        palette = rng.integers(0, 256, size=21, dtype=np.uint8).tobytes()
+    assert_bit_equal(write_png(pixels, color_type, interlace, palette))
+
+
+def test_png_raw_profile_exif(photo):
+    """ImageMagick's "Raw profile type exif" text chunk carries the
+    orientation where there is no eXIf chunk."""
+    im = Image.fromarray(photo[:20, :50])
+    exif = im.getexif()
+    exif[0x0112] = 8
+    blob = b"Exif\x00\x00" + exif.tobytes()
+    text = "\nexif\n%8d\n%s\n" % (len(blob), blob.hex())
+    extra = _chunk(b"tEXt", b"Raw profile type exif\x00" + text.encode())
+    data = write_png(photo[:20, :50], 2, 0, extra=extra)
+    assert_bit_equal(data)
+    assert decode_upload(data).shape[:2] == (50, 20)
+
+
+# ----------------------------------------------------- what it refuses
+
+
+def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
+    i = data.index(marker)
+    b = bytearray(data)
+    b[i + offset] = value
+    return bytes(b)
+
+
+def test_unsupported_and_undecodable_raise_bad_request(photo):
+    img = photo[:40, :90]
+    cases = [
+        (_jpeg(img, progressive=True), "progressive JPEG"),
+        (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC9),
+         "arithmetic-coded JPEG"),
+        (_patched(_jpeg(img), b"\xff\xc0", 4, 12), "12-bit JPEG"),
+        (_cmyk_jpeg(img), "CMYK"),
+        (b"not an image", "not a decodable image"),
+        (_jpeg(img)[:300], "not a decodable image"),
+        (b"GIF89a" + b"\x00" * 20, "not a JPEG or PNG"),
+    ]
+    sixteen = bytearray(write_png(img[:, :, :1], 0, 0))
+    ihdr = sixteen.index(b"IHDR")
+    sixteen[ihdr + 12] = 16  # bit depth
+    sixteen[ihdr + 17:ihdr + 21] = struct.pack(
+        ">I", zlib.crc32(bytes(sixteen[ihdr:ihdr + 17])) & 0xFFFFFFFF)
+    cases.append((bytes(sixteen), "16-bit PNG"))
+    for data, want in cases:
+        with pytest.raises(BadRequest, match=want):
+            decode_upload(data)
+    for data, want in cases[:4] + cases[-1:]:
+        assert "ROADMAP" in _message(data)
+
+
+def _cmyk_jpeg(img) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def _message(data):
+    try:
+        decode_upload(data)
+    except BadRequest as e:
+        return str(e)
+    raise AssertionError("decoded")
+
+
+def _segments(data: bytes):
+    """(marker, body) of each marker segment before the first scan, and
+    the bytes from the scan's marker on."""
+    pos, out = 2, []
+    while data[pos + 1] != 0xDA:
+        marker = data[pos + 1]
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        out.append((marker, data[pos + 4:pos + 2 + length]))
+        pos += 2 + length
+    return out, data[pos:]
+
+
+def _with_huffman_table(data: bytes, tc: int, n1: int) -> bytes:
+    """The JPEG with its Huffman table of class tc (0: DC, 1: AC), id 0,
+    replaced by one holding n1 codes of length 1 (their symbols in
+    range): over-subscribed for n1 >= 2, since the code space of length 1
+    holds the code 0 alone once the all-ones code is reserved."""
+    segments, rest = _segments(data)
+    out = b"\xff\xd8"
+    for marker, body in segments:
+        if marker == 0xC4:
+            tables, i = b"", 0
+            while i < len(body):
+                total = sum(body[i + 1:i + 17])
+                table = body[i:i + 17 + total]
+                if body[i] == tc << 4:
+                    symbols = bytes(k % 12 for k in range(n1))
+                    table = bytes([tc << 4, n1]) + bytes(15) + symbols
+                tables += table
+                i += 17 + total
+            body = tables
+        out += bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) \
+            + body
+    return out + rest
+
+
+@pytest.mark.parametrize("n1", [3, 255])
+@pytest.mark.parametrize("tc", [0, 1], ids=["dc", "ac"])
+def test_oversubscribed_huffman_tables_are_refused(photo, tc, n1):
+    """A Huffman table whose codes overrun their code space is refused
+    with BadRequest, as libjpeg refuses it (Pillow fails to load it)."""
+    data = _with_huffman_table(_jpeg(photo[:40, :90]), tc, n1)
+    with pytest.raises(OSError):
+        pillow(data)
+    with pytest.raises(BadRequest, match="bad Huffman table"):
+        decode_upload(data)
+
+
+@pytest.mark.parametrize("n1", [2, 3, 255])
+@pytest.mark.parametrize("table", [0, 7])
+def test_native_scan_decoder_refuses_oversubscribed_tables(table, n1):
+    """The native scan decoder checks each table's code space itself,
+    before it fills its lookup table: an over-subscribed table in the
+    last slot (AC 3) or the first (DC 0) returns the bad-table code
+    without writing past the table."""
+    lib = native.library()
+    bits = np.zeros((8, 17), np.uint8)
+    vals = np.zeros((8, 256), np.uint8)
+    bits[:, 1] = 1  # one code of length 1: a valid table
+    bits[table, 1] = n1
+    comp = np.array([1, 1, table % 4, 3 if table else 0, 1], np.int32)
+    coef = np.zeros(64, np.int16)
+    offsets = np.zeros(1, np.int64)
+    end = np.zeros(1, np.int64)
+    buf = np.zeros(16, np.uint8)
+    status = lib.ecgmm_jpeg_decode_scan(
+        buf.ctypes.data, len(buf), 0, 1, comp.ctypes.data, coef.ctypes.data,
+        offsets.ctypes.data, 1, 1, 0, bits.ctypes.data, vals.ctypes.data,
+        end.ctypes.data)
+    assert status == -1
+
+
+def _png_header(width: int, height: int) -> bytes:
+    return b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+
+
+def test_decompression_bombs_are_refused(photo):
+    """Pillow's guards hold before anything is allocated: a frame past
+    MAX_PIXELS (a 65535x65535 JPEG, a 2^31-1 x 2^31-1 PNG), and a PNG
+    whose image data inflates far past what its header needs (1 GiB of
+    zeros behind an 8x8 header) decodes from the first 8 rows alone; a
+    text chunk that inflates past 1 MiB is refused."""
+    big_jpeg = bytearray(_jpeg(photo[:40, :90]))
+    sof = big_jpeg.index(b"\xff\xc0")
+    big_jpeg[sof + 5:sof + 9] = struct.pack(">HH", 65535, 65535)
+    assert 65535 * 65535 > imdecode.MAX_PIXELS
+    big_png = _png_header(2 ** 31 - 1, 2 ** 31 - 1) + _chunk(
+        b"IDAT", zlib.compress(b"\x00" * 64)) + _chunk(b"IEND", b"")
+    for data in (bytes(big_jpeg), big_png):
+        with pytest.raises(BadRequest, match="decompression bomb"):
+            decode_upload(data)
+    # 8 rows of (filter byte + 24 bytes), then 1 GiB more of zeros
+    inflater = zlib.compressobj(9)
+    stream = inflater.compress(b"\x00" * (8 * 25))
+    chunk = b"\x00" * (1 << 20)
+    for _ in range(1024):
+        stream += inflater.compress(chunk)
+    stream += inflater.flush()
+    assert len(stream) < 2 * 1024 * 1024
+    bomb = _png_header(8, 8) + _chunk(b"IDAT", stream) + _chunk(b"IEND",
+                                                               b"")
+    np.testing.assert_array_equal(decode_upload(bomb), pillow(bomb))
+    text = _chunk(b"zTXt", b"Comment\x00\x00" + zlib.compress(
+        b" " * (imdecode.MAX_TEXT_CHUNK + 1)))
+    with_text = write_png(photo[:8, :8], 2, 0, extra=text)
+    with pytest.raises(ValueError):
+        pillow(with_text)
+    with pytest.raises(BadRequest, match="text chunk inflates past"):
+        decode_upload(with_text)
+
+
+def test_committed_fixtures_decode_to_pillows_hashes():
+    """The hashes chip_smoke.py holds the card machine's decode to are
+    Pillow's decode of the committed files, here."""
+    with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
+        hashes = json.load(f)
+    assert set(hashes) == {"strip.jpg", "scene_exif6.jpg"}
+    for name, want in hashes.items():
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        for rgb in (pillow(data), decode_upload(data)):
+            assert list(rgb.shape) == want["shape"]
+            assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
+                want["rgb_sha256"]
+
+
+def test_strip_fixture_is_the_cohort_strip():
+    """strip.jpg is the JAX hammer's body: the cohort's first strip
+    through JPEG (quality 75), within JPEG's error."""
+    strip = jax_synthetic.make_cohort(n=1, signal_len=2476,
+                                      img_hw=(250, 2500)).images[0]
+    with open(os.path.join(FIXTURES, "strip.jpg"), "rb") as f:
+        got = decode_upload(f.read())
+    assert got.shape == strip.shape
+    err = np.abs(got.astype(np.int64) - strip.astype(np.int64))
+    assert err.mean() < 3.0

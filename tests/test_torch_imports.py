@@ -1,6 +1,7 @@
 """The port stands alone: `ecgmm_torch` and `chip_smoke.py` import neither
-JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, import without
-nvcc or a GPU, and their entry points do not fall back to the CPU."""
+JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, nor Pillow (the
+card's machine has none), import without nvcc or a GPU, and their entry
+points do not fall back to the CPU."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import torch
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL")
 
 
 def _port_files():
