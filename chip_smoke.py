@@ -26,6 +26,21 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      ran through them, and 2 requests match the same pipeline on the CPU
      with the card's TF32 flags at torch's defaults (the request program
      turns TF32 off itself);
+  9. (run after phase 4, before phases 5 and 8) the request's host
+     kernels (`ecgmm_torch/native/*.cpp`, built by g++ in phase 2 beside
+     nvcc; the build prints the machine's `uname -m`, its core count and
+     the zlib link): each against its plain version on the committed
+     fixtures (decoded by the port), the scene's served crop and seeded
+     noise, bit-equal (darkness map, column and row maxima, gridness at
+     pool 1 and 2, valid mask, CAM overlay, resize), the centroid within
+     1e-3 px and the hospital filter within 1e-9 of scipy; the served
+     digitizer's waveform of each fixture and the JPEG heatmap of the
+     strip against the SHA-256 of the JAX package's native result and of
+     Pillow's bytes (`serve/fixtures/host_kernels_sha256.json`); the PNG
+     decodes to its overlay; each host stage of a request (digitize,
+     filter, resize, overlay, PNG, JPEG, report), native and plain, on the
+     strip and the scene, with 1 and 16 threads calling at once (host
+     clock), and a `host_kernels` JSON line;
   5. numbers: request latency;
   8. (run after phase 5) the front end: the upload decoder turns the
      committed fixtures into Pillow's bytes (SHA-256); the HTTP server
@@ -85,6 +100,7 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
 import dataclasses
@@ -106,9 +122,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from ecgmm_torch import native  # noqa: E402
 from ecgmm_torch.config import get_preset  # noqa: E402
-from ecgmm_torch.data import pipeline  # noqa: E402
+from ecgmm_torch.data import pipeline, preprocess  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
+from ecgmm_torch.explain.gradcam import (  # noqa: E402
+    _jet_lut, overlay_heatmap)
 from ecgmm_torch.explain.shap_fusion import (  # noqa: E402
     modality_contributions)
 from ecgmm_torch.models import (  # noqa: E402
@@ -118,11 +137,13 @@ from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.precision import no_tf32  # noqa: E402
+from ecgmm_torch.serve import digitize  # noqa: E402
 from ecgmm_torch.serve import http as serve_http  # noqa: E402
 from ecgmm_torch.serve import pipeline as serve_pipeline  # noqa: E402
 from ecgmm_torch.serve import request as request_host  # noqa: E402
 from ecgmm_torch.serve.imdecode import decode_upload  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
+from ecgmm_torch.serve.report import rule_based_report  # noqa: E402
 from ecgmm_torch.serve.wire import ENDPOINT  # noqa: E402
 from ecgmm_torch.tools import fusion_rounding  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
@@ -1033,6 +1054,302 @@ def check_decoder(smi):
     print(f"decode strip.jpg (250x2500 JPEG 4:2:0): median {ms:.3f} ms "
           f"(host clock; {smi})", flush=True)
     return ms
+
+
+# ------------------------------------------------ the request's host kernels
+
+HOST_FIXTURE = os.path.join(FIXTURES, "host_kernels_sha256.json")
+# the served request's host stages: (stage, the native kernels it runs,
+# their source, what they replace in the JAX package)
+HOST_STAGES = (
+    ("digitize", ("darkness_map", "colmax", "gridness", "trace_centroid"),
+     "ecgmm_torch/native/digitize.cpp",
+     "ecgmm_tpu/native/digitize.cpp:109,213,252,348"),
+    ("filter", ("preprocess_hospital",), "ecgmm_torch/native/preprocess.cpp",
+     "ecgmm_tpu/native/preprocess.cpp:130"),
+    ("resize", ("resize_bilinear_u8",), "ecgmm_torch/native/resize.cpp",
+     "ecgmm_tpu/serve/request.py:80 (Pillow's resize)"),
+    ("overlay", ("cam_overlay",), "ecgmm_torch/native/heatmap.cpp",
+     "ecgmm_tpu/native/heatmap.cpp:123"),
+    ("png_encode", ("png_encode",), "ecgmm_torch/native/heatmap.cpp",
+     "ecgmm_tpu/native/heatmap.cpp:175"),
+    ("jpeg_encode", ("jpeg_encode",), "ecgmm_torch/native/jpegenc.cpp",
+     "ecgmm_tpu/serve/request.py:150 (Pillow's JPEG save)"),
+    ("report", (), "ecgmm_torch/serve/report.py (Python, no kernel)",
+     "ecgmm_tpu/serve/report.py"),
+)
+
+
+def build_host_library(smi):
+    """Phase 2's host half: the request's C++ kernels built by g++ (one
+    process a source, beside nvcc's), and the machine they run on."""
+    t0 = time.perf_counter()
+    lib = native.library()
+    print(f"built host library g++ {' '.join(native.FLAGS)} "
+          f"{' '.join(native.LIBS)} {native._sources()} -> {lib._name} in "
+          f"{time.perf_counter() - t0:.2f} s; uname -m {os.uname().machine},"
+          f" nproc {os.cpu_count()}; zlib: linked (-lz; zlib.h and libz "
+          f"found on this machine) ({smi})", flush=True)
+
+
+def _same(where, got, want):
+    if not np.array_equal(got, want):
+        n = int(np.sum(np.asarray(got) != np.asarray(want))) \
+            if np.shape(got) == np.shape(want) else -1
+        raise AssertionError(f"{where}: the native kernel differs from its "
+                             f"plain version ({n} elements)")
+
+
+def _fixture_bytes(name):
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def _served_crop(img, info):
+    if info["crop"] is None:
+        return img
+    y0, y1, x0, x1 = info["crop"]
+    return np.ascontiguousarray(img[y0:y1, x0:x1])
+
+
+def check_host_kernels():
+    """Each host kernel against its plain version on the committed photos
+    (decoded by the port), the scene's served crop and seeded noise; the
+    served digitizer's waveform and the JPEG heatmap against the SHA-256
+    of the JAX package's and Pillow's results
+    (`host_kernels_sha256.json`, written by the CPU tests)."""
+    with open(HOST_FIXTURE) as f:
+        fixture = json.load(f)
+    rng = np.random.default_rng(0)
+    photos = {name: decode_upload(_fixture_bytes(name))
+              for name in ("strip.jpg", "scene_exif6.jpg")}
+    images = dict(photos, noise=rng.integers(0, 256, (300, 400, 3),
+                                             dtype=np.uint8))
+    lut = _jet_lut()
+    worst = {"centroid_px": 0.0, "filter": 0.0}
+    for name, img in images.items():
+        rel, col_max, row_max = native.darkness_map(img)
+        plain = digitize.darkness_map(img, impl="plain")
+        _same(f"{name} darkness map", rel, plain)
+        _same(f"{name} column maxima", col_max, plain.max(axis=0))
+        _same(f"{name} row maxima", row_max, plain.max(axis=1))
+        _same(f"{name} colmax", native.colmax(plain), plain.max(axis=0))
+        _same(f"{name} gridness pool 1", native.gridness(img, 1, 32)[0],
+              digitize.gridness_map(img, impl="plain"))
+        g2, bright2 = native.gridness(img, 2, 16)
+        pg2, pbright2 = digitize._grid_analysis(img, impl="plain")[:2]
+        _same(f"{name} gridness pool 2", g2, pg2)
+        _same(f"{name} pooled brightness", bright2, pbright2)
+        c, v = digitize.extract_trace(img)
+        pc, pv = digitize.extract_trace(img, impl="plain")
+        _same(f"{name} valid mask", v, pv)
+        err = float(np.abs(c - pc).max())
+        worst["centroid_px"] = max(worst["centroid_px"], err)
+        if err > 1e-3:
+            raise AssertionError(f"{name}: centroid {err} px off the plain "
+                                 "path (bar 1e-3)")
+        cam = rng.uniform(0, 1, (7, 7)).astype(np.float32)
+        _same(f"{name} cam overlay", native.cam_overlay(img, cam, lut),
+              overlay_heatmap(img, request_host.resize_bilinear_f32(
+                  cam, img.shape[:2])))
+        _same(f"{name} resize", native.resize_bilinear_u8(img, (224, 224)),
+              request_host.resize_bilinear_u8(img, (224, 224)))
+    signals = [rng.normal(size=(4, 2476)).astype(np.float32)]
+    for name, img in photos.items():
+        mv, info = digitize.digitize_lead2_info(img, target_len=2476)
+        want = fixture["digitize"][name]
+        got = hashlib.sha256(mv.tobytes()).hexdigest()
+        print(f"served digitizer {name}: {info} mv sha256 {got}", flush=True)
+        if got != want["mv_sha256"] or info != want["info"]:
+            raise AssertionError(f"{name}: the served waveform differs from "
+                                 "the JAX package's native digitizer's")
+        pmv = digitize.digitize_lead2_info(img, target_len=2476,
+                                           impl="plain")[0]
+        print(f"  plain digitizer against it: max |d mv| "
+              f"{float(np.abs(mv - pmv).max()):.3g}", flush=True)
+        crop = _served_crop(img, info)
+        _same(f"{name} crop resize",
+              native.resize_bilinear_u8(crop, (224, 224)),
+              request_host.resize_bilinear_u8(crop, (224, 224)))
+        signals.append(mv[None])
+    for x in signals:
+        err = float(np.abs(native.preprocess_hospital(x) - preprocess
+                           .hospital_filter(x, impl="plain")).max())
+        worst["filter"] = max(worst["filter"], err)
+        if err > 1e-9:
+            raise AssertionError(f"hospital filter {err} off scipy (1e-9)")
+    strip = photos["strip.jpg"]
+    cam = np.random.default_rng(
+        fixture["jpeg_heatmap"]["cam_seed"]).uniform(0, 1, (7, 7)).astype(
+            np.float32)
+    overlay = native.cam_overlay(strip, cam, lut)
+    _same("png round trip", decode_upload(native.png_encode(overlay)),
+          overlay)
+    for where, data in (
+            ("jpeg_encode", native.jpeg_encode(overlay)),
+            ("render_heatmap", base64.b64decode(request_host.render_heatmap(
+                strip, cam, "jpeg")[0]))):
+        if hashlib.sha256(data).hexdigest() != \
+                fixture["jpeg_heatmap"]["sha256"]:
+            raise AssertionError(f"{where}: the JPEG heatmap is not Pillow's "
+                                 "bytes")
+    print(f"host kernels meet their plain versions: maps, maxima, masks, "
+          f"overlays and resizes bit-equal; centroid within "
+          f"{worst['centroid_px']:.3g} px (bar 1e-3), filter within "
+          f"{worst['filter']:.3g} (bar 1e-9); the served waveforms and the "
+          f"JPEG heatmap meet their SHA-256; the PNG decodes to the "
+          f"overlay", flush=True)
+
+
+def _host_stages(img):
+    """Each stage of one served request's host work on a photo, native and
+    plain (None where the port has no plain version: the JPEG encoder's is
+    Pillow's, absent here), and the kernel calls a request makes."""
+    mv, info = digitize.digitize_lead2_info(img, target_len=2476)
+    crop = _served_crop(img, info)
+    sig = mv[None]
+    cam = np.random.default_rng(0).uniform(0, 1, (7, 7)).astype(np.float32)
+    lut = _jet_lut()
+    overlay = native.cam_overlay(crop, cam, lut)
+
+    def report():
+        return rule_based_report(mv, abnormal=True, probability=0.7,
+                                 age=60.0, sex=None)
+
+    return {
+        "digitize": (
+            lambda: digitize.digitize_lead2_info(img, target_len=2476),
+            lambda: digitize.digitize_lead2_info(img, target_len=2476,
+                                                 impl="plain")),
+        "filter": (lambda: preprocess.preprocess_hospital(sig),
+                   lambda: preprocess.preprocess_hospital(sig, impl="plain")),
+        "resize": (lambda: native.resize_bilinear_u8(crop, (224, 224)),
+                   lambda: request_host.resize_bilinear_u8(crop, (224, 224))),
+        "overlay": (lambda: native.cam_overlay(crop, cam, lut),
+                    lambda: overlay_heatmap(
+                        crop, request_host.resize_bilinear_f32(
+                            cam, crop.shape[:2]))),
+        "png_encode": (lambda: native.png_encode(overlay, 1),
+                       lambda: request_host.encode_png(overlay, 1)),
+        "jpeg_encode": (lambda: native.jpeg_encode(overlay), None),
+        "report": (report, report),
+    }
+
+
+def _kernel_calls(img):
+    """The native kernel calls of one served request's host work on img
+    (prepare_inputs and a png and a jpeg render), by kernel."""
+    names = [k for _, ks, _, _ in HOST_STAGES for k in ks]
+    counts = dict.fromkeys(names, 0)
+    saved = {k: getattr(native, k) for k in names}
+
+    def counted(k):
+        def call(*args, **kwargs):
+            counts[k] += 1
+            return saved[k](*args, **kwargs)
+        return call
+
+    pipe = type("HostOnly", (), {"signal_len": 2476, "ecg_scaler": None,
+                                 "img_hw": (224, 224), "n_clin": 2,
+                                 "clinical_scaler": None})()
+    cam = np.zeros((7, 7), np.float32)
+    try:
+        for k in names:
+            setattr(native, k, counted(k))
+        crop = request_host.prepare_inputs(pipe, img, {"age": 60})[-1]
+        request_host.render_heatmap(crop, cam, "png")
+        request_host.render_heatmap(crop, cam, "jpeg")
+    finally:
+        for k, fn in saved.items():
+            setattr(native, k, fn)
+    return counts
+
+
+def _time_1(fn, n):
+    fn()  # warm: first-touch pages, coefficient tables
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _time_16(fn, reps):
+    """16 threads calling fn reps times each, all at once: (median ms per
+    call, wall ms per call = wall / calls)."""
+    lat = []
+    lock = threading.Lock()
+    start = threading.Barrier(16)
+
+    def worker():
+        start.wait()
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            with lock:
+                lat.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=worker) for _ in range(16)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a host-stage thread did not finish")
+    wall = (time.perf_counter() - t0) * 1e3
+    return statistics.median(lat), wall / len(lat)
+
+
+def time_host_stages(smi):
+    """Each host stage of the served request, native and plain, on the
+    strip and the scene (host clock): the median of single calls, and the
+    median latency and wall time a call with 16 threads calling at once.
+    Returns the host-kernel entries of the JSON line."""
+    photos = {"strip": decode_upload(_fixture_bytes("strip.jpg")),
+              "scene": decode_upload(_fixture_bytes("scene_exif6.jpg"))}
+    calls = {name: _kernel_calls(img) for name, img in photos.items()}
+    print(f"native kernel calls per request (prepare_inputs and a png and "
+          f"a jpeg heatmap): {json.dumps(calls)}", flush=True)
+    rows = {stage: {} for stage, *_ in HOST_STAGES}
+    for name, img in photos.items():
+        for stage, (nat, plain) in _host_stages(img).items():
+            row = rows[stage]
+            row[f"native_ms_{name}"] = _time_1(nat, 9)
+            row[f"native_ms_16_{name}"], row[f"native_wall_ms_16_{name}"] = \
+                _time_16(nat, 4)
+            if plain is None:
+                row[f"plain_ms_{name}"] = None
+                row[f"plain_ms_16_{name}"] = row[
+                    f"plain_wall_ms_16_{name}"] = None
+            else:
+                row[f"plain_ms_{name}"] = _time_1(plain, 5)
+                row[f"plain_ms_16_{name}"], row[
+                    f"plain_wall_ms_16_{name}"] = _time_16(plain, 2)
+
+            def fmt(v):
+                return "n/a" if v is None else f"{v:.3f}"
+
+            print(f"host stage {stage} on the {name} ({img.shape[0]}x"
+                  f"{img.shape[1]}): native {fmt(row[f'native_ms_{name}'])} "
+                  f"ms, 16 threads p50 "
+                  f"{fmt(row[f'native_ms_16_{name}'])} ms (wall "
+                  f"{fmt(row[f'native_wall_ms_16_{name}'])} ms/call); plain "
+                  f"{fmt(row[f'plain_ms_{name}'])} ms, 16 threads p50 "
+                  f"{fmt(row[f'plain_ms_16_{name}'])} ms (wall "
+                  f"{fmt(row[f'plain_wall_ms_16_{name}'])} ms/call) "
+                  f"(host clock; {smi})", flush=True)
+    entries = []
+    for stage, kernels, source, replaces in HOST_STAGES:
+        entries.append({
+            "name": stage, "kernels": list(kernels), "source": source,
+            "replaces": replaces,
+            "calls_per_request": {name: {k: calls[name][k] for k in kernels}
+                                  for name in photos},
+            "threads_per_call": "up to 8" if kernels else "1",
+            **rows[stage]})
+    return entries
 
 
 def compare_batched_with_cpu(pipe, cpu_pipe):
@@ -2395,11 +2712,25 @@ def main() -> int:
         raise RuntimeError(f"needs compute capability 9.0, found {cap}")
     peaks = peaks_for(name)
 
-    # 2. build
+    # 2. build: nvcc for the CUDA kernels, g++ for the host kernels beside
+    # it
+    host_build = {}
+
+    def build_host():
+        try:
+            build_host_library(smi)
+        except Exception as e:  # re-raised below, after nvcc's build
+            host_build["error"] = e
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.perf_counter()
     lib = _ext.library()
     print(f"built {_ext._sources()} -> {lib._name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    host_thread.join()
+    if "error" in host_build:
+        raise host_build["error"]
 
     # 3. kernels vs plain versions; the floor is what a kernel that does
     # almost nothing measures with device_us
@@ -2438,6 +2769,12 @@ def main() -> int:
 
     # 4. the slice
     launches, timings = run_slice()
+
+    # 9. the request's host kernels against their plain versions, and the
+    # host stages' times
+    check_host_kernels()
+    host_kernels = time_host_stages(smi)
+    print(json.dumps({"host_kernels": host_kernels}), flush=True)
 
     # 5. numbers
     for key in ("total_ms", "host_before_ms", "device_ms", "host_after_ms"):

@@ -1,13 +1,18 @@
 """Host-side signal preprocessing (port of `ecgmm_tpu/data/preprocess.py`
 and `data/pipeline.filter_signals_host`).
 
-Everything runs in numpy/scipy on the host, the filters in float64, as
-the reference repository's `dataset.py:76-116` does. The composite
-pipelines are the reference trainers': the hospital filter (moving-average
-baseline removal with numpy 'same' alignment, then a zero-phase 5th-order
-Butterworth low-pass, cutoff 0.05 at fs 1.0, with scipy's `filtfilt`),
-PTB-XL (500 -> 250 Hz, baseline removal, 40 Hz low-pass, pad or crop) and
-PhysioNet 2017 (16-149 Hz band-pass, per-sample z-score).
+Everything runs on the host, the filters in float64, as the reference
+repository's `dataset.py:76-116` does. The composite pipelines are the
+reference trainers': the hospital filter (moving-average baseline removal
+with numpy 'same' alignment, then a zero-phase 5th-order Butterworth
+low-pass, cutoff 0.05 at fs 1.0, scipy's `filtfilt`), PTB-XL (500 -> 250
+Hz, baseline removal, 40 Hz low-pass, pad or crop) and PhysioNet 2017
+(16-149 Hz band-pass, per-sample z-score).
+
+The hospital filter runs the native kernel (`native/preprocess.cpp`, as
+the JAX package's `filter_signals_host` prefers it) on the training data
+path and the serving request alike, so train and serve share one filter;
+its scipy version stays beside it as the plain version (`impl="plain"`).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 from scipy import signal as sps
+
+from ecgmm_torch import native
 
 
 class Scaler(NamedTuple):
@@ -100,10 +107,29 @@ def pad_or_crop(x: np.ndarray, length: int) -> np.ndarray:
     return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, length - n)])
 
 
-def preprocess_hospital(x: np.ndarray) -> np.ndarray:
+def hospital_filter(x: np.ndarray, impl: str = "native") -> np.ndarray:
     """Baseline removal + LP(0.05, fs 1) filtfilt over the last axis
-    (reference dataset.py:91-95). x: (..., T) already scaled."""
-    return _filtfilt(butter_lowpass(), remove_baseline_drift(x))
+    (reference dataset.py:91-95), in float64 throughout. x: (..., T)
+    already scaled. impl "native" runs `native.preprocess_hospital`;
+    "plain" is the same arithmetic in numpy and scipy."""
+    if impl == "native":
+        return native.preprocess_hospital(x)
+    if impl != "plain":
+        raise ValueError(f"impl must be 'native' or 'plain', got {impl!r}")
+    x64 = np.asarray(x, np.float64)
+    kernel = np.full(200, 1.0 / 200)
+    flat = x64.reshape(-1, x64.shape[-1])
+    base = np.empty_like(flat)
+    for i, row in enumerate(flat):
+        base[i] = np.convolve(row, kernel, mode="same")
+    b, a = butter_lowpass()
+    return sps.filtfilt(b, a, (flat - base).reshape(x64.shape), axis=-1)
+
+
+def preprocess_hospital(x: np.ndarray, impl: str = "native") -> np.ndarray:
+    """The hospital filter (`hospital_filter`) with a float32 result, as
+    the JAX package's `filter_signals_host` returns it."""
+    return hospital_filter(x, impl).astype(np.float32)
 
 
 def preprocess_ptbxl(x: np.ndarray, length: int = 2476) -> np.ndarray:

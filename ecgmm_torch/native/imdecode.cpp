@@ -399,6 +399,134 @@ int ecgmm_jpeg_decode_scan(const uint8_t* buf, int64_t len, int64_t pos,
   return 0;
 }
 
+// Decode one scan of a progressive JPEG (jdphuff.c) into the coefficients
+// of its components, which earlier scans of the image have filled in
+// part. Arguments as for ecgmm_jpeg_decode_scan, plus the scan's spectral
+// band ss..se (zigzag positions) and successive approximation ah, al:
+//   ss == 0: a DC scan, interleaved over its components; ah == 0 decodes
+//     the DC difference (shifted left by al), ah != 0 appends bit al;
+//   ss > 0: an AC scan of one component (mcus_x, mcus_y: its blocks);
+//     ah == 0 decodes the band's first bits (shifted left by al) with
+//     end-of-band runs, ah != 0 refines: one correction bit per nonzero
+//     coefficient the band passes, newly nonzero ones +-(1 << al).
+// The end-of-band run and the DC predictions restart at each restart
+// marker, as in libjpeg.
+int ecgmm_jpeg_decode_progressive_scan(
+    const uint8_t* buf, int64_t len, int64_t pos, int n_comp,
+    const int32_t* comp, int16_t* coef, const int64_t* coef_off, int mcus_x,
+    int mcus_y, int restart_interval, int ss, int se, int ah, int al,
+    const uint8_t* huff_bits, const uint8_t* huff_vals, int64_t* end_pos) {
+  Huffman tables[8];
+  bool used[8] = {false};
+  for (int c = 0; c < n_comp; ++c) {
+    if (ss == 0 && ah == 0) used[comp[5 * c + 2]] = true;
+    if (ss > 0) used[4 + comp[5 * c + 3]] = true;
+  }
+  for (int t = 0; t < 8; ++t)
+    if (used[t] && !tables[t].build(huff_bits + 17 * t, huff_vals + 256 * t))
+      return ERR_BAD_HUFFMAN_TABLE;
+  BitReader br{buf, len, pos};
+  int pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  int err = 0;
+  const int p1 = 1 << al, m1 = -(1 << al);
+  int64_t mcu = 0;
+  for (int my = 0; my < mcus_y; ++my) {
+    for (int mx = 0; mx < mcus_x; ++mx, ++mcu) {
+      if (restart_interval && mcu > 0 && mcu % restart_interval == 0) {
+        br.restart();
+        for (int c = 0; c < 4; ++c) pred[c] = 0;
+        eobrun = 0;
+      }
+      for (int c = 0; c < n_comp; ++c) {
+        const int32_t* cp = comp + 5 * c;
+        const int h = cp[0], v = cp[1], stride = cp[4];
+        for (int by = 0; by < v; ++by) {
+          for (int bx = 0; bx < h; ++bx) {
+            int64_t row = int64_t(my) * v + by;
+            int64_t col = int64_t(mx) * h + bx;
+            int16_t* blk = coef + coef_off[c] + (row * stride + col) * 64;
+            if (ss == 0) {  // DC
+              if (ah == 0) {
+                int s = decode(br, tables[cp[2]], &err);
+                int diff = s ? extend(br.get(s), s) : 0;
+                pred[c] += diff;
+                blk[0] = int16_t(uint32_t(pred[c]) << al);
+              } else if (br.get(1)) {
+                blk[0] = int16_t(blk[0] | p1);
+              }
+            } else if (ah == 0) {  // AC, first bits
+              if (eobrun > 0) {
+                --eobrun;
+              } else {
+                const Huffman& ac = tables[4 + cp[3]];
+                for (int k = ss; k <= se; ++k) {
+                  int rs = decode(br, ac, &err);
+                  int r = rs >> 4, s = rs & 15;
+                  if (s) {
+                    k += r;
+                    blk[kNatural[k]] =
+                        int16_t(uint32_t(extend(br.get(s), s)) << al);
+                  } else if (r == 15) {
+                    k += 15;
+                  } else {
+                    eobrun = int64_t(1) << r;
+                    if (r) eobrun += br.get(r);
+                    --eobrun;
+                    break;
+                  }
+                }
+              }
+            } else {  // AC, refinement
+              const Huffman& ac = tables[4 + cp[3]];
+              int k = ss;
+              // a nonzero coefficient's correction bit raises its
+              // magnitude by p1 unless that bit is set already
+              auto correct = [&](int16_t* coefp) {
+                if (br.get(1) && (*coefp & p1) == 0)
+                  *coefp = int16_t(*coefp >= 0 ? *coefp + p1 : *coefp + m1);
+              };
+              if (eobrun == 0) {
+                for (; k <= se; ++k) {
+                  int rs = decode(br, ac, &err);
+                  int r = rs >> 4, s = rs & 15;
+                  if (s) {
+                    s = br.get(1) ? p1 : m1;  // the size is always 1
+                  } else if (r != 15) {
+                    eobrun = int64_t(1) << r;
+                    if (r) eobrun += br.get(r);
+                    break;  // the rest of the band is the EOB logic's
+                  }
+                  do {
+                    int16_t* coefp = blk + kNatural[k];
+                    if (*coefp != 0) {
+                      correct(coefp);
+                    } else if (--r < 0) {
+                      break;  // the zero the new coefficient lands on
+                    }
+                    ++k;
+                  } while (k <= se);
+                  if (s) blk[kNatural[k]] = int16_t(s);
+                }
+              }
+              if (eobrun > 0) {
+                for (; k <= se; ++k) {
+                  int16_t* coefp = blk + kNatural[k];
+                  if (*coefp != 0) correct(coefp);
+                }
+                --eobrun;
+              }
+            }
+            if (err) return err;
+          }
+        }
+      }
+    }
+  }
+  *end_pos = br.end();
+  return 0;
+}
+
 // Inverse DCT of a plane of blocks_y x blocks_x blocks (64 int16 each,
 // natural order) with the quantisation table q (64 values, natural order,
 // as int16: libjpeg's ISLOW_MULT_TYPE for 8-bit samples) into out,

@@ -1,6 +1,14 @@
-"""ECG image → 1-D signal digitization (numpy copy of
-`ecgmm_tpu/serve/digitize.py`, without its dispatch to the native C++
-kernels of `ecgmm_tpu/native/`; the numpy path is the one kept here).
+"""ECG image → 1-D signal digitization (port of
+`ecgmm_tpu/serve/digitize.py`).
+
+Its five expensive sweeps dispatch to the native kernels
+(`ecgmm_torch/native/digitize.cpp`) as the JAX digitizer's do: the
+darkness map with its column and row maxima, the column maxima, the
+gridness map at full resolution and 2x2-pooled, and the trace centroid's
+weighted sums. The numpy path stays beside them as the plain version:
+every entry point takes `impl="native"` (the default, the served path) or
+`impl="plain"`. The maps are bit-equal between the two; the centroid
+sums accumulate in float64 natively and in float32 pairwise in numpy.
 
 The mobile app uploads a *photo* of a lead-II strip and the (missing)
 reference backend returns `ecg_signal` as digitized voltages
@@ -55,6 +63,24 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ecgmm_torch import native
+
+
+def _native(impl: str):
+    """The native kernels for impl "native", None for "plain"."""
+    if impl == "native":
+        return native
+    if impl != "plain":
+        raise ValueError(f"impl must be 'native' or 'plain', got {impl!r}")
+    return None
+
+
+def _native_image(raw: np.ndarray) -> bool:
+    """Whether the darkness kernel takes this image (uint8 gray or RGB[A]);
+    others take the numpy path, as in the JAX digitizer."""
+    return raw.dtype == np.uint8 and (
+        raw.ndim == 2 or (raw.ndim == 3 and raw.shape[-1] >= 3))
+
 
 class NoTraceError(ValueError):
     """The uploaded image contains no discernible ECG trace — a client
@@ -91,7 +117,8 @@ def _closing(brightness: np.ndarray, w: int) -> np.ndarray:
     return up[:h, :wid]
 
 
-def darkness_map(image: np.ndarray, bg_window: int = 25) -> np.ndarray:
+def darkness_map(image: np.ndarray, bg_window: int = 25,
+                 impl: str = "native") -> np.ndarray:
     """Relative ink-darkness in [0, 1] from an RGB uint8 photo.
 
     brightness = max over channels: paper is bright in all channels, the
@@ -110,6 +137,9 @@ def darkness_map(image: np.ndarray, bg_window: int = 25) -> np.ndarray:
     interleaved RGB layout each cost more than everything else in the
     digitizer combined)."""
     raw = np.asarray(image)
+    nat = _native(impl)
+    if nat is not None and _native_image(raw):
+        return nat.darkness_map(raw, bg_window)[0]
     if raw.ndim == 2:  # already grayscale
         bright_u8 = raw
     else:
@@ -124,11 +154,17 @@ def darkness_map(image: np.ndarray, bg_window: int = 25) -> np.ndarray:
 
 
 def _darkness_and_colmax(
-    image: np.ndarray,
+    image: np.ndarray, impl: str = "native",
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-    """(darkness map, None, None): the reference's native kernel also
-    returns per-column and per-row maxima; callers reduce them here."""
-    return darkness_map(image), None, None
+    """(darkness map, per-column maxima or None, per-row maxima or None):
+    the native kernel computes all three in its one fused pass, so callers
+    that need the maxima take them from here instead of reducing the full
+    frame again in numpy; the plain path returns None for both."""
+    raw = np.asarray(image)
+    nat = _native(impl)
+    if nat is not None and _native_image(raw):
+        return nat.darkness_map(raw)
+    return darkness_map(image, impl=impl), None, None
 
 
 def _block_min(values: np.ndarray, w: int) -> np.ndarray:
@@ -141,7 +177,7 @@ def _block_min(values: np.ndarray, w: int) -> np.ndarray:
 
 
 def gridness_map(
-    image: np.ndarray, bg_window: int = 32
+    image: np.ndarray, bg_window: int = 32, impl: str = "native",
 ) -> Optional[np.ndarray]:
     """Per-pixel grid-line strength: local CONTRAST of R − max(G, B).
 
@@ -156,6 +192,9 @@ def gridness_map(
     raw = np.asarray(image)
     if raw.ndim != 3 or raw.shape[-1] < 3:
         return None
+    nat = _native(impl)
+    if nat is not None and raw.dtype == np.uint8:
+        return nat.gridness(raw, pool=1, bg_window=bg_window)[0]
     r = raw[..., 0]
     gb = np.maximum(raw[..., 1], raw[..., 2])
     return _gridness_core(_redness_diff(r, gb), np.maximum(r, gb),
@@ -282,7 +321,8 @@ def _pool2_max(a: np.ndarray) -> np.ndarray:
     )
 
 
-def _grid_analysis(raw: np.ndarray, band_px: int = 128):
+def _grid_analysis(raw: np.ndarray, band_px: int = 128,
+                   impl: str = "native"):
     """Shared grid analysis at pooled resolution: returns
     (gridness-or-None, pooled brightness, scale, pitch in FULL-res px
     or None). Images ≥128 px on both sides have their redness and
@@ -296,20 +336,25 @@ def _grid_analysis(raw: np.ndarray, band_px: int = 128):
             return None, _pool2_max(bright), 2, None
         return None, bright, 1, None
     scale = 2 if pool else 1
-    r = raw[..., 0]
-    gb = np.maximum(raw[..., 1], raw[..., 2])
-    redness = _redness_diff(r, gb)
-    bright = np.maximum(r, gb)
-    if pool:
-        redness, bright = _pool2_max(redness), _pool2_max(bright)
-    g = _gridness_core(redness, bright, max(8, 32 // scale))
+    nat = _native(impl)
+    if nat is not None and raw.dtype == np.uint8:
+        g, bright = nat.gridness(raw, pool=scale,
+                                 bg_window=max(8, 32 // scale))
+    else:
+        r = raw[..., 0]
+        gb = np.maximum(raw[..., 1], raw[..., 2])
+        redness = _redness_diff(r, gb)
+        bright = np.maximum(r, gb)
+        if pool:
+            redness, bright = _pool2_max(redness), _pool2_max(bright)
+        g = _gridness_core(redness, bright, max(8, 32 // scale))
     pitch_s = _pitch_from_bands(g, max(16, band_px // scale))
     pitch = pitch_s * scale if pitch_s is not None else None
     return g, bright, scale, pitch
 
 
 def estimate_grid_pitch_px(
-    image: np.ndarray, band_px: int = 128,
+    image: np.ndarray, band_px: int = 128, impl: str = "native",
 ) -> Optional[float]:
     """Calibration-grade vertical pixel pitch of the horizontal
     gridlines (px per 1 mm of paper), or None when the photo shows no
@@ -333,7 +378,7 @@ def estimate_grid_pitch_px(
         return None
     w = raw.shape[1]
     x0 = max(0, (w - 512) // 2)
-    g = gridness_map(raw[:, x0: x0 + 512])
+    g = gridness_map(raw[:, x0: x0 + 512], impl=impl)
     if g is None:
         return None
     pitch_rows = _pitch_from_bands(g, band_px)
@@ -434,7 +479,7 @@ def _trim_dark_borders(
 
 
 def locate_strip(
-    image: np.ndarray,
+    image: np.ndarray, impl: str = "native",
 ) -> Optional[Tuple[int, int, int, int]]:
     """(y0, y1, x0, x1) bounding box of the ECG paper within a larger
     photo, or None when the whole frame should be used.
@@ -450,11 +495,11 @@ def locate_strip(
 
     Candidate-box profiling runs on the 2×2-pooled image (cheap); the
     safety passes (ink veto, dark-border trim) run at full resolution."""
-    return _locate_strip_impl(np.asarray(image))[0]
+    return _locate_strip_impl(np.asarray(image), impl)[0]
 
 
 def _locate_strip_impl(
-    raw: np.ndarray,
+    raw: np.ndarray, impl: str = "native",
 ) -> Tuple[
     Optional[Tuple[int, int, int, int]],
     Optional[np.ndarray],
@@ -467,7 +512,7 @@ def _locate_strip_impl(
     whole frame, `digitize_lead2_info` reuses both for trace extraction
     instead of recomputing them."""
     h, w = raw.shape[:2]
-    g, bright_small, scale, pitch = _grid_analysis(raw)
+    g, bright_small, scale, pitch = _grid_analysis(raw, impl=impl)
     rel_full: Optional[np.ndarray] = None
     col_max_full: Optional[np.ndarray] = None
 
@@ -532,7 +577,8 @@ def _locate_strip_impl(
     # side while the dark trace survives, and cutting live trace is
     # strictly worse than keeping some background
     if x0 > 0 or x1 < w or y0 > 0 or y1 < h:
-        rel_full, col_max_full, row_max_full = _darkness_and_colmax(raw)
+        rel_full, col_max_full, row_max_full = _darkness_and_colmax(
+            raw, impl)
         if col_max_full is None:
             col_max_full = rel_full.max(axis=0)
         if x0 > 0 or x1 < w:
@@ -542,7 +588,7 @@ def _locate_strip_impl(
                 x0, x1 = 0, w
         if y0 > 0 or y1 < h:
             if row_max_full is None:
-                # numpy fallback: the veto only consults rows OUTSIDE
+                # the plain path: the veto only consults rows OUTSIDE
                 # the candidate box — reduce just those bands
                 row_max_full = np.zeros(h, np.float32)
                 if y0 > 0:
@@ -565,6 +611,7 @@ def extract_trace(
     abs_floor: float = 0.12,
     rel: Optional[np.ndarray] = None,
     col_max: Optional[np.ndarray] = None,
+    impl: str = "native",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-column trace row (float) + validity mask from an RGB uint8
     strip photo.
@@ -591,12 +638,19 @@ def extract_trace(
 
     `rel` (and optionally its per-column maxima `col_max`) reuse a
     precomputed `darkness_map(image)` (the digitizer's most expensive
-    pass) when the caller already has one."""
+    pass) when the caller already has one.
+
+    Natively the ink-floor percentile stays in numpy, so the valid mask is
+    threshold-bit-exact; the centroid agrees to float-accumulation
+    tolerance."""
+    nat = _native(impl)
     if rel is None:
-        rel, col_max, _ = _darkness_and_colmax(image)
+        rel, col_max, _ = _darkness_and_colmax(image, impl)
     if col_max is None:
-        col_max = rel.max(axis=0)
+        col_max = nat.colmax(rel) if nat is not None else rel.max(axis=0)
     floor = max(abs_floor, 0.4 * float(np.percentile(col_max, 90)))
+    if nat is not None:
+        return nat.trace_centroid(rel, col_frac, floor, col_max)
     h, w = rel.shape
     threshold = np.maximum(floor, col_frac * col_max)[None, :]
     weights = np.where(rel >= threshold, rel, 0.0)
@@ -664,6 +718,7 @@ def digitize_lead2(
     px_per_mv: Optional[float] = None,
     deskew: bool = True,
     auto_locate: bool = True,
+    impl: str = "native",
 ) -> np.ndarray:
     """Full pipeline: RGB strip photo (H, W, 3) uint8 → (target_len,)
     float32 voltage series in mV.
@@ -679,7 +734,7 @@ def digitize_lead2(
     'signal' would hand the model a flat line and return a confident
     diagnosis of nothing."""
     return digitize_lead2_info(
-        image, target_len, px_per_mv, deskew, auto_locate
+        image, target_len, px_per_mv, deskew, auto_locate, impl
     )[0]
 
 
@@ -688,6 +743,7 @@ def digitize_lead2_info(
     px_per_mv: Optional[float] = None,
     deskew: bool = True,
     auto_locate: bool = True,
+    impl: str = "native",
 ) -> Tuple[np.ndarray, dict]:
     """`digitize_lead2` plus a metadata dict describing HOW the photo
     was digitized, so callers (the serving API forwards it to clients)
@@ -703,13 +759,17 @@ def digitize_lead2_info(
         None when the full frame was used;
       * ``ink_fraction`` — fraction of columns with detected trace ink
         (1.0 = clean continuous trace; low values mean gaps were
-        interpolated)."""
+        interpolated).
+
+    impl "native" (the served path) runs the native kernels, "plain" the
+    numpy path."""
+    _native(impl)  # refuse an unknown impl before any work
     raw = np.asarray(image)
     pitch = None
     box = None
     rel_full = col_max_full = None
     if auto_locate:
-        box, rel_full, col_max_full = _locate_strip_impl(raw)
+        box, rel_full, col_max_full = _locate_strip_impl(raw, impl)
         if box is not None:
             y0, y1, x0, x1 = box
             raw = raw[y0:y1, x0:x1]
@@ -732,13 +792,14 @@ def digitize_lead2_info(
         # background never pollutes the slice; cross-checked row vs
         # column (see estimate_grid_pitch_px) so a degraded photo
         # downgrades to "assumed" instead of shipping a wrong scale
-        pitch = estimate_grid_pitch_px(raw)
+        pitch = estimate_grid_pitch_px(raw, impl=impl)
         if pitch is not None:
             px_per_mv = 10.0 * pitch
             scale_source = "grid"
         else:
             scale_source = "assumed"
-    trace, valid = extract_trace(raw, rel=rel_full, col_max=col_max_full)
+    trace, valid = extract_trace(raw, rel=rel_full, col_max=col_max_full,
+                                 impl=impl)
     if valid.mean() < 0.05:
         raise NoTraceError(
             f"no ECG trace found in the image (ink in "

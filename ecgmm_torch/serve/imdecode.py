@@ -7,15 +7,19 @@ It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 aims to be bit-equal to them; the machines the port serves on have no
 Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 
-- baseline and extended sequential JPEG (Huffman-coded, 8-bit samples),
-  1 or 3 components, any integral sampling factors, restart markers; the
-  accurate integer inverse DCT ("ISLOW"); fancy (triangle) upsampling of
-  2x1, 1x2 and 2x2 chroma, replication otherwise; libjpeg's integer
-  YCbCr->RGB arithmetic; the colour space from the JFIF marker, the Adobe
-  APP14 transform flag or the component ids, as libjpeg guesses it;
-- PNG of bit depth 8: gray, gray+alpha, RGB, RGBA and palette, the five
-  row filters and Adam7 interlacing; the alpha channel is dropped as
-  `.convert("RGB")` drops it;
+- baseline, extended sequential and progressive JPEG (Huffman-coded,
+  8-bit samples), 1 or 3 components, any integral sampling factors,
+  restart markers; the Annex K Huffman tables where the file defines none
+  before its first scan, as libjpeg-turbo fills them in; the accurate
+  integer inverse DCT ("ISLOW"); fancy (triangle) upsampling of 2x1, 1x2
+  and 2x2 chroma, replication otherwise; libjpeg's integer YCbCr->RGB
+  arithmetic; the colour space from the JFIF marker, the Adobe APP14
+  transform flag or the component ids, as libjpeg guesses it;
+- PNG of every bit depth (1, 2, 4, 8 and 16): gray, gray+alpha, RGB, RGBA
+  and palette, the five row filters and Adam7 interlacing, converted as
+  Pillow converts them (gray of 1, 2 and 4 bits scaled to 0-255, 16-bit
+  gray clipped at 255, 16-bit colour by its high byte); the alpha channel
+  is dropped as `.convert("RGB")` drops it;
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf` or ImageMagick's "Raw profile type exif" text), else of the XMP
   packet, applied as `ImageOps.exif_transpose` applies its 8 cases.
@@ -23,10 +27,10 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 The Huffman decoding, the inverse DCT, the upsampling, the colour
 conversion and the PNG row filters are C++
 (`ecgmm_torch/native/imdecode.cpp`, built by g++ at first use); the
-markers and chunks are parsed here. Anything
-else (progressive, arithmetic-coded, lossless or hierarchical JPEG,
-12-bit samples, CMYK, PNG of another bit depth, other formats) raises
-`BadRequest` naming what it met.
+markers and chunks are parsed here. Anything else (arithmetic-coded,
+lossless or hierarchical JPEG, 12-bit samples, CMYK, a DNL marker, a
+progressive JPEG whose scans leave libjpeg to smooth its blocks, other
+formats) raises `BadRequest` naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -66,7 +70,7 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _SOF_KINDS = {
-    0xC2: "progressive JPEG", 0xC3: "lossless JPEG",
+    0xC3: "lossless JPEG",
     0xC5: "hierarchical JPEG", 0xC6: "hierarchical JPEG",
     0xC7: "hierarchical JPEG", 0xC9: "arithmetic-coded JPEG",
     0xCA: "arithmetic-coded JPEG", 0xCB: "arithmetic-coded JPEG",
@@ -188,6 +192,8 @@ def _decode_jpeg(data: bytes):
     huff_defined = set()
     restart = 0
     frame = None
+    progressive = False
+    coef_bits = None  # progressive: per component, each coefficient's Al
     planes = None  # per component: (coefficient offset, blocks_y, blocks_x)
     coef = None
     comp_q = {}
@@ -220,11 +226,13 @@ def _decode_jpeg(data: bytes):
         pos += length
         if marker in _SOF_KINDS:
             raise _unsupported(_SOF_KINDS[marker])
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise _bad("two frame headers")
             frame = _parse_sof(seg)
             planes, coef = _allocate_planes(frame)
+            progressive = marker == 0xC2
+            coef_bits = np.full((len(frame[2]), 64), -1, np.int64)
         elif marker == 0xC4:
             _parse_dht(seg, huff_bits, huff_vals, huff_defined)
         elif marker == 0xDB:
@@ -238,9 +246,13 @@ def _decode_jpeg(data: bytes):
         elif marker == 0xDA:
             if frame is None:
                 raise _bad("scan before the frame header")
+            if not scanned:
+                _default_huffman_tables(lib, huff_bits, huff_vals,
+                                        huff_defined)
             pos = _decode_scan(lib, buf, pos, seg, frame, planes, coef,
                                qtables, comp_q, restart, huff_bits,
-                               huff_vals, huff_defined)
+                               huff_vals, huff_defined,
+                               coef_bits if progressive else None)
             scanned = True
         elif not scanned and marker == 0xE0:
             jfif = jfif or (seg[:5] == b"JFIF\x00" and len(seg) >= 14)
@@ -254,6 +266,10 @@ def _decode_jpeg(data: bytes):
                 xmp = seg.split(b"\x00", 1)[1]
     if frame is None or not scanned:
         raise _bad("JPEG without image data")
+    if progressive and _block_smoothing(coef_bits, frame[2], comp_q):
+        raise _unsupported("a progressive JPEG whose scans leave its first "
+                           "coefficients incomplete (libjpeg smooths its "
+                           "blocks)")
     height, width, comps = frame
     samples = []
     hmax = max(c[1] for c in comps)
@@ -346,6 +362,34 @@ def _parse_dht(seg, huff_bits, huff_vals, defined):
         i += 17 + total
 
 
+def _default_huffman_tables(lib, huff_bits, huff_vals, defined):
+    """libjpeg-turbo's std_huff_tables at the start of decompression: the
+    tables DC 0, DC 1, AC 0 and AC 1 that no DHT marker before the first
+    scan defined are the Annex K tables (Motion-JPEG frames omit them)."""
+    for slot, t in enumerate((0, 1, 4, 5)):
+        if t not in defined:
+            _check(lib.ecgmm_jpeg_std_huffman(slot, huff_bits[t].ctypes.data,
+                                              huff_vals[t].ctypes.data))
+            defined.add(t)
+
+
+def _block_smoothing(coef_bits, comps, comp_q) -> bool:
+    """Whether libjpeg's output pass would smooth a progressive image's
+    blocks (jdcoefct.c smoothing_ok): every component's DC is known, its
+    quantisation table has no zero among the first coefficients, and
+    some component still misses bits of a coefficient among zigzag
+    positions 1-9."""
+    useful = False
+    for (cid, *_), bits in zip(comps, coef_bits):
+        q = comp_q.get(cid)
+        if q is None or bits[0] < 0:
+            return False
+        if any(q[_ZIGZAG[k]] == 0 for k in range(10)):
+            return False
+        useful = useful or bool(np.any(bits[1:10] != 0))
+    return useful
+
+
 def _check_code_space(bits) -> None:
     """libjpeg's check of a Huffman table a scan uses
     (`jpeg_make_d_derived_tbl`): the codes of each length fit in the code
@@ -376,13 +420,23 @@ def _parse_dqt(seg, qtables):
 
 
 def _decode_scan(lib, buf, pos, seg, frame, planes, coef, qtables, comp_q,
-                 restart, huff_bits, huff_vals, defined) -> int:
+                 restart, huff_bits, huff_vals, defined,
+                 coef_bits=None) -> int:
+    """Decode one scan into `coef`; `coef_bits` (each component's
+    successive-approximation state, updated here) marks a progressive
+    image."""
     height, width, comps = frame
     if not seg:
         raise _bad("bad scan header")
     ns = seg[0]
     if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
         raise _bad("bad scan header")
+    ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
+    ah, al = ahl >> 4, ahl & 15
+    if coef_bits is not None and (
+            (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+            or (ah != 0 and al != ah - 1) or al > 13):
+        raise _bad("bad progression parameters")
     index = {c[0]: i for i, c in enumerate(comps)}
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
@@ -393,9 +447,17 @@ def _decode_scan(lib, buf, pos, seg, frame, planes, coef, qtables, comp_q,
             raise _bad(f"scan names unknown component {cid}")
         _, h, v, tq = comps[index[cid]]
         td, ta = tables >> 4, tables & 15
-        if td > 3 or ta > 3 or td not in defined or 4 + ta not in defined:
+        # the tables this scan decodes with: a progressive scan uses the
+        # DC table for a first DC scan, the AC table for an AC scan and
+        # none for a DC refinement, which reads raw bits
+        dc_used = coef_bits is None or (ss == 0 and ah == 0)
+        ac_used = coef_bits is None or ss > 0
+        if coef_bits is not None:
+            coef_bits[index[cid], ss:se + 1] = al
+        if (dc_used and (td > 3 or td not in defined)) or (
+                ac_used and (ta > 3 or 4 + ta not in defined)):
             raise _bad("scan uses an undefined Huffman table")
-        for t in (td, 4 + ta):
+        for t in [td] * dc_used + [4 + ta] * ac_used:
             _check_code_space(huff_bits[t])
         if tq not in qtables:
             raise _bad("component uses an undefined quantisation table")
@@ -415,10 +477,17 @@ def _decode_scan(lib, buf, pos, seg, frame, planes, coef, qtables, comp_q,
     params = np.array(params, np.int32)
     offsets = np.array(offsets, np.int64)
     end = np.zeros(1, np.int64)
-    _check(lib.ecgmm_jpeg_decode_scan(
-        buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
-        coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
-        huff_bits.ctypes.data, huff_vals.ctypes.data, end.ctypes.data))
+    if coef_bits is None:
+        _check(lib.ecgmm_jpeg_decode_scan(
+            buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
+            coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
+            huff_bits.ctypes.data, huff_vals.ctypes.data, end.ctypes.data))
+    else:
+        _check(lib.ecgmm_jpeg_decode_progressive_scan(
+            buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
+            coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
+            ss, se, ah, al, huff_bits.ctypes.data, huff_vals.ctypes.data,
+            end.ctypes.data))
     return int(end[0])
 
 
@@ -458,6 +527,9 @@ def _ycc_to_rgb(lib, y, cb, cr) -> np.ndarray:
 # ---------------------------------------------------------------- PNG
 
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the bit depths each colour type allows
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -504,11 +576,15 @@ def _decode_png(data: bytes):
             break
     if exif is None and raw_exif is not None:
         exif = bytes.fromhex("".join(raw_exif.split("\n")[3:]))
-    width, height, color_type, interlace = header
+    width, height, depth, color_type, interlace = header
     ch = _PNG_CHANNELS[color_type]
     passes = [p for p in (_pass_dims(width, height, p) for p in (
         ((0, 0, 1, 1),) if interlace == 0 else _ADAM7)) if p[4] and p[5]]
-    need = sum(ph * (1 + pw * ch) for *_, pw, ph in passes)
+
+    def row_bytes(pw):
+        return -(-pw * ch * depth // 8)
+
+    need = sum(ph * (1 + row_bytes(pw)) for *_, pw, ph in passes)
     try:
         # no further than the image needs: what follows is ignored, as
         # Pillow's decoder ends once the image is full
@@ -517,18 +593,36 @@ def _decode_png(data: bytes):
         raise _bad(f"corrupt PNG image data ({e})")
     if len(raw) < need:
         raise _bad("truncated PNG image data")
-    pixels = np.empty((height, width, ch), np.uint8)
+    pixels = np.empty((height, width, ch),
+                      np.uint16 if depth == 16 else np.uint8)
     lib = native.library()
     src = np.frombuffer(raw, np.uint8)
     off = 0
     for x0, y0, dx, dy, pw, ph in passes:
-        rows = np.ascontiguousarray(src[off:off + ph * (1 + pw * ch)])
-        out = np.empty((ph, pw, ch), np.uint8)
-        _check(lib.ecgmm_png_unfilter(rows.ctypes.data, ph, pw * ch, ch,
+        rb = row_bytes(pw)
+        rows = np.ascontiguousarray(src[off:off + ph * (1 + rb)])
+        out = np.empty((ph, rb), np.uint8)
+        _check(lib.ecgmm_png_unfilter(rows.ctypes.data, ph, rb,
+                                      max(1, ch * depth // 8),
                                       out.ctypes.data))
-        pixels[y0::dy, x0::dx] = out
-        off += ph * (1 + pw * ch)
-    return _png_rgb(pixels, color_type, palette), exif, xmp
+        pixels[y0::dy, x0::dx] = _png_samples(out, pw, ch, depth)
+        off += ph * (1 + rb)
+    return _png_rgb(pixels, color_type, depth, palette), exif, xmp
+
+
+def _png_samples(rows: np.ndarray, pw: int, ch: int, depth: int
+                 ) -> np.ndarray:
+    """Unfiltered rows (ph, row bytes) -> samples (ph, pw, ch): big-endian
+    16-bit, or unpacked from 1, 2 or 4 bits, the leftmost first."""
+    ph = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(ph, pw, ch)
+    if depth == 8:
+        return rows.reshape(ph, pw, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :pw * ch * depth]
+    bits = bits.reshape(ph, pw * ch, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8).reshape(ph, pw, ch)
 
 
 def _parse_ihdr(body: bytes):
@@ -536,14 +630,14 @@ def _parse_ihdr(body: bytes):
         raise _bad("bad PNG header")
     width, height, depth, color_type, comp, filt, interlace = struct.unpack(
         ">IIBBBBB", body[:13])
-    if depth != 8:
-        raise _unsupported(f"{depth}-bit PNG")
-    if color_type not in _PNG_CHANNELS or comp or filt or interlace > 1:
+    if (color_type not in _PNG_CHANNELS
+            or depth not in _PNG_DEPTHS[color_type] or comp or filt
+            or interlace > 1):
         raise _bad("bad PNG header")
     if width == 0 or height == 0:
         raise _bad("PNG of size 0")
     _check_pixels(width, height)
-    return width, height, color_type, interlace
+    return width, height, depth, color_type, interlace
 
 
 def _pass_dims(width, height, p):
@@ -581,7 +675,19 @@ def _inflate_text(data: bytes) -> bytes:
     return text
 
 
-def _png_rgb(pixels, color_type, palette) -> np.ndarray:
+def _png_rgb(pixels, color_type, depth, palette) -> np.ndarray:
+    """The samples as Pillow's `.convert("RGB")` gives them: gray of 1, 2
+    and 4 bits scaled to 0-255 (the modes "1" and "L"), 16-bit gray
+    clipped at 255 (the mode "I;16"), 16-bit gray+alpha and colour by the
+    high byte of each sample (the raw modes "LA;16B", "RGB;16B")."""
+    if depth == 16:
+        if color_type == 0:
+            pixels = np.minimum(pixels, 255)
+        else:
+            pixels = pixels >> 8
+        pixels = pixels.astype(np.uint8)
+    elif depth < 8 and color_type == 0:
+        pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
     if color_type in (0, 4):  # gray (+ alpha)
         return np.repeat(pixels[:, :, :1], 3, axis=2)
     if color_type in (2, 6):  # RGB (+ alpha)

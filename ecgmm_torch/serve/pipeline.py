@@ -336,7 +336,8 @@ class ServingPipeline:
                 heatmap_format: str = "png") -> Dict:
         """One request: an RGB uint8 strip photo and the questionnaire ->
         the ResultScreen response. heatmap_format "png" returns the
-        base64 PNG overlay; "cam" returns the raw low-resolution CAM
+        base64 PNG overlay; "jpeg" the base64 JPEG overlay (quality 85)
+        with heatmap_mime; "cam" returns the raw low-resolution CAM
         under heatmap_cam and an empty heatmap."""
         t0 = time.perf_counter()
         request_host.check_heatmap_format(heatmap_format)

@@ -6,12 +6,22 @@ model-resolution resize -> clinical vector); `assemble_response` turns
 the device outputs into the ResultScreen response
 (`Groove/app/(tabs)/ResultScreen.tsx:26-56`).
 
-The reference path uses Pillow for the resizes and the PNG encode. This
-module needs no Pillow: `resize_bilinear_u8` and `resize_bilinear_f32`
-are numpy copies of Pillow's separable BILINEAR resample (its coefficient
-precomputation, its 22-bit fixed point for 8-bit images, its double
-accumulation for float images, horizontal pass first), and `encode_png`
-writes an 8-bit RGB PNG with zlib at level 1.
+The host work runs the native kernels (`ecgmm_torch/native/`, C++ built
+by g++ at first use), as the JAX request does where its own build
+succeeds: the digitizer, the hospital filter, the CAM overlay and the PNG
+writer are ports of the JAX package's kernels; the model-resolution
+resize and the JPEG heatmap, which the JAX request takes from Pillow, are
+C++ that writes Pillow's bytes (`native/resize.cpp`, `native/jpegenc.cpp`).
+ctypes releases the interpreter lock for each kernel, so the HTTP
+handler threads overlap their host work. Nothing falls back to numpy: a
+failed build raises.
+
+The numpy versions stay here as the plain versions the tests and
+`chip_smoke.py` hold the kernels against: `resize_bilinear_u8` and
+`resize_bilinear_f32` copy Pillow's separable BILINEAR resample (its
+coefficient precomputation, its 22-bit fixed point for 8-bit images, its
+double accumulation for float images, horizontal pass first), and
+`encode_png` writes an 8-bit RGB PNG with zlib at level 1.
 """
 
 from __future__ import annotations
@@ -24,14 +34,16 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ecgmm_torch import native
 from ecgmm_torch.data.preprocess import preprocess_hospital
-from ecgmm_torch.explain.gradcam import overlay_heatmap
+from ecgmm_torch.explain.gradcam import _jet_lut
 from ecgmm_torch.explain.shap_fusion import modality_contributions
 from ecgmm_torch.serve import digitize as digitize_mod
 from ecgmm_torch.serve.report import rule_based_report
 from ecgmm_torch.serve.wire import BadRequest, _sex_from_questionnaire
 
-HEATMAP_FORMATS = ("png", "cam")
+HEATMAP_FORMATS = ("png", "jpeg", "cam")
+JPEG_QUALITY = 85  # the JAX request's Pillow save
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit images
 
 
@@ -124,12 +136,6 @@ def encode_png(rgb: np.ndarray, level: int = 1) -> bytes:
 
 
 def check_heatmap_format(heatmap_format: str) -> None:
-    if heatmap_format == "jpeg":
-        raise BadRequest(
-            "heatmap_format 'jpeg' needs a JPEG encoder, which the port "
-            "does not have yet (ROADMAP.md section 1, serving extras); use "
-            "'png' or 'cam'"
-        )
     if heatmap_format not in HEATMAP_FORMATS:
         raise BadRequest(
             f"heatmap_format must be one of {HEATMAP_FORMATS}, got "
@@ -157,8 +163,8 @@ def prepare_inputs(pipe, image_u8: np.ndarray, questionnaire: Dict
         sig = pipe.ecg_scaler.transform(sig)
     sig = preprocess_hospital(np.asarray(sig, np.float32))
 
-    img_u8 = resize_bilinear_u8(np.asarray(image_u8, np.uint8),
-                                pipe.img_hw)[None]
+    img_u8 = native.resize_bilinear_u8(np.asarray(image_u8, np.uint8),
+                                       pipe.img_hw)[None]
     img_norm = img_u8.astype(np.float32) / 127.5 - 1.0
 
     def qnum(key, default):
@@ -190,17 +196,23 @@ def prepare_inputs(pipe, image_u8: np.ndarray, questionnaire: Dict
 
 
 def render_heatmap(image_u8: np.ndarray, cam_small: np.ndarray,
-                   heatmap_format: str) -> Tuple[str, object]:
+                   heatmap_format: str) -> Tuple[str, object, str]:
     """Upsample the feature-map-native CAM to the strip on the host and
-    blend it as a jet overlay, PNG-encoded at zlib level 1 ("png"), or
-    return the raw CAM grid for client-side rendering ("cam").
+    blend it as a jet overlay (`native.cam_overlay`), encoded as PNG at
+    zlib level 1 ("png") or as JPEG at quality 85 ("jpeg"), or return the
+    raw CAM grid for client-side rendering ("cam").
 
-    Returns (heatmap_b64, heatmap_cam)."""
+    Returns (heatmap_b64, heatmap_cam, heatmap_mime)."""
     if heatmap_format == "cam":
-        return "", cam_small.tolist()
-    cam_full = resize_bilinear_f32(cam_small, image_u8.shape[:2])
-    overlay = overlay_heatmap(image_u8, cam_full)
-    return base64.b64encode(encode_png(overlay, level=1)).decode(), None
+        return "", cam_small.tolist(), "image/png"
+    overlay = native.cam_overlay(image_u8, cam_small, _jet_lut())
+    if heatmap_format == "jpeg":
+        data = native.jpeg_encode(overlay, JPEG_QUALITY)
+        mime = "image/jpeg"
+    else:
+        data = native.png_encode(overlay, level=1)
+        mime = "image/png"
+    return base64.b64encode(data).decode(), None, mime
 
 
 def assemble_response(pipe, *, mv, dig_info, image_u8, questionnaire,
@@ -209,8 +221,8 @@ def assemble_response(pipe, *, mv, dig_info, image_u8, questionnaire,
     """Device outputs -> the ResultScreen response JSON."""
     label = "Abnormal" if pred == 1 else "Normal"
     cam_small = np.asarray(cam, np.float32)[0]
-    heatmap_b64, heatmap_cam = render_heatmap(image_u8, cam_small,
-                                              heatmap_format)
+    heatmap_b64, heatmap_cam, heatmap_mime = render_heatmap(
+        image_u8, cam_small, heatmap_format)
 
     contrib = modality_contributions(np.asarray(attr), pipe.dims)
     clin_pct = float(contrib["Clinical_%"][0])
@@ -243,6 +255,8 @@ def assemble_response(pipe, *, mv, dig_info, image_u8, questionnaire,
         "gpt_result": gpt_result,
         "digitization": dig_info,
     }
+    if heatmap_format == "jpeg":
+        resp["heatmap_mime"] = heatmap_mime
     if heatmap_cam is not None:
         resp["heatmap_cam"] = heatmap_cam
     return resp

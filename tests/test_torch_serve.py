@@ -1,10 +1,11 @@
 """The port's serving path (`ecgmm_torch.serve`) against the JAX one.
 
-Host pieces: the digitizer copy (bit-equal to the JAX numpy path), the
-signal filter, the Pillow-free resizes and PNG writer, the rule-based
-report. End to end: the JAX `ServingPipeline` and the port's, on the same
-weights and SHAP draws, answer the same requests at a small size (64x64
-model images, 512-sample signals)."""
+Host pieces: the digitizer (its plain path bit-equal to the JAX numpy
+path, its served native path to the JAX native path), the signal filter,
+the Pillow-free resizes and PNG writer, the rule-based report. End to
+end: the JAX `ServingPipeline` and the port's, on the same weights and
+SHAP draws, answer the same requests at a small size (64x64 model
+images, 512-sample signals)."""
 
 import base64
 import io
@@ -65,21 +66,41 @@ def test_render_strip_equals_jax(cohort):
                                   jax_synthetic._render_strip(sig, 250, 2500))
 
 
+def _digitizer_case(img, case, i):
+    if case == "shadow":
+        return _shadowed(img)
+    if case == "scene":
+        return _scene(img, offset=(200 + 40 * i, 150))
+    return img
+
+
 @pytest.mark.parametrize("case", ["strip", "shadow", "scene"])
 def test_digitizer_bit_equal_to_jax_numpy_path(cohort, monkeypatch, case):
+    """The port's plain path against the JAX numpy path."""
     monkeypatch.setenv("ECGMM_NO_NATIVE_DIGITIZE", "1")
     for i, img in enumerate(cohort.images):
-        if case == "shadow":
-            img = _shadowed(img)
-        elif case == "scene":
-            img = _scene(img, offset=(200 + 40 * i, 150))
-        mv, info = digitize.digitize_lead2_info(img, target_len=2476)
+        img = _digitizer_case(img, case, i)
+        mv, info = digitize.digitize_lead2_info(img, target_len=2476,
+                                                impl="plain")
         want_mv, want_info = jax_digitize.digitize_lead2_info(
             img, target_len=2476)
         assert info == want_info
         np.testing.assert_array_equal(mv, want_mv)
         if case == "scene":
             assert info["crop"] is not None
+
+
+@pytest.mark.parametrize("case", ["strip", "shadow", "scene"])
+def test_digitizer_bit_equal_to_jax_native_path(cohort, case):
+    """The port's served digitizer (its native kernels, the default)
+    against the JAX digitizer as it ships (its native kernels)."""
+    for i, img in enumerate(cohort.images):
+        img = _digitizer_case(img, case, i)
+        mv, info = digitize.digitize_lead2_info(img, target_len=2476)
+        want_mv, want_info = jax_digitize.digitize_lead2_info(
+            img, target_len=2476)
+        assert info == want_info
+        np.testing.assert_array_equal(mv, want_mv)
 
 
 def test_preprocess_hospital_matches_jax(cohort):
@@ -133,8 +154,8 @@ def test_png_overlay_decodes_to_jax_overlay(rng, cohort, monkeypatch):
     monkeypatch.setenv("ECGMM_NO_NATIVE_HEATMAP", "1")
     image = cohort.images[1][:120, :700]
     cam = rng.uniform(0, 1, size=(7, 7)).astype(np.float32)
-    b64, cam_out = request.render_heatmap(image, cam, "png")
-    assert cam_out is None
+    b64, cam_out, mime = request.render_heatmap(image, cam, "png")
+    assert cam_out is None and mime == "image/png"
     got = np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
     want_b64, _, _ = jax_request.render_heatmap(image, cam, "png")
     want = np.asarray(Image.open(io.BytesIO(base64.b64decode(want_b64))))
@@ -192,7 +213,7 @@ def pipelines():
     return jpipe, pipe
 
 
-@pytest.mark.parametrize("fmt", ["png", "cam"])
+@pytest.mark.parametrize("fmt", ["png", "jpeg", "cam"])
 def test_predict_matches_jax_pipeline(pipelines, cohort, fmt):
     jpipe, pipe = pipelines
     n_before = pipe.stats()["requests"]
@@ -217,6 +238,25 @@ def test_predict_matches_jax_pipeline(pipelines, cohort, fmt):
                                        np.asarray(want["heatmap_cam"]),
                                        atol=1e-3)
             assert got["heatmap"] == want["heatmap"] == ""
+        elif fmt == "jpeg":
+            assert got["heatmap_mime"] == want["heatmap_mime"] == \
+                "image/jpeg"
+            data = base64.b64decode(got["heatmap"])
+            a = np.asarray(Image.open(io.BytesIO(data)))
+            b = np.asarray(Image.open(io.BytesIO(
+                base64.b64decode(want["heatmap"]))))
+            assert a.shape == b.shape == img.shape
+            # the CAMs agree to 1e-3, so the overlays agree but for jet
+            # bins flipped at a boundary, and JPEG spreads each flip
+            # over its 8x8 block
+            assert np.abs(a.astype(int) - b.astype(int)).mean() < 1.0
+            # the port's bytes are Pillow's quality-85 save of the overlay
+            # its png heatmap carries for the same request
+            png = pipe.predict(img, q, "png")["heatmap"]
+            overlay = Image.open(io.BytesIO(base64.b64decode(png)))
+            buf = io.BytesIO()
+            overlay.save(buf, format="JPEG", quality=85)
+            assert data == buf.getvalue()
         else:
             a = np.asarray(Image.open(io.BytesIO(
                 base64.b64decode(got["heatmap"]))))
@@ -225,13 +265,14 @@ def test_predict_matches_jax_pipeline(pipelines, cohort, fmt):
             assert a.shape == b.shape == img.shape
             # the CAMs agree to 1e-3, so a jet bin may flip at a boundary
             assert (a == b).all(axis=-1).mean() >= 0.99
-    assert pipe.stats()["requests"] == n_before + 2
+    assert pipe.stats()["requests"] == n_before + (4 if fmt == "jpeg"
+                                                   else 2)
 
 
 def test_predict_rejects_bad_requests(pipelines, cohort):
     _, pipe = pipelines
-    with pytest.raises(BadRequest, match="ROADMAP"):
-        pipe.predict(cohort.images[0], {"age": 60}, "jpeg")
+    with pytest.raises(BadRequest, match="'png', 'jpeg', 'cam'"):
+        pipe.predict(cohort.images[0], {"age": 60}, "jpg")
     with pytest.raises(BadRequest, match="heatmap_format"):
         pipe.predict(cohort.images[0], {"age": 60}, "gif")
     with pytest.raises(BadRequest, match="numeric"):

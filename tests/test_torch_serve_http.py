@@ -136,11 +136,9 @@ def _assert_same_response(a, b):
 
 
 @pytest.mark.parametrize("fmt", ["JPEG", "PNG"])
-def test_same_upload_same_response_as_jax(servers, cohort, fmt,
-                                          monkeypatch):
-    """The JAX server digitizes through its numpy path, which the port
-    copies bit for bit (its native digitizer rounds differently)."""
-    monkeypatch.setenv("ECGMM_NO_NATIVE_DIGITIZE", "1")
+def test_same_upload_same_response_as_jax(servers, cohort, fmt):
+    """Both servers as they ship: each digitizes through its native
+    kernels, the port's a copy of JAX's, so the waveforms are equal."""
     jbase, base, _ = servers
     photo = _encoded(cohort.images[0], fmt)
     body, ctype = _body(photo, {"age": 71, "weight": 58, "gender": "1"},
@@ -154,8 +152,10 @@ def test_same_upload_same_response_as_jax(servers, cohort, fmt,
 
 def test_contract_and_heatmap_formats(servers, cohort):
     """The ResultScreen contract with the png heatmap; "cam" returns the
-    raw CAM grid; "jpeg" is a 400 naming the ROADMAP item."""
-    _, base, _ = servers
+    raw CAM grid; "jpeg" returns the overlay as Pillow's quality-85 JPEG
+    (the JAX request's encoder) with heatmap_mime. Each format's key set
+    is the JAX server's."""
+    jbase, base, _ = servers
     photo = _encoded(cohort.images[1])
     body, ctype = _body(photo, {"age": 66, "weight": 72, "sex": "F"})
     data = _post(base, body, ctype)
@@ -172,22 +172,30 @@ def test_contract_and_heatmap_formats(servers, cohort):
     cam = np.asarray(_post(base, body, ctype)["heatmap_cam"], np.float32)
     assert cam.shape == (2, 2) and np.isfinite(cam).all()
     body, ctype = _body(photo, heatmap_format="jpeg")
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(base, body, ctype)
-    assert e.value.code == 400
-    assert "ROADMAP" in json.loads(e.value.read())["error"]
+    jpeg = _post(base, body, ctype)
+    assert jpeg["heatmap_mime"] == "image/jpeg"
+    body, ctype = _body(photo, heatmap_format="png")
+    overlay = Image.open(io.BytesIO(base64.b64decode(
+        _post(base, body, ctype)["heatmap"])))
+    buf = io.BytesIO()
+    overlay.save(buf, format="JPEG", quality=85)
+    assert base64.b64decode(jpeg["heatmap"]) == buf.getvalue()
+    for fmt in ("png", "cam", "jpeg"):
+        body, ctype = _body(photo, heatmap_format=fmt)
+        assert set(_post(base, body, ctype)) == set(_post(jbase, body,
+                                                          ctype)), fmt
 
 
 def test_client_errors_are_400(servers, cohort):
     """`tests/test_serve.py::test_http_endpoint_client_errors_are_400`'s
-    cases, a non-numeric age, and a progressive JPEG the port's decoder
-    refuses."""
+    cases, a non-numeric age, and an arithmetic-coded JPEG the port's
+    decoder refuses (its progressive JPEG decodes since the decoder
+    learned SOF2)."""
     _, base, _ = servers
     good = _encoded(np.zeros((20, 40, 3), np.uint8))
     blank = _encoded(np.full((250, 500, 3), 245, np.uint8))
-    buf = io.BytesIO()
-    Image.fromarray(np.zeros((20, 40, 3), np.uint8)).save(
-        buf, format="JPEG", progressive=True)
+    arith = bytearray(good)
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF9
     cases = [
         (encode_multipart({"notfile": (None, b"x")}),
          "missing multipart field 'file'"),
@@ -210,8 +218,8 @@ def test_client_errors_are_400(servers, cohort):
         (encode_multipart({"file": ("f.jpg", _encoded(cohort.images[0])),
                            "questionnaire": (None, b'{"age": "sixty"}')}),
          "must be numeric"),
-        (encode_multipart({"file": ("f.jpg", buf.getvalue())}),
-         "progressive JPEG"),
+        (encode_multipart({"file": ("f.jpg", bytes(arith))}),
+         "arithmetic-coded JPEG"),
     ]
     for (body, ctype), want in cases:
         with pytest.raises(urllib.error.HTTPError) as e:
