@@ -19,6 +19,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      bench.py's B=256, and the shapes of the batched request program: the
      SE forward in f32 at B = 2 ... 16, the fusion forward at b, 8b and
      32b rows and its backward at 8b (IG) and 32b (SHAP) rows, up to 512;
+     and the XAI path's shapes: the SE forward in f32 at B=32, the fusion
+     forward alone at 205,000 rows (LIME) and forward and input backward
+     at 13,120 rows (gradient SHAP);
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
@@ -85,6 +88,13 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      (one epoch a stage, 96 records, cached) warm-starts stage 4 from
      each stage's best under the three filters, and its launches equal
      each stage's plan;
+  10. (run after phase 6) the XAI batch path at full width
+     (`run_xai_phase`): shap, deep_shap and lime reports of the `fusion`
+     preset's float32 model over 2048 synthetic records, Grad-CAM and
+     TabNet-mask reports, Grad-CAM of the standalone ResNet-18 and
+     ResNet1D-SE; launches against the plan, the CSV contract, the PNGs
+     decoded, the first 16 test rows against the CPU, per-method wall and
+     CUDA-event times;
   7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16,
      `fusion` and `fusion_cached` (head steps, after a timed calibration
      and encoding of the train split) at B=16 and 256, `image_only` at
@@ -103,6 +113,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import copy
+import csv
 import dataclasses
 import hashlib
 import json
@@ -126,12 +137,19 @@ from ecgmm_torch import native  # noqa: E402
 from ecgmm_torch.config import get_preset  # noqa: E402
 from ecgmm_torch.data import pipeline, preprocess  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
+from ecgmm_torch.explain import run_xai  # noqa: E402
+from ecgmm_torch.explain.deep_shap import explain_fusion_deep  # noqa: E402
 from ecgmm_torch.explain.gradcam import (  # noqa: E402
-    _jet_lut, overlay_heatmap)
+    _jet_lut, grad_cam_fusion_image, grad_cam_image, grad_cam_signal,
+    overlay_heatmap)
+from ecgmm_torch.explain.lime_fusion import (  # noqa: E402
+    draw_lime_noise, lime_tabular)
 from ecgmm_torch.explain.shap_fusion import (  # noqa: E402
-    modality_contributions)
+    draw_shap_samples, explain_fusion, modality_contributions)
+from ecgmm_torch.explain.tabnet_masks import (  # noqa: E402
+    CELL_H, STRIP_W, tabnet_masks, viridis_rgb)
 from ecgmm_torch.models import (  # noqa: E402
-    CRNN, ECGMultimodalModel, TabNetEncoder)
+    CRNN, ECGMultimodalModel, ResNet18, ResNet1DSE, TabNetEncoder)
 from ecgmm_torch.models.crnn import GemmConv2d  # noqa: E402
 from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
 from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
@@ -205,6 +223,18 @@ REPORT_KEYS = {
     # 60 records: no val split, so no temperature and no ECE
     "signal_af": {"threshold", "accuracy", "f1", "auroc"},
 }
+# phase 10, the XAI batch path at `python -m ecgmm_torch.explain.run_xai`'s
+# full width: the fusion preset in float32 over 2048 synthetic records,
+# whose 8:1:1 split holds 1638 train and 205 test rows; 64 SHAP draws and
+# 1000 LIME perturbations a test row, the first 16 test rows also on the
+# CPU
+XAI_N_SYNTH = 2048
+XAI_TEST_ROWS = 205
+XAI_SHAP_SAMPLES = 64
+XAI_CPU_ROWS = 16
+XAI_LIME_ROWS = XAI_TEST_ROWS * run_xai.LIME_SAMPLES
+XAI_SHAP_ROWS = XAI_TEST_ROWS * XAI_SHAP_SAMPLES
+XAI_EMBED_B = 32  # compute_embeddings' batch
 # the signal presets whose models hold no SE block
 NO_SE = ("physionet_crnn", "physionet_transformer")
 RESPONSE_KEYS = ("label", "probability", "ecg_signal", "heatmap",
@@ -375,8 +405,10 @@ def check_fusion(gen, peaks):
     rows = []
     eps = 1e-5
     cases = [(b, dims) for b in (1, 8, 16, 32, 256) for dims in FUSION_DIMS]
-    # b, 8b and 32b rows for the buckets b of SERVE_BUCKETS, at D=672
-    cases += [(b, FUSION_DIMS[0]) for b in (2, 4, 64, 128, 512)]
+    # b, 8b and 32b rows for the buckets b of SERVE_BUCKETS, at D=672, and
+    # the XAI path's SHAP forward (64 draws of each of 205 test rows)
+    cases += [(b, FUSION_DIMS[0])
+              for b in (2, 4, 64, 128, 512, XAI_SHAP_ROWS)]
     for b, dims in cases:
         d = sum(dims)
         ins = [torch.randn(b, w, generator=gen) for w in dims] + [
@@ -481,7 +513,9 @@ FUSION_BWD_CASES = [
     # buckets b = 2, 4, 8, 16
     (32 * b, FUSION_DIMS[0], "shap", FROZEN) for b in SERVE_BUCKETS[1:]
 ] + [(8 * b, FUSION_DIMS[0], "ig", (False, False, True, False, False, False))
-     for b in SERVE_BUCKETS[1:]]
+     for b in SERVE_BUCKETS[1:]] + [
+    # the XAI path's gradient SHAP: 64 draws of each of 205 test rows
+    (XAI_SHAP_ROWS, FUSION_DIMS[0], "shap", FROZEN)]
 
 
 def check_fusion_backward(gen, peaks):
@@ -868,6 +902,60 @@ def check_se_serving(gen, peaks):
     of the request program runs it (`se_row`)."""
     return [se_row(gen, b, t, c, torch.float32, peaks, backward=False)
             for b in SERVE_BUCKETS[1:] for t, c in SE_SHAPES]
+
+
+def check_se_xai(gen, peaks):
+    """fused_se in float32, forward only, at the XAI path's encoder batch
+    (`run_xai.compute_embeddings`, B=32) at the three widths (`se_row`)."""
+    return [se_row(gen, XAI_EMBED_B, t, c, torch.float32, peaks,
+                   backward=False) for t, c in SE_SHAPES]
+
+
+def check_fusion_lime(gen, peaks):
+    """fused_attention_fusion's forward alone at the XAI path's LIME batch
+    (1000 perturbations of each of 205 test rows, D=672, no autograd): the
+    values against the plain version (atol 1e-5), the soft weights to the
+    bit, three more launches bit-identical; device times of the kernel,
+    the plain version and `F.layer_norm` of the scaled concat (the
+    library yardstick) beside the bound."""
+    bw, flops = peaks
+    b, dims, eps = XAI_LIME_ROWS, FUSION_DIMS[0], 1e-5
+    d = sum(dims)
+    ins = [torch.randn(b, w, generator=gen) for w in dims] + [
+        torch.randn(3, generator=gen), torch.randn(d, generator=gen) + 1,
+        torch.randn(d, generator=gen)]
+    ins = [t.cuda() for t in ins]
+    with torch.no_grad():
+        out, sw = fusion.fused_attention_fusion(*ins, eps=eps)
+        ref, ref_sw = fusion.reference_attention_fusion(*ins, eps=eps)
+        repeats = [fusion.fused_attention_fusion(*ins, eps=eps)
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        sw_err = (sw - ref_sw).abs().max().item()
+        where = f"fusion forward B={b} D={d} (LIME)"
+        if err > 1e-5 or sw_err != 0.0:
+            raise AssertionError(f"{where}: value err {err}, sw err "
+                                 f"{sw_err}")
+        if not all(torch.equal(o, out) and torch.equal(w, sw)
+                   for o, w in repeats):
+            raise AssertionError(f"{where}: repeated launches differ")
+        del ref, repeats
+        fused = torch.cat([ref_sw[i] * ins[i] for i in range(3)], -1)
+        nbytes = 4 * (2 * b * d + 2 * d + 6)
+        row = {
+            "B": b, "D": d, "max_abs_err": err, "sw_err": sw_err,
+            "layout": fusion.layout(b, dims),
+            "us": device_us(
+                lambda: fusion.fused_attention_fusion(*ins, eps=eps)),
+            "plain_us": device_us(
+                lambda: fusion.reference_attention_fusion(*ins, eps=eps)),
+            "bound_us": max(nbytes / bw, 9 * b * d / flops) * 1e6,
+            "library_us": device_us(
+                lambda: F.layer_norm(fused, (d,), ins[4], ins[5], eps)),
+        }
+    print(f"fused_attention_fusion {row}", flush=True)
+    return [row]
 
 
 def check_se_fusion(gen, peaks):
@@ -2657,6 +2745,272 @@ def _measure_steps(name, batch_size, n_synth, n, tf32):
     return out
 
 
+def _rows(arrays, n, device):
+    """The split's first n rows on `device`."""
+    return arrays._replace(
+        indices=arrays.indices[:n],
+        **{f: getattr(arrays, f)[:n].to(device)
+           for f in ("images", "signals", "clinical", "labels")})
+
+
+def _close(where, got, want, rel, atol=0.0):
+    """|got - want| <= rel * max|want| + atol elementwise; returns the max
+    abs error."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    bar = rel * float(np.abs(want).max()) + atol
+    if not err <= bar:
+        raise AssertionError(f"{where}: max err {err} above {bar}")
+    return err
+
+
+def _check_csvs(out_dir, method, test, frames):
+    """Each class's CSV: the contract columns, one row per test sample in
+    the split's order, each row summing to 100 within 1e-3, read back
+    equal to the returned columns."""
+    for c, frame in frames.items():
+        path = os.path.join(out_dir, method,
+                            f"fusion_{method}_fusion_class{c}.csv")
+        with open(path, newline="") as f:
+            header, *rows = list(csv.reader(f))
+        if tuple(header) != run_xai.CSV_COLUMNS:
+            raise AssertionError(f"{path}: columns {header}")
+        vals = np.array(rows, np.float64)
+        if vals.shape != (test.n, 4) or not np.array_equal(
+                vals[:, 0], test.indices):
+            raise AssertionError(f"{path}: rows {vals.shape}")
+        sums = vals[:, 1:].sum(1)
+        if np.abs(sums - 100.0).max() > 1e-3:
+            raise AssertionError(f"{path}: row sums {sums.min()} "
+                                 f"{sums.max()}")
+        for k, col in zip(run_xai.CSV_COLUMNS[1:], vals[:, 1:].T):
+            want = np.asarray(frame[k])  # written in its own float type
+            if not np.array_equal(col.astype(want.dtype), want):
+                raise AssertionError(f"{path}: {k} differs from the report")
+
+
+def _timed(fn):
+    """(fn(), wall ms, CUDA-event ms) of one call on the card."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def run_xai_phase(smi):
+    """Phase 10: the XAI batch path (`ecgmm_torch.explain.run_xai`) on the
+    card at its full width: the `fusion` preset's model in float32 from
+    the seeded init, 2048 synthetic records (1638 train, 205 test rows),
+    64 SHAP draws and 1000 LIME perturbations a test row. Each method runs
+    twice through its report entry point (the second pass warm), with the
+    launch counters set to 0 just before and read just after each and
+    held to the plan: 3 SE forwards per encoded batch of 32 (train and
+    test), and shap 2 fusion forwards and 2 input backwards (a class
+    each, 13,120 rows), lime 1 fusion forward (205,000 rows, both classes
+    from one set of perturbations), deep_shap none (plain ops, as in
+    JAX), gradcam and tabnet_masks none. The CSVs hold the contract; the
+    Grad-CAM PNGs decode (the port's decoder) to the overlays of the
+    card's CAMs; the four mask PNGs decode to the masks' viridis strips.
+    Grad-CAM of the standalone ResNet-18 (224x224) and ResNet1D-SE (base
+    64, 2476 samples) runs at B=4. Then the same functions on the CPU, on
+    the same weights, embeddings, background and draws, for the first 16
+    test rows; bars: embeddings atol 1e-4; SHAP and Deep-SHAP attributions
+    and LIME coefficients 1e-4 of the largest |value| + 1e-6; percentages
+    atol 1e-3 points; CAMs atol 1e-3 (phase 4's) and logits 1e-4; masks
+    1e-5. Returns the launches of every call on the card."""
+    cfg = run_xai.xai_config()
+    dims = (cfg.model.image_dim, cfg.model.signal_dim,
+            cfg.model.clinical_dim)
+    d = sum(dims)
+    data = train_run.load_data(cfg, XAI_N_SYNTH, device="cuda")
+    train, test = data.train, data.test
+    if test.n != XAI_TEST_ROWS:
+        raise AssertionError(f"xai: {test.n} test rows, phase 3 timed "
+                             f"{XAI_TEST_ROWS}")
+    model = run_xai.xai_model(cfg, "cuda")
+    cpu_model = copy.deepcopy(model).cpu()
+    labels = train.labels.cpu().numpy()
+    n_bg = len(run_xai.class_balanced_background(
+        np.zeros((train.n, 1)), labels))
+    draws = {
+        "shap": {c: draw_shap_samples(test.n, XAI_SHAP_SAMPLES, n_bg,
+                                      torch.Generator().manual_seed(c))
+                 for c in range(2)},
+        "deep_shap": None,
+        "lime": draw_lime_noise(test.n, run_xai.LIME_SAMPLES, d,
+                                torch.Generator().manual_seed(0)),
+    }
+    batches = (-(-train.n // XAI_EMBED_B)) + (-(-test.n // XAI_EMBED_B))
+    encode = {"fused_se": 3 * batches}
+    plan = {
+        "shap": {**encode, "fused_attention_fusion": 2,
+                 "fused_attention_fusion_backward": 2},
+        "deep_shap": encode,
+        "lime": {**encode, "fused_attention_fusion": 1},
+        "gradcam": {}, "tabnet_masks": {},
+        "grad_cam_image": {}, "grad_cam_signal": {"fused_se": 3},
+    }
+    total = dict(NO_LAUNCHES)
+    times, attrs, frames = {}, {}, {}
+
+    def counted(name, fn):
+        _zero_launch_counts()
+        out, wall, event = _timed(fn)
+        got = _launch_counts()
+        want = {**NO_LAUNCHES, **plan[name]}
+        if got != want:
+            raise AssertionError(f"xai {name}: launches {got}, plan {want}")
+        for k, n in got.items():
+            total[k] += n
+        times.setdefault(name, []).append(
+            {"wall_ms": wall, "event_ms": event})
+        return out
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        for method in ("shap", "deep_shap", "lime"):
+            for _ in range(2):
+                torch.cuda.reset_peak_memory_stats()
+                frames[method], attrs[method] = counted(
+                    method, lambda: run_xai.xai_report(
+                        model, train, test, dims, method=method,
+                        out_dir=out_dir, n_samples=XAI_SHAP_SAMPLES,
+                        draws=draws[method], return_attributions=True))
+                times[method][-1]["peak_gb"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+            _check_csvs(out_dir, method, test, frames[method])
+        cam_paths = counted("gradcam", lambda: run_xai.gradcam_report(
+            model, test, out_dir))
+        mask_paths = counted("tabnet_masks",
+                             lambda: run_xai.tabnet_masks_report(
+                                 model, test, out_dir))
+        pngs = {p: open(p, "rb").read() for p in cam_paths + mask_paths}
+
+    # the standalone encoders' Grad-CAM at full width, B=4
+    gen = torch.Generator().manual_seed(10)
+    resnet = ResNet18(num_classes=2)
+    flax_init_(resnet, gen)
+    signal_model = ResNet1DSE(num_classes=2)
+    flax_init_(signal_model, gen)
+    imgs = torch.randint(0, 256, (4, 3, 224, 224), generator=gen,
+                         dtype=torch.uint8)
+    sigs = torch.randn(4, cfg.data.signal_len, generator=gen)
+    standalone = {}
+    with no_tf32():
+        for name, fn, net, x in (("grad_cam_image", grad_cam_image, resnet,
+                                  imgs),
+                                 ("grad_cam_signal", grad_cam_signal,
+                                  signal_model, sigs)):
+            on_card = copy.deepcopy(net).cuda().eval()
+            card = counted(name, lambda: fn(on_card, x.cuda()))
+            standalone[name] = (card, fn(net.eval(), x))
+    print(f"xai launches on the card ({smi}): {total}", flush=True)
+    for name, runs in times.items():
+        print(f"xai {name} ({smi}): {json.dumps(runs)}", flush=True)
+
+    # the same functions on the CPU for the first rows, on the card's
+    # embeddings, background and draws
+    k = XAI_CPU_ROWS
+    errs = {}
+    with no_tf32():
+        emb_train = run_xai.compute_embeddings(model, train)
+        emb_test = run_xai.compute_embeddings(model, test)
+        cpu_test = _rows(test, k, "cpu")
+        errs["embeddings"] = _close(
+            "xai embeddings", run_xai.compute_embeddings(cpu_model, cpu_test),
+            emb_test[:k], 0.0, 1e-4)
+        bg = run_xai.class_balanced_background(emb_train, labels)
+        shap_draws = {c: tuple(a[:k] for a in draws["shap"][c])
+                      for c in range(2)}
+        cpu = {
+            "shap": explain_fusion(cpu_model, emb_test[:k], bg, dims,
+                                   n_samples=XAI_SHAP_SAMPLES,
+                                   draws=shap_draws,
+                                   return_attributions=True),
+            "deep_shap": explain_fusion_deep(cpu_model, emb_test[:k], bg,
+                                             dims, return_attributions=True),
+        }
+        std = torch.as_tensor(emb_train.std(axis=0) + 1e-8)
+
+        def predict(e):
+            return torch.softmax(cpu_model.fuse_embeddings(
+                e[:, :dims[0]], e[:, dims[0]:dims[0] + dims[1]],
+                e[:, dims[0] + dims[1]:]), dim=-1)
+
+        with torch.no_grad():
+            coefs = lime_tabular(predict, torch.as_tensor(emb_test[:k]),
+                                 std, (0, 1), noise=draws["lime"][:k])
+        lime_attrs = {c: coefs[c].numpy() for c in range(2)}
+        cpu["lime"] = ({c: modality_contributions(a, dims)
+                        for c, a in lime_attrs.items()}, lime_attrs)
+        for method, (contrib, attr) in cpu.items():
+            for c in range(2):
+                where = f"xai {method} class {c}"
+                errs[f"{method}_attr_{c}"] = _close(
+                    where, attr[c], attrs[method][c][:k], 1e-4, 1e-6)
+                errs[f"{method}_pct_{c}"] = max(_close(
+                    f"{where} {key}", contrib[c][key],
+                    frames[method][c][key][:k], 0.0, 1e-3)
+                    for key in run_xai.CSV_COLUMNS[1:])
+
+        # Grad-CAM through the fusion image branch: the card's CAMs against
+        # the CPU's, and the PNGs against the overlays of the card's CAMs
+        n_cam = len(cam_paths)
+        cam, logits = grad_cam_fusion_image(model, test.images[:n_cam])
+        cpu_cam, cpu_logits = grad_cam_fusion_image(
+            cpu_model, test.images[:n_cam].cpu())
+        errs["gradcam_cam"] = _close("xai gradcam CAM", cam.cpu(), cpu_cam,
+                                     0.0, 1e-3)
+        errs["gradcam_logits"] = _close("xai gradcam logits", logits.cpu(),
+                                        cpu_logits, 0.0, 1e-4)
+        imgs_u8 = test.images[:n_cam].permute(0, 2, 3, 1).cpu().numpy()
+        preds = logits.argmax(-1).cpu().numpy()
+        for i, path in enumerate(cam_paths):
+            if os.path.basename(path) != (f"sample{test.indices[i]}_class"
+                                          f"{preds[i]}.png"):
+                raise AssertionError(f"xai gradcam: {path}")
+            want = overlay_heatmap(imgs_u8[i], cam[i].cpu().numpy())
+            if not np.array_equal(decode_upload(pngs[path]), want):
+                raise AssertionError(f"xai gradcam: {path} does not decode "
+                                     "to its overlay")
+        for name, ((c_cam, c_logits), (p_cam, p_logits)) in \
+                standalone.items():
+            errs[f"{name}_cam"] = _close(f"xai {name} CAM", c_cam.cpu(),
+                                         p_cam, 0.0, 1e-3)
+            errs[f"{name}_logits"] = _close(f"xai {name} logits",
+                                            c_logits.cpu(), p_logits, 0.0,
+                                            1e-4)
+
+        # TabNet masks: the card's against the CPU's; each PNG is the
+        # strip of its mask row
+        m_explain, masks = tabnet_masks(model.clinical_encoder,
+                                        test.clinical)
+        cpu_explain, cpu_masks = tabnet_masks(cpu_model.clinical_encoder,
+                                              test.clinical.cpu())
+        errs["tabnet_masks"] = max(
+            _close("xai tabnet mask", a, b, 0.0, 1e-5)
+            for a, b in zip([m_explain] + masks, [cpu_explain] + cpu_masks))
+        rows = [m.mean(0) for m in masks]
+        rows.append(np.mean(rows, axis=0))
+        names = [f"mask_M[{i + 1}].png" for i in range(len(masks))]
+        if [os.path.basename(p) for p in mask_paths] != names + [
+                "mask_M_agg.png"]:
+            raise AssertionError(f"xai tabnet_masks: {mask_paths}")
+        for path, row in zip(mask_paths, rows):
+            pix = decode_upload(pngs[path])
+            w = max(8, STRIP_W // len(row))
+            want = np.repeat(viridis_rgb(row), w, axis=0)[None]
+            if pix.shape != (CELL_H, len(row) * w, 3) or not (
+                    pix == want).all():
+                raise AssertionError(f"xai tabnet_masks: {path}")
+    print(f"xai card vs CPU, first {k} test rows ({smi}): "
+          f"{json.dumps(errs)}", flush=True)
+    return total
+
+
 def summarize(name, source, replaces, launches_by_path, rows, picked, per,
               bound_by="bytes", backward=None):
     """One kernel's entry of the `kernels` line: the times are the sum
@@ -2766,6 +3120,8 @@ def main() -> int:
     se_train_rows = check_se_train(gen, peaks)
     se_fusion_rows = check_se_fusion(gen, peaks)
     se_serving_rows = check_se_serving(gen, peaks)
+    se_xai_rows = check_se_xai(gen, peaks)
+    fusion_lime_rows = check_fusion_lime(gen, peaks)
 
     # 4. the slice
     launches, timings = run_slice()
@@ -2815,6 +3171,9 @@ def main() -> int:
             for name in ("signal_af", "signal_arr", "signal_12lead",
                          "physionet_crnn", "physionet_transformer")}
 
+    # 10. the XAI batch path
+    xai_launches = run_xai_phase(smi)
+
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
                           ("fusion_cached", cached_run)):
@@ -2846,6 +3205,7 @@ def main() -> int:
         "train_signal_only": signal_launches,
         "train_image_only": image_launches,
         "pretrain": pretrain_launches,
+        "xai": xai_launches,
         **{f"train_{name}": n for name, n in new_launches.items()},
     }
 
@@ -2858,14 +3218,15 @@ def main() -> int:
     kernels = [
         summarize("fused_se", "ecgmm_torch/ops/csrc/se.cu",
                   "ecgmm_tpu/ops/pallas_se.py:85", by_path("fused_se"),
-                  se_rows + se_train_rows + se_serving_rows, se_picked,
+                  se_rows + se_train_rows + se_serving_rows + se_xai_rows,
+                  se_picked,
                   "ptbxl_af train step: 3 forward calls at B=16",
                   backward=(by_path("fused_se_backward"), se_picked,
                             "ptbxl_af train step: 3 calls at B=16")),
         summarize("fused_attention_fusion", "ecgmm_torch/ops/csrc/fusion.cu",
                   "ecgmm_tpu/ops/pallas_fusion.py:98",
                   by_path("fused_attention_fusion"),
-                  fusion_rows + fusion_bwd_rows,
+                  fusion_rows + fusion_bwd_rows + fusion_lime_rows,
                   [r for r in fusion_rows
                    if r["D"] == 672 and r["B"] in (1, 8, 32)],
                   "serving request: B=1, 32 and 8 at D=672",

@@ -1,5 +1,17 @@
-"""Grad-CAM through the fusion model's image branch, and the jet overlay
-(port of `ecgmm_tpu/explain/gradcam.py`).
+"""Grad-CAM on autograd (port of `ecgmm_tpu/explain/gradcam.py`): the
+class score's gradients w.r.t. the last conv feature map, averaged over
+space or time, weight the map's channels; the ReLU of the weighted sum,
+min-max normalised, is the CAM, resized to the input's resolution. For
+the standalone ResNet-18 (`grad_cam_image`), the standalone ResNet1D-SE
+(`grad_cam_signal`) and the fusion model's image branch
+(`grad_cam_fusion_image`, `cam_from_image_map` on the serving path).
+
+The feature map comes from a forward without autograd; only the head
+after it is differentiated, so no encoder backward runs (the SE
+backward kernel among them). JAX resizes with `jax.image.resize`
+("linear", "bilinear"): for upsampling it gives the values of
+`F.interpolate(align_corners=False)`, whose edge clamping equals JAX's
+renormalised edge weights.
 
 The jet lookup table is rebuilt in numpy from matplotlib's segment data
 for jet, with matplotlib's own interpolation arithmetic, so the serving
@@ -28,6 +40,56 @@ def _cam_from_feats(feats, grads, spatial_dims: Tuple[int, ...]):
     return (cam - lo) / torch.clamp(hi - lo, min=1e-8)
 
 
+def _grad_cam(head, feats, class_idx, spatial_dims):
+    """(CAM over feats' spatial dims, logits): the gradient of
+    sum_b head(feats)[b, class_b] w.r.t. feats (B, C, *spatial); each row's
+    class is its argmax where class_idx is None."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(True)
+        logits = head(f)
+        if class_idx is None:
+            class_idx = logits.argmax(dim=-1)
+        class_idx = torch.as_tensor(class_idx, device=logits.device)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        score = logits[rows, class_idx.expand(logits.shape[0])].sum()
+        (grads,) = torch.autograd.grad(score, f)
+    return _cam_from_feats(f.detach(), grads, spatial_dims), logits.detach()
+
+
+def grad_cam_image(model, images, class_idx=None):
+    """CAM over a standalone ResNet-18 classifier. images: (B, 3, H, W),
+    uint8 raw or float normalised. Returns (cam (B, H, W) in [0, 1],
+    logits (B, C))."""
+    with torch.no_grad():
+        _, feats = model(images, return_features=True)
+    cam, logits = _grad_cam(
+        lambda f: model.fc(f.mean(dim=(2, 3))).float(), feats, class_idx,
+        (2, 3))
+    cam = F.interpolate(cam[:, None], size=images.shape[2:],
+                        mode="bilinear", align_corners=False)[:, 0]
+    return cam, logits
+
+
+def grad_cam_signal(model, signals, class_idx=None):
+    """1-D CAM over a standalone ResNet1D-SE classifier. signals: (B, T) or
+    (B, C, T). Returns (cam (B, T) in [0, 1], logits (B, C)). The whole
+    head (GAP, Dense 64, ReLU, Dense out; dropout is off in eval) is
+    differentiated w.r.t. the last feature map."""
+    if signals.dim() == 2:
+        signals = signals[:, None, :]
+    with torch.no_grad():
+        _, feats = model(signals, return_features=True)
+    _, hidden, _, _, out = model.classifier
+
+    def head(f):
+        return out(torch.relu(hidden(f.mean(dim=-1)))).float()
+
+    cam, logits = _grad_cam(head, feats, class_idx, (2,))
+    cam = F.interpolate(cam[:, None], size=signals.shape[-1],
+                        mode="linear", align_corners=False)[:, 0]
+    return cam, logits
+
+
 def image_branch_logits(model, feats):
     """image_classifier(image_norm(fc(GAP(feats)))) for a layer-4 map."""
     emb = model.image_encoder.fc(feats.mean(dim=(2, 3)))
@@ -37,23 +99,16 @@ def image_branch_logits(model, feats):
 def cam_from_image_map(model, feats, class_idx=None):
     """Grad-CAM of the image-branch class score w.r.t. a layer-4 map
     (B, 512, h, w). Returns (cam (B, h, w) in [0, 1], logits (B, C))."""
-    with torch.enable_grad():
-        f = feats.detach().requires_grad_(True)
-        logits = image_branch_logits(model, f)
-        if class_idx is None:
-            class_idx = logits.argmax(dim=-1)
-        class_idx = torch.as_tensor(class_idx, device=logits.device)
-        rows = torch.arange(logits.shape[0], device=logits.device)
-        score = logits[rows, class_idx.expand(logits.shape[0])].sum()
-        (grads,) = torch.autograd.grad(score, f)
-    return _cam_from_feats(f.detach(), grads, (2, 3)), logits.detach()
+    return _grad_cam(lambda f: image_branch_logits(model, f), feats,
+                     class_idx, (2, 3))
 
 
 def grad_cam_fusion_image(model, images, class_idx=None,
-                          resize_to_input: bool = False):
+                          resize_to_input: bool = True):
     """CAM through the fusion model's image branch. images: (B, 3, H, W).
-    resize_to_input=False returns the feature-map-native CAM (7x7 for
-    224x224 inputs), which serving upsamples once on the host."""
+    Returns the CAM at the input's resolution; resize_to_input=False
+    returns the feature-map-native CAM (7x7 for 224x224 inputs), which
+    serving upsamples once on the host."""
     with torch.no_grad():
         _, feats = model.encode_image(images)
     cam, logits = cam_from_image_map(model, feats, class_idx)

@@ -7,10 +7,14 @@ draws of every row go through `f` as one batch of rows * n_samples
 points: every module is in eval mode and rows are independent, so the
 gradient of the summed class scores w.r.t. the batch is each point's own
 gradient. Each row has its own class.
+
+`explain_fusion` is the XAI batch path's gradient SHAP: every class's
+attributions through `fuse_embeddings`, reduced per modality.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Sequence
 
 import numpy as np
@@ -73,3 +77,59 @@ def modality_contributions(
         out[f"{name}_%"] = 100.0 * a[:, start:start + d].sum(axis=1) / totals
         start += d
     return out
+
+
+@contextlib.contextmanager
+def frozen_parameters(model):
+    """The model's parameters need no gradient while the context lasts
+    (as in `ServingPipeline`): an attribution pass then differentiates
+    w.r.t. its inputs alone, and the fusion backward kernel writes only
+    the input gradients. Each parameter's flag is restored on exit."""
+    params = list(model.parameters())
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield model
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+
+
+def model_tensor(model, array):
+    """A float32 tensor of `array` on the model's device."""
+    device = next(model.parameters()).device
+    return torch.as_tensor(np.asarray(array, np.float32), device=device)
+
+
+def explain_fusion(model, embeddings, background, dims: Sequence[int],
+                   num_classes: int = 2, n_samples: int = 64, seed: int = 0,
+                   draws=None, return_attributions: bool = False):
+    """Gradient SHAP through the fusion head (AttentionFusion + MLP) for
+    every class, aggregated per modality: {class: {"Image_%": ...}}.
+    embeddings (B, D) are the concatenated LayerNorm'd branch features,
+    background (N, D). draws: {class: (bidx, alphas)}, each (B,
+    n_samples); absent, class c draws from a generator seeded seed + c (as
+    JAX keys class c with PRNGKey(seed + c)). With return_attributions
+    also {class: (B, D) attributions}."""
+    d0, d1, _ = dims
+    x = model_tensor(model, embeddings)
+    bg = model_tensor(model, background)
+
+    def head(e):
+        return model.fuse_embeddings(e[:, :d0], e[:, d0:d0 + d1],
+                                     e[:, d0 + d1:])
+
+    out, attrs = {}, {}
+    with frozen_parameters(model):
+        for c in range(num_classes):
+            if draws is None:
+                bidx, alphas = draw_shap_samples(
+                    x.shape[0], n_samples, bg.shape[0],
+                    torch.Generator().manual_seed(seed + c))
+            else:
+                bidx, alphas = draws[c]
+            attrs[c] = gradient_shap(head, x, bg, c, n_samples, bidx=bidx,
+                                     alphas=alphas).cpu().numpy()
+            out[c] = modality_contributions(attrs[c], dims)
+    return (out, attrs) if return_attributions else out

@@ -159,7 +159,10 @@ class TabNetEncoder(nn.Module):
     3 steps, gamma 1.5, 2 shared + 2 independent GLU layers, ghost
     BatchNorm over virtual batches of `virtual_batch_size` rows, 128 as
     pytorch_tabnet's default). forward returns (latent (B, out_dim) f32,
-    m_loss scalar)."""
+    m_loss scalar); with `return_masks` also m_explain (B, input_dim), the
+    step masks weighted by each step's decision sum (pytorch_tabnet's
+    forward_masks), and the list of the n_steps step masks (B,
+    input_dim)."""
 
     def __init__(self, input_dim: int, out_dim: int = 32, n_steps: int = 3,
                  gamma: float = 1.5, n_independent: int = 2,
@@ -174,7 +177,7 @@ class TabNetEncoder(nn.Module):
                                           out_dim, n_steps, n_independent,
                                           n_shared, virtual_batch_size)
 
-    def forward(self, x):
+    def forward(self, x, return_masks: bool = False):
         enc = self.tabnet.encoder
         d = self.n_d
         x = enc.initial_bn(x)
@@ -182,8 +185,11 @@ class TabNetEncoder(nn.Module):
         prior = torch.ones_like(x)
         m_loss = x.new_zeros(())
         agg_d = None
+        m_explain = None
+        masks = []
         for step in range(self.n_steps):
             mask = enc.att_transformers[step](prior, att)
+            masks.append(mask)
             m_loss = m_loss + torch.mean(
                 torch.sum(-mask * torch.log(mask + self.epsilon), dim=-1)
             )
@@ -192,7 +198,12 @@ class TabNetEncoder(nn.Module):
             step_d = torch.relu(out[..., :d])
             agg_d = step_d if agg_d is None else agg_d + step_d
             att = out[..., d:]
+            if return_masks:
+                term = mask * step_d.sum(-1, keepdim=True)
+                m_explain = term if m_explain is None else m_explain + term
         latent = self.tabnet.final_mapping(agg_d).float()
+        if return_masks:
+            return latent, m_loss / self.n_steps, m_explain, masks
         return latent, m_loss / self.n_steps
 
 

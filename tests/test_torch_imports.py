@@ -1,7 +1,9 @@
 """The port stands alone: `ecgmm_torch` and `chip_smoke.py` import neither
-JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, nor Pillow (the
-card's machine has none), import without nvcc or a GPU, and their entry
-points do not fall back to the CPU."""
+JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, nor Pillow,
+pandas or matplotlib (the card's machine has none), import without nvcc
+or a GPU, and their entry points do not fall back to the CPU. The scan
+and the blocked import walk every module of the package, the explainers
+of `ecgmm_torch/explain/` and the XAI CLI among them."""
 
 import ast
 import os
@@ -15,7 +17,10 @@ import torch
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL",
+             "pandas", "matplotlib")
+XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
+               "shap_fusion", "tabnet_masks")
 
 
 def _port_files():
@@ -26,8 +31,12 @@ def _port_files():
 
 
 def test_no_forbidden_import_in_source():
+    files = _port_files()
+    for name in XAI_MODULES:
+        assert os.path.join(REPO, "ecgmm_torch", "explain",
+                            f"{name}.py") in files
     bad = []
-    for path in _port_files():
+    for path in files:
         with open(path, encoding="utf-8") as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -55,6 +64,8 @@ def test_imports_with_jax_blocked():
             ecgmm_torch.__path__, "ecgmm_torch.")]
         for m in mods:
             importlib.import_module(m)
+        assert all(f"ecgmm_torch.explain.{{n}}" in mods
+                   for n in {XAI_MODULES!r})
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         mod = importlib.util.module_from_spec(spec)
