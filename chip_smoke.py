@@ -95,6 +95,24 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      ResNet1D-SE; launches against the plan, the CSV contract, the PNGs
      decoded, the first 16 test rows against the CPU, per-method wall and
      CUDA-event times;
+  11. (run after phase 10) the real-data path (`run_real_data_phase`):
+     a hospital directory (256 patients: labels.xlsx, clinical.csv,
+     ecg_signals.csv at 2476 samples, 2500x250 strips, three of them CMYK
+     JPEG, three known-missing patients without a folder), a PTB-XL
+     layout (512 records, 12 leads, 5000 samples at 500 Hz, format 16)
+     and a CinC 2017 layout (256 v4 MAT records behind 16+24 headers),
+     written with numpy and the native JPEG encoder; `load_data` of each
+     timed (host ms); `fusion`, `ptbxl_af` and `physionet_multi` trained
+     one epoch each through `python -m ecgmm_torch.workloads.run
+     --data-dir`, three subprocesses at once, launches against each batch
+     plan, the
+     checkpoints, reports and PNGs checked; then the hospital directory
+     through `--split-cache` under a 1 MiB `ECGMM_HBM_BUDGET_BYTES`, the
+     splits streamed from the memory-mapped cache in chunks of 4 batches:
+     saved, reopened, each run's per-step losses and final parameters
+     against a resident run's (bit-equal expected, above 1e-6 fails), a
+     changed fingerprint refused; streamed and resident step times and
+     busy shares;
   7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16,
      `fusion` and `fusion_cached` (head steps, after a timed calibration
      and encoding of the train split) at B=16 and 256, `image_only` at
@@ -116,10 +134,12 @@ import copy
 import csv
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -159,7 +179,8 @@ from ecgmm_torch.serve import digitize  # noqa: E402
 from ecgmm_torch.serve import http as serve_http  # noqa: E402
 from ecgmm_torch.serve import pipeline as serve_pipeline  # noqa: E402
 from ecgmm_torch.serve import request as request_host  # noqa: E402
-from ecgmm_torch.serve.imdecode import decode_upload  # noqa: E402
+from ecgmm_torch.serve.imdecode import (  # noqa: E402
+    decode_image, decode_upload)
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
 from ecgmm_torch.serve.report import rule_based_report  # noqa: E402
 from ecgmm_torch.serve.wire import ENDPOINT  # noqa: E402
@@ -1892,7 +1913,7 @@ def compare_fusion_steps(n_steps: int = 3, n_synth: int = 48):
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dtype="float32", dropout=0.0))
     t = cfg.train
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0)
     cpu_model, task, freeze = train_run.build_model_and_task(cfg, "cpu")
@@ -2085,7 +2106,7 @@ def compare_signal_steps(name: str, n_synth: int, count_turned: bool = True,
     grad_bar = 2e-3
     cfg = get_preset(name)
     t = cfg.train
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0)
     model, task, freeze = train_run.build_model_and_task(cfg, "cpu")
@@ -2246,7 +2267,7 @@ def compare_image_steps(n_steps: int = 3, n_synth: int = 48):
     1e-3 (`_check_both`)."""
     cfg = get_preset("image_only")
     t = cfg.train
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0)
     model, task, _ = train_run.build_model_and_task(cfg, "cpu")
@@ -2294,7 +2315,7 @@ def compare_clinical_steps(n_steps: int = 3, n_synth: int = 48):
     no kernel of the port lies on this path."""
     cfg = get_preset("fusion")
     t = dataclasses.replace(cfg.train, freeze_encoders=False)
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
                                      seed=t.seed, epoch=0)
     task, probe = make_clinical_task(
@@ -2326,7 +2347,7 @@ def compare_cached(n_steps: int = 3, n_synth: int = 48):
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dtype="float32", dropout=0.0))
     t = cfg.train
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     model, _, freeze = train_run.build_model_and_task(cfg, "cpu")
     for m in model.modules():
         if isinstance(m, Dropout):
@@ -2395,18 +2416,9 @@ def compare_cached(n_steps: int = 3, n_synth: int = 48):
                        n_steps * t.lr, 1e-3, 1e-4, want_launches)
 
 
-def run_training(tmp: str, name: str, n_synth: int, epochs: int):
-    """Phase 6b: `run()` on the card, as `python -m
-    ecgmm_torch.workloads.run --preset <name>` runs it, with the launch
-    counters set to 0 just before and read just after."""
-    cfg = get_preset(name)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, num_epochs=epochs,
-        checkpoint_dir=os.path.join(tmp, "checkpoints"),
-        log_dir=os.path.join(tmp, "runs"),
-        output_dir=os.path.join(tmp, "output")))
-    t = cfg.train
-    data = train_run.load_data(cfg, n_synth, device="cuda")
+def launch_plan(name: str, t, data, epochs: int) -> dict:
+    """The kernels' launches of `run()` of preset `name` over `data` for
+    `epochs` epochs, from the batch plan."""
     nb = {s: pipeline.num_batches(getattr(data, s).n, t.batch_size)
           for s in ("train", "val", "test")}
     # one forward per train step and per eval batch: every epoch trains
@@ -2422,26 +2434,43 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
         calib = 3 * (data.train.n // t.eval_bs)
         enc = sum(pipeline.num_batches(getattr(data, s).n, t.eval_bs)
                   for s in nb)
-        want = {"fused_focal_loss": 0, "fused_se": 3 * (calib + enc),
+        return {"fused_focal_loss": 0, "fused_se": 3 * (calib + enc),
                 "fused_attention_fusion": calib + n_fwd,
                 "fused_focal_loss_backward": 0, "fused_se_backward": 0,
                 "fused_attention_fusion_backward": steps}
-    elif name == "image_only":  # ResNet-18 alone: no kernel of the port
-        want = dict(NO_LAUNCHES)
-    elif name in train_run.FUSION_FAMILIES:
+    if name == "image_only":  # ResNet-18 alone: no kernel of the port
+        return dict(NO_LAUNCHES)
+    if name in train_run.FUSION_FAMILIES:
         # the fusion head forward and its backward (all six gradients) at
         # every step; the frozen signal encoder runs no SE backward
-        want = {"fused_focal_loss": 0, "fused_se": 3 * n_fwd,
+        return {"fused_focal_loss": 0, "fused_se": 3 * n_fwd,
                 "fused_attention_fusion": n_fwd,
                 "fused_focal_loss_backward": 0, "fused_se_backward": 0,
                 "fused_attention_fusion_backward": steps}
-    else:  # the SE and focal backwards run at every train step
-        se = 0 if name in NO_SE else 3
-        want = {"fused_focal_loss": n_fwd, "fused_se": se * n_fwd,
-                "fused_attention_fusion": 0,
-                "fused_focal_loss_backward": steps,
-                "fused_se_backward": se * steps,
-                "fused_attention_fusion_backward": 0}
+    # the SE and focal backwards run at every train step
+    se = 0 if name in NO_SE else 3
+    return {"fused_focal_loss": n_fwd, "fused_se": se * n_fwd,
+            "fused_attention_fusion": 0,
+            "fused_focal_loss_backward": steps,
+            "fused_se_backward": se * steps,
+            "fused_attention_fusion_backward": 0}
+
+
+def run_training(tmp: str, name: str, n_synth: int, epochs: int):
+    """Phase 6b: `run()` on the card, as `python -m
+    ecgmm_torch.workloads.run --preset <name>` runs it, with the launch
+    counters set to 0 just before and read just after."""
+    cfg = get_preset(name)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=epochs,
+        checkpoint_dir=os.path.join(tmp, "checkpoints"),
+        log_dir=os.path.join(tmp, "runs"),
+        output_dir=os.path.join(tmp, "output")))
+    t = cfg.train
+    data = train_run.load_data(cfg, "synthetic", n_synth, device="cuda")
+    nb = {s: pipeline.num_batches(getattr(data, s).n, t.batch_size)
+          for s in ("train", "val", "test")}
+    want = launch_plan(name, t, data, epochs)
     run_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     _zero_launch_counts()
@@ -2525,7 +2554,7 @@ def run_pretrain_pipeline(tmp: str, n_synth: int = 96):
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, num_epochs=1, cache_embeddings=True))
     t = cfg.train
-    data = train_run.load_data(cfg, n_synth, device="cuda")
+    data = train_run.load_data(cfg, "synthetic", n_synth, device="cuda")
     run_dir = os.path.join(tmp, "pipeline")
     stages = []
     fit_stage = pretrain._fit_stage
@@ -2647,7 +2676,7 @@ def _measure_steps(name, batch_size, n_synth, n, tf32):
 
     cfg = get_preset(name)
     t = dataclasses.replace(cfg.train, batch_size=batch_size)
-    data = train_run.load_data(cfg, n_synth, device="cuda")
+    data = train_run.load_data(cfg, "synthetic", n_synth, device="cuda")
     model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
     train = data.train
     full = train.n >= batch_size
@@ -2826,7 +2855,7 @@ def run_xai_phase(smi):
     dims = (cfg.model.image_dim, cfg.model.signal_dim,
             cfg.model.clinical_dim)
     d = sum(dims)
-    data = train_run.load_data(cfg, XAI_N_SYNTH, device="cuda")
+    data = train_run.load_data(cfg, "synthetic", XAI_N_SYNTH, device="cuda")
     train, test = data.train, data.test
     if test.n != XAI_TEST_ROWS:
         raise AssertionError(f"xai: {test.n} test rows, phase 3 timed "
@@ -3053,6 +3082,408 @@ def summarize(name, source, replaces, launches_by_path, rows, picked, per,
     return entry
 
 
+# phase 11, the real-data path: record directories written here at the
+# reference's sizes (a hospital directory of 256 patients with 2500x250
+# lead-II strips and 2476-sample signals; 512 PTB-XL records of 12 leads,
+# 5000 samples at 500 Hz; 256 CinC 2017 records of 9000 samples at 300
+# Hz), each trained one epoch through the CLI at full width
+REAL_HOSPITAL_N = 256
+REAL_PTBXL_N = 512
+REAL_CINC_N = 256
+REAL_CMYK = (3, 4, 130)          # patients whose strips are CMYK JPEGs
+REAL_ABSENT = (17, 43, 115)      # known-missing patients without a folder
+REAL_CHUNK = 4                   # batches a streamed chunk holds
+REAL_BUDGET = 1 << 20            # bytes: no split fits, all three stream
+REAL_CLI = (("fusion", "hospital"), ("ptbxl_af", "ptbxl"),
+            ("physionet_multi", "cinc"))
+LAUNCH_MARK = "LAUNCHES "
+
+
+def write_real_records(root: str, seed: int = 42) -> dict:
+    """The three record layouts under `root`, written with numpy, scipy
+    and the port's native JPEG encoder (`ecgmm_torch.tools.records`);
+    returns their directories."""
+    from ecgmm_torch.data.synthetic import make_cohort
+    from ecgmm_torch.tools import records
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("hospital", "ptbxl", "cinc")}
+    t0 = time.perf_counter()
+    c = make_cohort(n=REAL_HOSPITAL_N, signal_len=2476, img_hw=None,
+                    seed=seed)
+    labels = np.where(c.labels == 1, "Abnormal", "Normal").astype(object)
+    labels[np.arange(REAL_HOSPITAL_N) % 8 == 5] = "Borderline"
+    images = {int(i): _render_strip(sig, 250, 2500)
+              for i, sig in zip(c.indices, c.signals)
+              if i not in REAL_ABSENT}
+    records.write_hospital(dirs["hospital"], c.indices, labels, c.signals,
+                           {"AGE": c.clinical[:, 0],
+                            "Wt": c.clinical[:, 1]}, images,
+                           cmyk=REAL_CMYK)
+    t1 = time.perf_counter()
+    p = make_cohort(n=REAL_PTBXL_N, signal_len=5000, img_hw=None,
+                    seed=seed + 1)
+    gains = rng.uniform(0.5, 1.5, (1, 1, 12))
+    digital = np.clip(np.round(p.signals[:, :, None] * gains * 1000),
+                      -32768, 32767).astype(np.int16)
+    codes = [("{'SR': 100.0, 'NORM': 100.0}", "{'AFIB': 100.0}")[lab]
+             if k % 7 else "{'NORM': 100.0}"
+             for k, lab in enumerate(p.labels)]
+    records.write_ptbxl(dirs["ptbxl"], digital, codes,
+                        rng.uniform(20, 90, REAL_PTBXL_N),
+                        rng.uniform(45, 110, REAL_PTBXL_N))
+    t2 = time.perf_counter()
+    q = make_cohort(n=REAL_CINC_N, signal_len=9000, img_hw=None,
+                    seed=seed + 2)
+    names = [f"A{k:05d}" for k in range(1, REAL_CINC_N + 1)]
+    cinc_labels = [("N", "A", "O")[(lab + k) % 3] if k % 11 else "~"
+                   for k, lab in enumerate(q.labels)]
+    records.write_cinc2017(dirs["cinc"], names, cinc_labels,
+                           np.clip(np.round(q.signals * 1000), -32768,
+                                   32767).astype(np.int16))
+    t3 = time.perf_counter()
+    print(f"phase 11: wrote the hospital directory ({REAL_HOSPITAL_N} "
+          f"patients, 250x2500 strips, {len(REAL_CMYK)} CMYK) in "
+          f"{(t1 - t0) * 1e3:.1f} ms, PTB-XL ({REAL_PTBXL_N} records) in "
+          f"{(t2 - t1) * 1e3:.1f} ms, CinC 2017 ({REAL_CINC_N} records) in "
+          f"{(t3 - t2) * 1e3:.1f} ms (host)", flush=True)
+    return dirs
+
+
+def _real_cfg(name: str, directory: str, **train):
+    cfg = get_preset(name)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_dir=directory,
+                                      ptbxl_dir=directory,
+                                      physionet_dir=directory),
+        train=dataclasses.replace(cfg.train, num_epochs=1, **train))
+
+
+def run_cli(argv, cwd: str):
+    """`python -m ecgmm_torch.workloads.run ARGV` in a subprocess from
+    `cwd`, with the launch counters set to 0 just before the CLI runs and
+    read just after (printed by the subprocess). Returns the counts and
+    the CLI's epoch and report lines."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import json, runpy, sys, torch\n"
+        f"sys.path.insert(0, {repo!r})\n"
+        "from ecgmm_torch.ops import fusion, se, losses\n"
+        f"sys.argv = ['run'] + {list(argv)!r}\n"
+        "for m in (fusion, se, losses):\n"
+        "    m.launches = m.backward_launches = 0\n"
+        "runpy.run_module('ecgmm_torch.workloads.run', run_name='__main__')\n"
+        "torch.cuda.synchronize()\n"
+        f"print({LAUNCH_MARK!r} + json.dumps({{\n"
+        "    'fused_focal_loss': losses.launches,\n"
+        "    'fused_se': se.launches,\n"
+        "    'fused_attention_fusion': fusion.launches,\n"
+        "    'fused_focal_loss_backward': losses.backward_launches,\n"
+        "    'fused_se_backward': se.backward_launches,\n"
+        "    'fused_attention_fusion_backward': fusion.backward_launches}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=cwd, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"the CLI {argv} failed:\n{out.stdout[-3000:]}"
+                           f"\n{out.stderr[-6000:]}")
+    lines = out.stdout.splitlines()
+    shown = [line for line in lines
+             if line.startswith(("epoch ", "[best]", "[last]", "streaming"))]
+    counts = json.loads(next(line for line in lines
+                             if line.startswith(LAUNCH_MARK))[
+                                 len(LAUNCH_MARK):])
+    return counts, shown
+
+
+def _png_text(path: str) -> dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    decode_image(data)  # a PNG the port's decoder reads
+    out, pos = {}, 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"tEXt":
+            key, value = data[pos + 8:pos + 8 + n].split(b"\0", 1)
+            out[key.decode()] = value.decode("latin-1")
+        pos += 12 + n
+    return out
+
+
+def check_cli_outputs(name: str, cwd: str, run_dir: str, test_n: int,
+                      num_classes: int) -> None:
+    """The run's checkpoints, metric log and reports: the text reports,
+    the confusion PNGs whose counts sum to the test split, the ROC PNGs
+    for two classes (points from (0, 0) to (1, 1))."""
+    stamp = os.path.basename(run_dir)
+    for f in ("best.pt", "last.pt", "calibration.pt"):
+        if not os.path.isfile(os.path.join(run_dir, f)):
+            raise AssertionError(f"{name}: checkpoint {f} missing")
+    with open(os.path.join(cwd, "runs", stamp, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if len(logged) != 1 or not np.isfinite(logged[0]["Loss/Train"]):
+        raise AssertionError(f"{name}: bad metric log {logged}")
+    out = os.path.join(cwd, "output", stamp)
+    for tag in ("best", "last"):
+        with open(os.path.join(out, f"report_{tag}.txt")) as f:
+            report = json.loads(f.read().split("\n\n", 1)[1])
+        if not REPORT_KEYS[name] - {"temperature", "test_ece",
+                                    "test_ece_calibrated"} <= set(report):
+            raise AssertionError(f"{name}: report_{tag} {report}")
+        text = _png_text(os.path.join(out, f"confusion_{tag}.png"))
+        counts = np.asarray(json.loads(text["counts"]))
+        if counts.shape != (num_classes,) * 2 or counts.sum() != test_n:
+            raise AssertionError(f"{name}: confusion_{tag} {counts}")
+        roc = os.path.join(out, f"roc_{tag}.png")
+        if (num_classes == 2) != os.path.isfile(roc):
+            raise AssertionError(f"{name}: roc_{tag}.png for "
+                                 f"{num_classes} classes")
+        if num_classes == 2:
+            text = _png_text(roc)
+            fpr, tpr = json.loads(text["fpr"]), json.loads(text["tpr"])
+            if len(fpr) != test_n or fpr[-1] != 1.0 or tpr[-1] != 1.0:
+                raise AssertionError(f"{name}: roc_{tag} points")
+
+
+def real_step_times(cfg, host_train, device_train, smi) -> dict:
+    """Train-step time of one epoch over the hospital train split, streamed
+    in chunks of REAL_CHUNK from the memory-mapped cache and resident on
+    the card (CUDA events over the epoch after a warm one; a fresh state
+    each), and the card's busy share over a profiled epoch of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = cfg.train
+    out = {}
+    for mode, split in (("streamed", host_train), ("resident", device_train)):
+        model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
+        state = create_state(model, t, pipeline.num_batches(split.n,
+                                                            t.batch_size),
+                             freeze=freeze)
+
+        def epoch(k):
+            idx, mask = engine.epoch_indices(split.n, t.batch_size,
+                                             shuffle=True, seed=t.seed,
+                                             epoch=k)
+            if mode == "streamed":
+                batches = engine._chunk_batches(pipeline.prefetch_chunks(
+                    split, idx, mask, REAL_CHUNK, device="cuda"))
+            else:
+                idx_d, mask_d = engine._plan_on_device(idx, mask, "cuda")
+                batches = (engine.gather_batch(split, idx_d[i], mask_d[i])
+                           for i in range(idx.shape[0]))
+            for b in batches:
+                engine.train_step(task, state, b)
+            return idx.shape[0]
+
+        with no_tf32():
+            epoch(0)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            steps = epoch(1)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                epoch(2)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t1) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out[mode] = {"ms_per_step": start.elapsed_time(end) / steps,
+                     "wall_ms_per_step": wall / steps, "steps": steps,
+                     "busy_share": busy / prof_wall if busy else None}
+        how = (f"streamed in chunks of {REAL_CHUNK} batches"
+               if mode == "streamed" else "resident")
+        print(f"phase 11: fusion train step over the hospital split, "
+              f"{how}: {json.dumps(out[mode])} ({smi})", flush=True)
+    return out
+
+
+def run_real_data_phase(smi: str) -> dict:
+    """Phase 11: the real-data path on the card. Writes the three record
+    layouts; times `load_data` of each (host ms); trains `fusion` on the
+    hospital directory, `ptbxl_af` on PTB-XL and `physionet_multi` on CinC
+    2017 for one epoch through the CLI at full width, three subprocesses
+    at once, whose launches must each equal the batch plan; checks their
+    checkpoints, reports and PNGs. Then, in this process, the hospital
+    directory through `--split-cache` under a budget no split fits
+    (ECGMM_HBM_BUDGET_BYTES) in chunks of REAL_CHUNK batches: the first
+    run saves the cache, the second reopens it, and both streamed runs'
+    per-step losses and final parameters must equal a resident run's
+    (bit-equal expected; above 1e-6 fails); a cache asked for with a
+    changed fingerprint is refused. Prints the streamed and resident step
+    times and busy shares. Returns the launches by path."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_real_records(tmp)
+        sizes = {}
+        for name, layout in REAL_CLI:
+            cfg = _real_cfg(name, dirs[layout])
+            t0 = time.perf_counter()
+            data = train_run.load_data(cfg, "hospital", 0, device="cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            sizes[name] = (cfg, data)
+            n = [getattr(data, s).n for s in ("train", "val", "test")]
+            print(f"phase 11: load_data {layout} for {name}: {ms:.1f} ms "
+                  f"(host, to the card), splits {n}, signals "
+                  f"{tuple(data.train.signals.shape[1:])}", flush=True)
+            if not all(torch.isfinite(getattr(data, s).signals).all()
+                       for s in ("train", "val", "test")):
+                raise AssertionError(f"{layout}: non-finite signals")
+        hosp = sizes["fusion"][1]
+        kept = set(np.concatenate([getattr(hosp, s).indices
+                                   for s in ("train", "val", "test")]))
+        if not set(REAL_CMYK) <= kept or kept & set(get_preset(
+                "fusion").data.known_missing):
+            raise AssertionError(f"hospital cohort {sorted(kept)}")
+        if tuple(hosp.train.images.shape[1:]) != (3, 224, 224):
+            raise AssertionError(f"images {hosp.train.images.shape}")
+
+        # the three CLI runs at once, each a process of its own
+        runs = {}
+
+        def cli(name, layout):
+            cwd = os.path.join(tmp, f"cli_{name}")
+            os.makedirs(cwd)
+            run_dir = os.path.join(cwd, "checkpoints", name)
+            argv = ["--preset", name, "--data-dir", dirs[layout],
+                    "--epochs", "1", "--run-dir", run_dir]
+            if name == "fusion":
+                argv[2:2] = ["--data", "hospital"]
+            t0 = time.perf_counter()
+            try:
+                runs[name] = (argv, cwd, run_dir, *run_cli(argv, cwd),
+                              time.perf_counter() - t0)
+            except Exception as e:  # raised again below
+                runs[name] = e
+
+        workers = [threading.Thread(target=cli, args=pair)
+                   for pair in REAL_CLI]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        for name, _ in REAL_CLI:
+            if isinstance(runs[name], Exception):
+                raise runs[name]
+            argv, cwd, run_dir, got, shown, secs = runs[name]
+            cfg, data = sizes[name]
+            want = launch_plan(name, cfg.train, data, 1)
+            print(f"phase 11: python -m ecgmm_torch.workloads.run "
+                  f"{' '.join(argv)}: {secs:.1f} s (three CLI runs at "
+                  f"once); launches {got} (batch plan {want})", flush=True)
+            for line in shown:
+                print(f"  {line}", flush=True)
+            if got != want:
+                raise AssertionError(f"{name}: launches {got} != {want}")
+            check_cli_outputs(name, cwd, run_dir, data.test.n,
+                              cfg.model.num_classes)
+            launches[f"real_{name}"] = got
+        del sizes
+
+        launches["real_fusion_streamed"] = check_streaming(dirs, tmp, smi)
+    return launches
+
+
+def check_streaming(dirs, tmp, smi) -> dict:
+    """Phase 11's streaming check (see `run_real_data_phase`)."""
+    cache = os.path.join(tmp, "split_cache")
+    base = ["--preset", "fusion", "--data", "hospital", "--data-dir",
+            dirs["hospital"], "--epochs", "1", "--device", "cuda"]
+    losses = {}
+    real_step = engine.train_step
+
+    def run_main(tag, argv, env):
+        recorded = []
+
+        def step(task, state, batch, *a):
+            mets = real_step(task, state, batch, *a)
+            recorded.append(mets["loss"].detach().clone())
+            return mets
+
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        engine.train_step = step
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_run.main(argv + ["--run-dir",
+                                       os.path.join(tmp, "ckpt", tag)])
+        finally:
+            engine.train_step = real_step
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        losses[tag] = torch.stack(recorded).float().cpu()
+        return buf.getvalue()
+
+    stream_env = {"ECGMM_HBM_BUDGET_BYTES": str(REAL_BUDGET),
+                  "ECGMM_STREAM_CHUNK_BATCHES": str(REAL_CHUNK)}
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    first = run_main("streamed_saved", base + ["--split-cache", cache],
+                     stream_env)
+    torch.cuda.synchronize()
+    launched = _launch_counts()
+    cfg = _real_cfg("fusion", dirs["hospital"])
+    host = pipeline.load_materialized(cache, device=None)
+    want = launch_plan("fusion", cfg.train, host, 1)
+    print(f"phase 11: fusion streamed from the split cache: launches "
+          f"{launched} (batch plan {want})", flush=True)
+    if launched != want:
+        raise AssertionError(f"streamed fusion: launches {launched} != "
+                             f"{want}")
+    second = run_main("streamed_reopened", base + ["--split-cache", cache],
+                      stream_env)
+    resident = run_main("resident", base, {})
+    for text, want in ((first, "saved materialized splits"),
+                       (second, "reopened materialized splits"),
+                       (first + second, f"streaming in chunks of "
+                                        f"{REAL_CHUNK} batches")):
+        if want not in text:
+            raise AssertionError(f"streaming: '{want}' not printed")
+    if "streaming" in resident:
+        raise AssertionError("the resident run streamed")
+    ref = CheckpointManager(os.path.join(tmp, "ckpt", "resident"))
+    for tag in ("streamed_saved", "streamed_reopened"):
+        if losses[tag].shape != losses["resident"].shape:
+            raise AssertionError(f"{tag}: {losses[tag].shape[0]} steps, "
+                                 f"resident {losses['resident'].shape[0]}")
+        loss_diff = float((losses[tag] - losses["resident"]).abs().max())
+        got = CheckpointManager(os.path.join(tmp, "ckpt", tag)).load(
+            "last")["model"]
+        want = ref.load("last")["model"]
+        param_diff = max(float((got[k].double() - want[k].double()).abs()
+                               .max()) if got[k].numel() else 0.0
+                         for k in want)
+        print(f"phase 11: {tag} against resident: {losses[tag].shape[0]} "
+              f"step losses, largest difference {loss_diff!r}; final "
+              f"parameters and buffers, largest difference {param_diff!r} "
+              f"({'' if loss_diff == param_diff == 0 else 'not '}"
+              "bit-equal)", flush=True)
+        if loss_diff > 1e-6 or param_diff > 1e-6:
+            raise AssertionError(f"{tag}: streamed run differs from the "
+                                 f"resident one")
+    try:
+        train_run.main(base + ["--n-synth", "7", "--split-cache", cache])
+    except ValueError as e:
+        if "n_synth: cached=128 requested=7" not in str(e):
+            raise
+        print(f"phase 11: a changed fingerprint is refused: {e}", flush=True)
+    else:
+        raise AssertionError("a stale split cache was reopened")
+
+    resident_train = pipeline.promote(host.train, "cuda")
+    real_step_times(cfg, host.train, resident_train, smi)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3174,6 +3605,9 @@ def main() -> int:
     # 10. the XAI batch path
     xai_launches = run_xai_phase(smi)
 
+    # 11. the real-data path: record directories, the CLI, streaming
+    real_launches = run_real_data_phase(smi)
+
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
                           ("fusion_cached", cached_run)):
@@ -3206,6 +3640,7 @@ def main() -> int:
         "train_image_only": image_launches,
         "pretrain": pretrain_launches,
         "xai": xai_launches,
+        **real_launches,
         **{f"train_{name}": n for name, n in new_launches.items()},
     }
 

@@ -9,25 +9,45 @@ trimodal fusion trainers (`fusion`, `fusion_modal_balance`,
 the signal-only ResNet1D-SE trainers (`ptbxl_af`, `physionet`,
 `physionet_multi`, `signal_af`, `signal_arr`, `signal_12lead`) and the
 spectrogram CRNN and 1-D Transformer (`physionet_crnn`,
-`physionet_transformer`), all on the synthetic cohort; the CV and
-streaming knobs wait for their slices (ROADMAP.md)."""
+`physionet_transformer`), on the synthetic cohort or on records read
+from `DataConfig`'s directories (`workloads/run.load_data`); the CV knobs
+wait for their slice (ROADMAP.md)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Input geometry (reference config.py:10-27). The data paths and the
-    sample rate come with the real-data slice that reads them
-    (ROADMAP.md)."""
+    """Data paths and input geometry (reference config.py:10-27)."""
+
+    data_dir: str = "./data"
+    image_dirname: str = "images"
+    ecg_csv: str = "ecg_signals.csv"
+    label_file: str = "labels.xlsx"
+    clinical_file: str = "clinical.csv"
+    af_label_file: str = "af_labels.xlsx"
+    arrhythmia_label_file: str = "arrhythmia_labels.xlsx"
+    physionet_dir: str = "./data/physionet"
+    ptbxl_dir: str = "./data/ptbxl"
 
     img_height: int = 224
     img_width: int = 224
     # Hospital digitized lead-II signals: 2476 samples @ 250 Hz
     # (reference evaluation_signal.py:36-38, train_signal_only_ptb.py:32).
     signal_len: int = 2476
+    signal_fs: float = 250.0
+    clinical_dim: int = 2  # AGE, Wt (reference dataset.py:28,198)
+
+    # Indices known to be missing image folders (reference dataset.py:145).
+    known_missing: Tuple[int, ...] = (17, 23, 36, 43, 51, 62, 115, 158)
+
+    @property
+    def image_dir(self) -> str:
+        return os.path.join(self.data_dir, self.image_dirname)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +97,9 @@ class TrainConfig:
     batch_size: int = 16
     num_epochs: int = 30
     lr: float = 1e-4
+    # coupled decay: the gradient takes wd * p before Adam, as optax's
+    # add_decayed_weights chained before adam does
+    weight_decay: float = 0.0
     # Early stop / plateau-decay patience; 0 disables the mechanism.
     patience: int = 5  # early stop
     plateau_patience: int = 2  # epochs of no val improvement before LR decay
@@ -97,6 +120,10 @@ class TrainConfig:
     output_dir: str = "./output"
     keep_checkpoints: int = 3
     eval_batch_size: int = 0  # 0 = same as batch_size
+    # For one fit: a NaN or Inf in a train step's loss or gradients raises
+    # FloatingPointError (jax_debug_nans in the JAX package); it costs a
+    # host sync a step, so it is off by default
+    debug_nans: bool = False
     # Fusion only: encode each split once with the frozen encoders in eval
     # mode and train the surface after them over the cached embeddings
     # (`train/embed.py`). Needs freeze_encoders.
@@ -105,6 +132,12 @@ class TrainConfig:
     # running statistics to the train split (3 train-mode passes, no
     # gradients), as the reference's train-mode encoders keep doing.
     cache_bn_calibrate: bool = True
+    # Streaming of splits over the device-memory budget
+    # (`data/pipeline.resolve_hbm_budget`): this many planned batches cross
+    # to the card per copy (`pipeline.prefetch_chunks`); 0 = per batch in
+    # the engine, and in the CLI the size `pipeline.auto_chunk_batches`
+    # picks (a chunk at most budget/6, three in flight).
+    stream_chunk_batches: int = 0
 
     @property
     def eval_bs(self) -> int:
@@ -190,7 +223,7 @@ def physionet_preset() -> Config:
     its early-stop counter is initialised but never incremented :288)."""
     return Config(
         name="physionet",
-        data=DataConfig(signal_len=3000),
+        data=DataConfig(signal_len=3000, signal_fs=300.0),
         train=TrainConfig(
             batch_size=8,
             lr=1e-3,

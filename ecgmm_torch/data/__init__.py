@@ -1,1 +1,3 @@
-"""Host-side signal preprocessing and synthetic strip rendering."""
+"""Data: the record readers (`sources`, `align`), host preprocessing,
+splits, the synthetic cohort, and materialisation, budgets, the split
+cache and streaming (`pipeline`)."""

@@ -7,7 +7,8 @@ reference trainers': the hospital filter (moving-average baseline removal
 with numpy 'same' alignment, then a zero-phase 5th-order Butterworth
 low-pass, cutoff 0.05 at fs 1.0, scipy's `filtfilt`), PTB-XL (500 -> 250
 Hz, baseline removal, 40 Hz low-pass, pad or crop) and PhysioNet 2017
-(16-149 Hz band-pass, per-sample z-score).
+(16-149 Hz band-pass, per-sample z-score). `augment_signal` is the
+train-time augmentation (noise, scale, circular shift) in torch.
 
 The hospital filter runs the native kernel (`native/preprocess.cpp`, as
 the JAX package's `filter_signals_host` prefers it) on the training data
@@ -17,9 +18,10 @@ its scipy version stays beside it as the plain version (`impl="plain"`).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
 from scipy import signal as sps
 
 from ecgmm_torch import native
@@ -144,3 +146,49 @@ def preprocess_physionet(x: np.ndarray) -> np.ndarray:
     """PhysioNet 2017: band-pass 16-149 Hz at 300 Hz, then a per-sample
     z-score in float32 (train_physionet.py:42-45)."""
     return zscore(_filtfilt(butter_bandpass(), x))
+
+
+# ---------------------------------------------------------------------------
+# Train-time augmentation (reference train_physionet.py:47-60)
+# ---------------------------------------------------------------------------
+
+def augment_signal_with_draws(x: torch.Tensor, do_noise: torch.Tensor,
+                              noise: torch.Tensor, do_scale: torch.Tensor,
+                              scale: torch.Tensor, do_shift: torch.Tensor,
+                              shift: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of `augment_signal` given its six draws: x (B, T);
+    do_noise (B, 1) bool and noise (B, T) (already times noise_std);
+    do_scale (B, 1) bool and scale (B, 1); do_shift (B,) bool and shift
+    (B,) integers. Rows with do_noise take x + noise, then rows with
+    do_scale x * scale, then rows with do_shift turn circularly right by
+    shift: out[t] = x[(t - shift) mod T]."""
+    x = torch.where(do_noise, x + noise, x)
+    x = torch.where(do_scale, x * scale, x)
+    t = x.shape[1]
+    shift = torch.where(do_shift, shift, torch.zeros_like(shift))
+    idx = (torch.arange(t, device=x.device)[None, :]
+           - shift[:, None].to(torch.int64)) % t
+    return torch.gather(x, 1, idx)
+
+
+def augment_signal(x: torch.Tensor, generator: torch.Generator,
+                   noise_std: float = 0.01,
+                   scale_range: Tuple[float, float] = (0.8, 1.2),
+                   max_shift: int = 10) -> torch.Tensor:
+    """Per-sample noise, amplitude scale and circular shift, each with
+    probability 0.5, on x (B, T), drawn from `generator` (on x's device):
+    the JAX package's `augment_signal`, whose draws come from a key
+    instead (so the two agree given the same draws,
+    `augment_signal_with_draws`). The shift is an integer in
+    [-max_shift, max_shift)."""
+    b, t = x.shape
+    kw = dict(generator=generator, device=x.device)
+    do_noise = torch.rand((b, 1), **kw) < 0.5
+    noise = torch.randn(x.shape, dtype=x.dtype, **kw) * noise_std
+    do_scale = torch.rand((b, 1), **kw) < 0.5
+    lo, hi = scale_range
+    scale = (torch.rand((b, 1), dtype=x.dtype, **kw) * (hi - lo) + lo)
+    do_shift = torch.rand((b,), **kw) < 0.5
+    shift = torch.randint(-max_shift, max_shift, (b,), **kw)
+    return augment_signal_with_draws(x, do_noise, noise, do_scale, scale,
+                                     do_shift, shift)

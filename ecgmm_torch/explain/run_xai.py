@@ -256,7 +256,7 @@ def main(argv=None):
 
     device = _device(args.device)
     cfg = xai_config()
-    data = load_data(cfg, args.n_synth, device=device)
+    data = load_data(cfg, "synthetic", args.n_synth, device=device)
     model = xai_model(cfg, device)
     dims = (cfg.model.image_dim, cfg.model.signal_dim,
             cfg.model.clinical_dim)

@@ -16,8 +16,6 @@ the PNG as tEXt chunks.
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -87,19 +85,6 @@ def mask_strip(row: np.ndarray) -> np.ndarray:
         np.repeat(rgb, w, axis=0)[None], (CELL_H, rgb.shape[0] * w, 3)))
 
 
-def _png_with_text(png: bytes, text: Sequence[Tuple[str, str]]) -> bytes:
-    """The PNG with a tEXt chunk (Latin-1 keyword, NUL, text) for each
-    pair, after the IHDR chunk."""
-    ihdr_end = 8 + 8 + 13 + 4  # signature, IHDR length/type, data, CRC
-    chunks = b""
-    for key, value in text:
-        body = b"tEXt" + key.encode("latin-1") + b"\0" + value.encode(
-            "latin-1", "replace")
-        chunks += (struct.pack(">I", len(body) - 4) + body
-                   + struct.pack(">I", zlib.crc32(body)))
-    return png[:ihdr_end] + chunks + png[ihdr_end:]
-
-
 def tabnet_masks(model, x) -> Tuple[np.ndarray, List[np.ndarray]]:
     """(M_explain (B, D), [per-step mask (B, D)]) of a TabNetEncoder."""
     with torch.no_grad():
@@ -125,7 +110,7 @@ def save_mask_heatmaps(
     def heat(row: np.ndarray, title: str, path: str):
         png = native.png_encode(mask_strip(row))
         with open(path, "wb") as f:
-            f.write(_png_with_text(png, (("Title", title),
+            f.write(native.png_with_text(png, (("Title", title),
                                          ("Features", names))))
         paths.append(path)
 

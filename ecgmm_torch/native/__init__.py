@@ -28,10 +28,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import struct
 import subprocess
 import tempfile
 import threading
-from typing import Optional, Tuple
+import zlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -350,6 +352,19 @@ def png_encode(rgb: np.ndarray, level: int = 1) -> bytes:
     if rc != 0:
         raise RuntimeError(f"native PNG encode failed (rc={rc})")
     return out[:int(out_len[0])].tobytes()
+
+
+def png_with_text(png: bytes, text: Sequence[Tuple[str, str]]) -> bytes:
+    """The PNG with a tEXt chunk (Latin-1 keyword, NUL, text) for each
+    pair, after the IHDR chunk."""
+    ihdr_end = 8 + 8 + 13 + 4  # signature, IHDR length/type, data, CRC
+    chunks = b""
+    for key, value in text:
+        body = b"tEXt" + key.encode("latin-1") + b"\0" + value.encode(
+            "latin-1", "replace")
+        chunks += (struct.pack(">I", len(body) - 4) + body
+                   + struct.pack(">I", zlib.crc32(body)))
+    return png[:ihdr_end] + chunks + png[ihdr_end:]
 
 
 def jpeg_encode(rgb: np.ndarray, quality: int = 85) -> bytes:

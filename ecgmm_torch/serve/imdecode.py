@@ -8,7 +8,8 @@ aims to be bit-equal to them; the machines the port serves on have no
 Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 
 - baseline, extended sequential and progressive JPEG (Huffman-coded,
-  8-bit samples), 1 or 3 components, any integral sampling factors,
+  8-bit samples), 1, 3 or 4 components (CMYK and YCCK, converted to RGB
+  as Pillow converts them), any integral sampling factors,
   restart markers; the Annex K Huffman tables where the file defines none
   before its first scan, as libjpeg-turbo fills them in; the accurate
   integer inverse DCT ("ISLOW"); fancy (triangle) upsampling of 2x1, 1x2
@@ -28,7 +29,7 @@ The Huffman decoding, the inverse DCT, the upsampling, the colour
 conversion and the PNG row filters are C++
 (`ecgmm_torch/native/imdecode.cpp`, built by g++ at first use); the
 markers and chunks are parsed here. Anything else (arithmetic-coded,
-lossless or hierarchical JPEG, 12-bit samples, CMYK, a DNL marker, a
+lossless or hierarchical JPEG, 12-bit samples, a DNL marker, a
 progressive JPEG whose scans leave libjpeg to smooth its blocks, other
 formats) raises `BadRequest` naming what it met.
 
@@ -113,18 +114,28 @@ def _check(status: int) -> None:
         raise _bad(_NATIVE_ERRORS.get(status, f"decoder error {status}"))
 
 
+def _decode(data: bytes):
+    if data[:2] == b"\xff\xd8":
+        return _decode_jpeg(data)
+    if data[:8] == PNG_SIGNATURE:
+        return _decode_png(data)
+    raise _bad("not a JPEG or PNG file")
+
+
 def decode_upload(data: bytes) -> np.ndarray:
     """An uploaded JPEG or PNG as an upright (H, W, 3) uint8 RGB array."""
-    if data[:2] == b"\xff\xd8":
-        rgb, exif, xmp = _decode_jpeg(data)
-    elif data[:8] == PNG_SIGNATURE:
-        rgb, exif, xmp = _decode_png(data)
-    else:
-        raise _bad("not a JPEG or PNG file")
+    rgb, exif, xmp = _decode(data)
     orientation = _orientation(exif, xmp)
     if orientation in _TRANSPOSE:
         rgb = _TRANSPOSE[orientation](rgb)
     return np.ascontiguousarray(rgb)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """A JPEG or PNG file as stored, (H, W, 3) uint8 RGB, without the EXIF
+    turn: Pillow's `Image.open(f).convert("RGB")`, as the training data's
+    image reader (`data/sources.load_images`) calls it."""
+    return np.ascontiguousarray(_decode(data)[0])
 
 
 # ---------------------------------------------------------------- EXIF
@@ -287,6 +298,8 @@ def _decode_jpeg(data: bytes):
         samples.append(full[:height, :width])
     if len(comps) == 1:
         return np.repeat(samples[0][:, :, None], 3, axis=2), exif, xmp
+    if len(comps) == 4:
+        return _cmyk_to_rgb(lib, samples, adobe, adobe_transform), exif, xmp
     if _jpeg_is_rgb(comps, jfif, adobe, adobe_transform):
         return np.stack(samples, axis=2), exif, xmp
     return _ycc_to_rgb(lib, *samples), exif, xmp
@@ -303,9 +316,7 @@ def _parse_sof(seg: bytes):
     if width == 0:
         raise _bad("JPEG of width 0")
     _check_pixels(width, height)
-    if nf == 4:
-        raise _unsupported("CMYK (4-component) JPEG")
-    if nf not in (1, 3):
+    if nf not in (1, 3, 4):
         raise _unsupported(f"{nf}-component JPEG")
     if len(seg) < 6 + 3 * nf:
         raise _bad("bad frame header")
@@ -501,6 +512,25 @@ def _jpeg_is_rgb(comps, jfif, adobe, adobe_transform) -> bool:
     if adobe:
         return adobe_transform == 0
     return tuple(c[0] for c in comps) == (82, 71, 66)
+
+
+def _cmyk_to_rgb(lib, samples, adobe, adobe_transform) -> np.ndarray:
+    """A 4-component JPEG as Pillow converts it. libjpeg reads it as YCCK
+    when an Adobe marker's transform is not 0 (`default_decompress_parms`)
+    and returns CMYK, the first three of YCCK as 255 minus libjpeg's
+    YCbCr->RGB (`ycck_cmyk_convert`), K as stored. Pillow takes the result
+    inverted ("CMYK;I", the Adobe convention) and `convert("RGB")` gives,
+    with nk = 255 - K (`Convert.c` cmyk2rgb), each of R, G and B as
+    nk - MULDIV255(c, nk), MULDIV255(a, b) = ((a*b + 128) >> 8 + a*b + 128)
+    >> 8. After both inversions nk is the stored K and c is 255 minus the
+    stored C, M or Y, or for YCCK the R, G or B of its YCbCr."""
+    if adobe and adobe_transform != 0:
+        c = _ycc_to_rgb(lib, *samples[:3]).astype(np.int32)
+    else:
+        c = 255 - np.stack(samples[:3], axis=2).astype(np.int32)
+    nk = samples[3].astype(np.int32)[:, :, None]
+    t = c * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
 
 
 def _upsample(lib, x: np.ndarray, fh: int, fv: int) -> np.ndarray:

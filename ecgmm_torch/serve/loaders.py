@@ -12,6 +12,7 @@ import torch
 from ecgmm_torch.config import ModelConfig
 from ecgmm_torch.models import ECGMultimodalModel
 from ecgmm_torch.precision import no_tf32
+from ecgmm_torch.data.pipeline import HostArrays, promote
 from ecgmm_torch.train.checkpoint import CheckpointManager
 
 BACKGROUND_ROWS = 64  # train rows encoded as SHAP's background
@@ -25,7 +26,8 @@ def pipeline_from_run(cls, run_dir: str, data, model=None,
     one), the data's fitted scalers, and SHAP background embeddings from
     the first 64 train rows through the model's `encode`.
 
-    data: the run's `MaterializedData` (`workloads.run.load_data`).
+    data: the run's `MaterializedData` (`workloads.run.load_data`; a
+    host-resident train split gives its first rows).
     model: an `ECGMultimodalModel` of the run's geometry (default: the
     canonical `ModelConfig()`); its compute dtype is the serving one."""
     if not os.path.isfile(os.path.join(run_dir, f"{which}.pt")):
@@ -43,6 +45,8 @@ def pipeline_from_run(cls, run_dir: str, data, model=None,
     model.to(dev).eval()
     train = data.train
     n = min(BACKGROUND_ROWS, train.n)
+    if isinstance(train, HostArrays):  # a streamed split: its first rows
+        train = promote(HostArrays(*(a[:n] for a in train)), dev)
     with torch.no_grad(), no_tf32():
         feats = model.encode(train.images[:n].to(dev),
                              train.signals[:n].to(dev),

@@ -87,7 +87,7 @@ def batch_plan(n_synth: int = 64):
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                              dropout=0.0))
     t = cfg.train
-    train = train_run.load_data(cfg, n_synth, device="cpu").train
+    train = train_run.load_data(cfg, "synthetic", n_synth, device="cpu").train
     weights = train_run.ptbxl_sample_weights(train.labels.numpy(),
                                              cfg.model.num_classes)
     idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,

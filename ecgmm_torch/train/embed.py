@@ -10,8 +10,10 @@ encoders use their running statistics, so `calibrate_bn_stats` first fits
 them to the train split with a few train-mode passes, as the reference's
 train-mode encoders keep doing while frozen. The calibrated buffers stay
 in the model, so the checkpoints and serving see what the head was trained
-on. Host-resident (streamed) splits and the CV encoders wait for their
-slices (ROADMAP.md).
+on. A host-resident split (a `HostArrays`, over the device-memory
+budget) streams through both, batch by batch (`pipeline.prefetch_batches`),
+with the resident path's batches and results; the embeddings come back on
+the device. The CV encoders wait for their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from ecgmm_torch.config import TrainConfig
-from ecgmm_torch.data.pipeline import Arrays, MaterializedData
+from ecgmm_torch.data.pipeline import (Arrays, HostArrays, MaterializedData,
+                                       prefetch_batches)
 from ecgmm_torch.models.fusion import ECGMultimodalModel
 from ecgmm_torch.models.layers import set_dropout_generator
 from ecgmm_torch.train.engine import Task, epoch_indices
@@ -48,7 +51,7 @@ def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
         return state
     bs = min(batch_size, n)
     n_full = n // bs
-    device = arrays.labels.device
+    device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(0)
     was_training = model.training
@@ -57,14 +60,29 @@ def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
         model.train()
         with torch.no_grad():
             for _ in range(passes):
-                for j in range(n_full):
-                    rows = slice(j * bs, (j + 1) * bs)
-                    model(arrays.images[rows], arrays.signals[rows],
-                          arrays.clinical[rows])
+                for b in _full_batches(arrays, bs, n_full, device):
+                    model(*b)
     finally:
         set_dropout_generator(model, state.generator)
         model.train(was_training)
     return state
+
+
+def _full_batches(arrays, bs: int, n_full: int, device):
+    """The split's first `n_full` batches of `bs` rows in order, as
+    (images, signals, clinical): slices of a device split, or copies of a
+    host split's rows."""
+    if isinstance(arrays, HostArrays):
+        for j, b in enumerate(prefetch_batches(arrays, bs, shuffle=False,
+                                               seed=0, device=device)):
+            if j >= n_full:
+                break
+            yield b.images, b.signals, b.clinical
+        return
+    for j in range(n_full):
+        rows = slice(j * bs, (j + 1) * bs)
+        yield (arrays.images[rows], arrays.signals[rows],
+               arrays.clinical[rows])
 
 
 def maybe_calibrate_bn_stats(state: TrainState, train_arrays: Arrays,
@@ -105,23 +123,31 @@ def precompute_fusion_embeddings(model: ECGMultimodalModel, arrays: Arrays,
     hold the raw (N, D) float32 embeddings, for `make_fusion_head_task`.
     An empty split keeps the branch widths: (0, D) each."""
     n = arrays.n
-    device = arrays.labels.device
+    device = next(model.parameters()).device
+    labels = arrays.labels
+    if isinstance(arrays, HostArrays):
+        labels = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
     if n == 0:
         c = model.cfg
-        return arrays._replace(**{
+        return Arrays(labels=labels, indices=np.asarray(arrays.indices), **{
             f: torch.zeros((0, d), dtype=torch.float32, device=device)
             for f, d in (("images", c.image_dim), ("signals", c.signal_dim),
                          ("clinical", c.clinical_dim))})
-    idx, _ = epoch_indices(n, batch_size, shuffle=False, seed=0, epoch=0)
-    idx_d = torch.from_numpy(idx.astype(np.int64)).to(device)
-    outs = []
+    if isinstance(arrays, HostArrays):
+        batches = ((b.images, b.signals, b.clinical) for b in
+                   prefetch_batches(arrays, batch_size, shuffle=False,
+                                    seed=0, device=device))
+    else:
+        idx, _ = epoch_indices(n, batch_size, shuffle=False, seed=0, epoch=0)
+        idx_d = torch.from_numpy(idx.astype(np.int64)).to(device)
+        batches = (tuple(a.index_select(0, rows) for a in
+                         (arrays.images, arrays.signals, arrays.clinical))
+                   for rows in idx_d)
     with torch.no_grad():
-        for rows in idx_d:
-            outs.append(model.encode_raw(
-                *(a.index_select(0, rows)
-                  for a in (arrays.images, arrays.signals, arrays.clinical))))
+        outs = [model.encode_raw(*b) for b in batches]
     img, sig, clin = (torch.cat(o)[:n] for o in zip(*outs))
-    return arrays._replace(images=img, signals=sig, clinical=clin)
+    return Arrays(images=img, signals=sig, clinical=clin, labels=labels,
+                  indices=np.asarray(arrays.indices))
 
 
 def maybe_cache_fusion_embeddings(

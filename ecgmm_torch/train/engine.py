@@ -20,9 +20,16 @@ reference's (train.py:55-167), as the JAX engine keeps them:
     epoch; the counters update before the checkpoints are written; early
     stop and the plateau decay follow the config (0 disables them);
   * on SIGTERM the current epoch finishes, `last` is written, and fit
-    returns with `preempted` set.
-The mesh, streaming, super-chunks and `keep_best` are not ported yet
-(ROADMAP.md).
+    returns with `preempted` set;
+  * a split over the device-memory budget arrives as a `HostArrays` and
+    streams (`data/pipeline.prefetch_batches`, or with
+    `stream_chunk_batches` > 1 `prefetch_chunks`); the chunks hold the
+    resident plan's batches in its order, so a chunked run gives the
+    resident run's losses and parameters; `evaluate_streamed` is the test
+    protocol over such a split;
+  * `debug_nans` makes a non-finite loss or gradient raise
+    FloatingPointError for the length of one fit.
+The mesh and `keep_best` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ import numpy as np
 import torch
 
 from ecgmm_torch.config import TrainConfig
-from ecgmm_torch.data.pipeline import Arrays, Batch, epoch_order
+from ecgmm_torch.data.pipeline import (Arrays, Batch, HostArrays,
+                                       epoch_order, prefetch_batches,
+                                       prefetch_chunks)
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.state import TrainState
@@ -103,16 +112,47 @@ def _plan_on_device(idx: np.ndarray, mask: np.ndarray, device):
             torch.from_numpy(mask).to(device))
 
 
-def train_step(task: Task, state: TrainState,
-               batch: Batch) -> Dict[str, torch.Tensor]:
+def _check_finite(what: str, tensors) -> None:
+    """One read of the device: raise FloatingPointError naming the tensors
+    that hold a NaN or an Inf."""
+    tensors = [(name, t) for name, t in tensors if t is not None]
+    if not tensors:
+        return
+    finite = torch.stack([torch.isfinite(t).all() for _, t in tensors])
+    if not bool(finite.all()):
+        bad = [name for (name, _), ok in zip(tensors, finite.tolist())
+               if not ok]
+        raise FloatingPointError(
+            f"debug_nans: non-finite {what}: {', '.join(bad[:8])}")
+
+
+def train_step(task: Task, state: TrainState, batch: Batch,
+               debug_nans: bool = False) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update; returns the step's
-    metrics as device tensors, detached (no host synchronisation)."""
+    metrics as device tensors, detached (no host synchronisation). With
+    `debug_nans` the step reads its loss and gradients back and raises
+    FloatingPointError on a NaN or an Inf, as JAX's `jax_debug_nans`
+    stops a step."""
     model = state.model
     model.train()
     outputs = task.apply(model, batch)
     loss, mets = task.loss(outputs, batch)
+    if debug_nans:
+        _check_finite("loss", [("loss", loss)])
     state.optimizer.zero_grad()
-    loss.backward()
+    if debug_nans:
+        try:
+            loss.backward()
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            # anomaly detection met a NaN in a backward
+            raise FloatingPointError(f"debug_nans: {e}") from e
+    else:
+        loss.backward()
+    if debug_nans:
+        _check_finite("gradient", [(n, p.grad) for n, p
+                                   in model.named_parameters()])
     state.optimizer.step(state.step)
     state.step += 1
     with torch.no_grad():
@@ -135,23 +175,16 @@ def _assemble_eval(losses, logits, labels, extra) -> EvalResult:
     )
 
 
-def evaluate(task: Task, state: TrainState, arrays: Arrays,
-             batch_size: int) -> EvalResult:
-    """Full-split eval in eval mode without autograd: the JAX
-    `evaluate_scan` semantics, read back to the host once."""
-    if arrays.n == 0:
-        return _empty_eval()
-    idx, mask = epoch_indices(arrays.n, batch_size, shuffle=False, seed=0,
-                              epoch=0)
-    device = arrays.labels.device
-    idx_d, mask_d = _plan_on_device(idx, mask, device)
+def _eval_batches(task: Task, state: TrainState, batches, keep: np.ndarray
+                  ) -> EvalResult:
+    """Eval mode, no autograd, over `batches`; `keep` marks the real rows
+    of their concatenation. The host reads the device once."""
     model = state.model
     model.eval()
     losses, logits, labels = [], [], []
     extra: Dict[str, List[torch.Tensor]] = {}
     with torch.no_grad():
-        for i in range(idx.shape[0]):
-            batch = gather_batch(arrays, idx_d[i], mask_d[i])
+        for batch in batches:
             outputs = task.apply(model, batch)
             loss, mets = task.loss(outputs, batch)
             losses.append(loss)
@@ -160,13 +193,63 @@ def evaluate(task: Task, state: TrainState, arrays: Arrays,
             for k, v in mets.items():
                 if v.dim() == 0:
                     extra.setdefault(k, []).append(v)
-        keep = mask.reshape(-1) > 0
         flat_logits = torch.cat(logits).cpu().numpy()[keep]
         flat_labels = torch.cat(labels).cpu().numpy()[keep]
         return _assemble_eval(
             torch.stack(losses).cpu().numpy(), flat_logits, flat_labels,
             {k: torch.stack(v).cpu().numpy() for k, v in extra.items()},
         )
+
+
+def evaluate(task: Task, state: TrainState, arrays, batch_size: int,
+             stream_chunk_batches: int = 0) -> EvalResult:
+    """Full-split eval in eval mode without autograd: the JAX
+    `evaluate_scan` semantics, read back to the host once. A HostArrays
+    split streams (`evaluate_streamed`, in chunks of
+    `stream_chunk_batches` batches where that is above 1)."""
+    if isinstance(arrays, HostArrays):
+        return evaluate_streamed(task, state, arrays, batch_size,
+                                 stream_chunk_batches)
+    if arrays.n == 0:
+        return _empty_eval()
+    idx, mask = epoch_indices(arrays.n, batch_size, shuffle=False, seed=0,
+                              epoch=0)
+    idx_d, mask_d = _plan_on_device(idx, mask, arrays.labels.device)
+    return _eval_batches(
+        task, state, (gather_batch(arrays, idx_d[i], mask_d[i])
+                      for i in range(idx.shape[0])),
+        mask.reshape(-1) > 0)
+
+
+def _model_device(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+def _chunk_batches(chunks):
+    for chunk, idx_c, mask_c, _ in chunks:
+        for i in range(idx_c.shape[0]):
+            yield gather_batch(chunk, idx_c[i], mask_c[i])
+
+
+def evaluate_streamed(task: Task, state: TrainState, arrays: HostArrays,
+                      batch_size: int, stream_chunk_batches: int = 0
+                      ) -> EvalResult:
+    """`evaluate` over a HostArrays split without a whole copy of it on the
+    device: per batch (`prefetch_batches`; the last batch padded with its
+    last row), or with `stream_chunk_batches` > 1 in chunks of the
+    resident plan (`prefetch_chunks`)."""
+    if arrays.n == 0:
+        return _empty_eval()
+    device = _model_device(state)
+    idx, mask = epoch_indices(arrays.n, batch_size, shuffle=False, seed=0,
+                              epoch=0)
+    if stream_chunk_batches > 1:
+        batches = _chunk_batches(prefetch_chunks(
+            arrays, idx, mask, stream_chunk_batches, device=device))
+    else:
+        batches = prefetch_batches(arrays, batch_size, shuffle=False,
+                                   seed=0, epoch=0, device=device)
+    return _eval_batches(task, state, batches, mask.reshape(-1) > 0)
 
 
 @dataclasses.dataclass
@@ -193,7 +276,13 @@ def fit(
 ) -> FitResult:
     """The reference's epoch loop (train.py:55-167) from `state.epoch` to
     `cfg.num_epochs`. On SIGTERM (main thread only) the current epoch
-    completes, `last` is saved and the loop stops."""
+    completes, `last` is saved and the loop stops. With `cfg.debug_nans`
+    a non-finite loss or gradient raises FloatingPointError, and torch's
+    anomaly detection is on for the fit (naming the backward that made a
+    NaN); its previous setting is restored when fit returns or raises."""
+    prev_anomaly = torch.is_anomaly_enabled()
+    if cfg.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
     preempted = {"flag": False}
     prev_handler = None
     try:
@@ -210,12 +299,15 @@ def fit(
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
+        torch.autograd.set_detect_anomaly(prev_anomaly)
 
 
 def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
               log_prefix, verbose, train_sample_weights,
               preempted) -> FitResult:
-    device = train_arrays.labels.device
+    device = _model_device(state)
+    streamed = isinstance(train_arrays, HostArrays)
+    chunked = streamed and cfg.stream_chunk_batches > 1
     history: List[Dict[str, float]] = []
     best_epoch = -1
     stopped_early = False
@@ -227,12 +319,22 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
             epoch=epoch, sample_weights=train_sample_weights,
         )
         n_batches = idx.shape[0]
-        idx_d, mask_d = _plan_on_device(idx, mask, device)
-        step_mets = [
-            train_step(task, state,
-                       gather_batch(train_arrays, idx_d[i], mask_d[i]))
-            for i in range(n_batches)
-        ]
+        stream_stats: Dict[str, float] = {}
+        if chunked:
+            batches = _chunk_batches(prefetch_chunks(
+                train_arrays, idx, mask, cfg.stream_chunk_batches,
+                device=device, stats=stream_stats))
+        elif streamed:
+            batches = prefetch_batches(
+                train_arrays, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                epoch=epoch, device=device,
+                sample_weights=train_sample_weights)
+        else:
+            idx_d, mask_d = _plan_on_device(idx, mask, device)
+            batches = (gather_batch(train_arrays, idx_d[i], mask_d[i])
+                       for i in range(n_batches))
+        step_mets = [train_step(task, state, batch, cfg.debug_nans)
+                     for batch in batches]
         # one read of the device per epoch: the three sums, then the last
         # step's soft weights where the task has them
         soft_weights = None
@@ -251,7 +353,11 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
         avg_train_loss = float(sums[0]) / max(n_batches, 1)
         train_acc = float(sums[1]) / max(float(sums[2]), 1.0)
 
-        val = evaluate(task, state, val_arrays, cfg.eval_bs)
+        if isinstance(val_arrays, HostArrays):
+            val = evaluate_streamed(task, state, val_arrays, cfg.eval_bs,
+                                    cfg.stream_chunk_batches)
+        else:
+            val = evaluate(task, state, val_arrays, cfg.eval_bs)
         epoch_time = time.perf_counter() - t0
 
         scalars = {
@@ -263,6 +369,10 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
         }
         if "var_loss" in val.metrics:
             scalars["VarLoss/Val"] = val.metrics["var_loss"]
+        if chunked:
+            # the producer thread's host seconds (they overlap the steps)
+            scalars["Time/StreamGather"] = stream_stats.get("gather_s", 0.0)
+            scalars["Time/StreamPut"] = stream_stats.get("put_s", 0.0)
         if soft_weights is not None:
             for k, branch in enumerate(("Image", "Signal", "Clinical")):
                 scalars[f"AttentionWeights/{branch}_w"] = float(

@@ -9,7 +9,12 @@ steps, and the learning rate is set from it before every `step()`. torch's
 `OneCycleLR` is not used: it places the peak one step earlier and cycles
 Adam's beta1. As in the JAX package, a scheduled optimizer exposes no
 learning rate to the plateau decay or the logs (`get_lr` is None: optax's
-`adam(schedule)` injects no hyperparameter); the constant one does.
+`adam(schedule)` injects no hyperparameter); the constant one does. With
+`weight_decay` the gradient takes `weight_decay * p` before Adam (torch
+Adam's coupled decay), as the JAX package chains
+`optax.add_decayed_weights` before adam; the plateau decay reaches the
+learning rate through that chain there, and through the param groups
+here.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ class Optimizer:
         else:
             raise ValueError(f"unknown schedule {cfg.schedule!r}")
         self.adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+                                     eps=1e-8,
+                                     weight_decay=cfg.weight_decay)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)

@@ -189,7 +189,7 @@ def main(argv=None):
         get_preset("fusion"), epochs=args.epochs,
         cache_embeddings=args.cache_embeddings)
     device = run_lib._device(args.device)
-    data = run_lib.load_data(cfg, args.n_synth, device=device)
+    data = run_lib.load_data(cfg, "synthetic", args.n_synth, device=device)
     _, ev = run_pipeline(cfg, data, args.run_dir, device=device)
     print(f"fusion test accuracy: {ev.accuracy:.4f}")
 

@@ -17,14 +17,31 @@ spectrogram CRNN and the 1-D Transformer:
         --epochs 1 --n-synth 48
 
 It trains on the card unless `--device cpu` is given, on the
-deterministic synthetic cohort (as the JAX CLI does by default), and ends
-with the reference's test protocol over the best and the last checkpoint
-(train.py:174-336), with a temperature fit on the val split for each.
+deterministic synthetic cohort (as the JAX CLI does by default) or on
+records read from a directory, and ends with the reference's test
+protocol over the best and the last checkpoint (train.py:174-336), with a
+temperature fit on the val split for each:
+
+    python -m ecgmm_torch.workloads.run --preset fusion --data hospital \
+        --data-dir ./data                 # labels.xlsx, clinical.csv, ...
+    python -m ecgmm_torch.workloads.run --preset ptbxl_af --data-dir ./ptbxl
+    python -m ecgmm_torch.workloads.run --preset physionet_multi \
+        --data-dir ./physionet            # REFERENCE.csv, training2017/
+
+An explicit `--data-dir` means real data: it sets the hospital, PTB-XL and
+PhysioNet directories alike. `--split-cache DIR` saves the materialised
+splits there on the first run and reopens them memory-mapped on later
+ones (a cache built for another preset, source, directory, cohort size,
+seed or geometry is refused). A split over the device-memory budget
+(`ECGMM_HBM_BUDGET_BYTES`, else 60% of the card's memory) stays on the
+host and streams, in chunks of `ECGMM_STREAM_CHUNK_BATCHES` batches (else
+`pipeline.auto_chunk_batches`).
 Float32 work runs in float32 on the card: the run turns TF32 off in cuDNN
 and cuBLAS and restores the flags when it returns (`no_tf32`).
 Checkpoints go to `--run-dir` (default `./checkpoints/<stamp>`), the
 metric log to `./runs/<stamp>/metrics.jsonl` and the reports to
-`./output/<stamp>/report_{best,last}.txt`.
+`./output/<stamp>/`: `report_{best,last}.txt`, `confusion_{best,last}.png`
+and, for two classes, `roc_{best,last}.png`.
 """
 
 from __future__ import annotations
@@ -39,7 +56,8 @@ import numpy as np
 import torch
 
 from ecgmm_torch.config import Config, get_preset
-from ecgmm_torch.data import pipeline, preprocess, splits, synthetic
+from ecgmm_torch.data import (align, pipeline, preprocess, sources, splits,
+                              synthetic)
 from ecgmm_torch.models import (CRNN, ECGMultimodalModel, ECGTransformer1D,
                                 ResNet18, ResNet1DSE)
 from ecgmm_torch.models.crnn import lstm_bias_frozen
@@ -61,9 +79,6 @@ STAGE_PRESETS = ("image_only", "signal_only")
 SIGNAL_FAMILIES = ("ptbxl_af", "physionet", "physionet_multi",
                    "physionet_crnn", "physionet_transformer", "signal_af",
                    "signal_arr", "signal_12lead")
-REAL_DATA_ITEM = ("ROADMAP.md section 1, 'Real-data training': the PTB-XL "
-                  "and PhysioNet records and their manifests are not in the "
-                  "repository")
 
 
 def _device(device) -> torch.device:
@@ -113,28 +128,51 @@ def build_model_and_task(cfg: Config, device="cuda"):
     return model.to(_device(device)), task, freeze
 
 
-def load_data(cfg: Config, n_synth: int,
+def load_data(cfg: Config, source: str = "synthetic", n_synth: int = 128,
               device="cuda") -> pipeline.MaterializedData:
-    """The preset's synthetic cohort, split and preprocessed as its
-    reference trainer does, on `device`, with the JAX package's draws
-    (`ecgmm_tpu/workloads/run.py:95-221`): the trimodal cohort of the
-    fusion, image_only and signal_only presets (images img_height x
-    img_width, the preset's clinical columns) through
-    `materialize_trimodal`; PTB-XL is drawn at 500 Hz (2 x signal_len),
-    split 60/20/20 and decimated, filtered and cut to signal_len;
-    PhysioNet is split 80/10/10 (70/10/20 with three random classes for
-    physionet_multi), band-passed and z-scored, and turned into
-    log-spectrograms for physionet_crnn; the hospital presets take the
-    hospital filter: signal_af a cohort of at least 60 with exactly 6
-    random positives and the manual AF split, signal_12lead 12 leads of
-    random gains, split 80/10/10 as signal_arr is."""
+    """The preset's data, split and preprocessed as its reference trainer
+    does (`ecgmm_tpu/workloads/run.py:95-281`), on `device` as far as the
+    device-memory budget allows (`device=None`: every split on the host,
+    for the split cache).
+
+    `source` "synthetic" draws the JAX package's synthetic cohort:
+    `n_synth` trimodal records for the fusion, image_only and signal_only
+    presets (images img_height x img_width, the preset's clinical
+    columns); PTB-XL at 500 Hz (2 x signal_len); PhysioNet (three random
+    classes for physionet_multi); for signal_af a cohort of at least 60
+    with exactly 6 random positives, for signal_12lead 12 leads of random
+    gains.
+
+    Any other source reads records: "hospital" the directory
+    `cfg.data.data_dir` (`_hospital_cohort`) for the trimodal presets; the
+    PTB-XL presets read `cfg.data.ptbxl_dir` (`ptbxl_database.csv`, lead II
+    of each `filename_hr` record), the PhysioNet presets
+    `cfg.data.physionet_dir` (`REFERENCE.csv`, the first channel of each
+    record under `training2017/`, right-padded with zeros or cut to
+    signal_len); a missing manifest raises FileNotFoundError. The hospital
+    signal presets (signal_af, signal_arr, signal_12lead) read no records
+    in either package.
+
+    The splits and filters: trimodal 8:1:1 through `materialize_trimodal`;
+    PTB-XL 60/20/20, decimated, filtered and cut to signal_len; PhysioNet
+    80/10/10 (70/10/20 for three classes), band-passed and z-scored,
+    log-spectrograms for physionet_crnn; the hospital presets the hospital
+    filter, signal_af the manual AF split."""
+    if not isinstance(source, str):
+        raise TypeError(f"source must be 'synthetic' or a record source, "
+                        f"got {source!r}")
     seed = cfg.train.seed
     rng = np.random.default_rng(seed)
     if cfg.name in FUSION_FAMILIES + STAGE_PRESETS:
-        c = synthetic.make_cohort(
-            n=n_synth, signal_len=cfg.data.signal_len,
-            img_hw=(cfg.data.img_height, cfg.data.img_width),
-            n_clinical=cfg.model.clinical_in_features, seed=seed)
+        if source == "synthetic":
+            c = synthetic.make_cohort(
+                n=n_synth, signal_len=cfg.data.signal_len,
+                img_hw=(cfg.data.img_height, cfg.data.img_width),
+                n_clinical=cfg.model.clinical_in_features, seed=seed)
+        elif source == "hospital":
+            c = _hospital_cohort(cfg)
+        else:
+            raise ValueError(f"unknown data source {source!r}")
         return pipeline.materialize_trimodal(c, cfg, device=device)
     if cfg.name not in SIGNAL_FAMILIES:
         raise ValueError(f"unknown preset {cfg.name!r}")
@@ -144,23 +182,43 @@ def load_data(cfg: Config, n_synth: int,
                                      img_hw=None, seed=seed)
 
     if cfg.name == "ptbxl_af":
-        c = cohort(n_synth, 2 * cfg.data.signal_len)  # at 500 Hz
+        if source != "synthetic":
+            mani = _manifest(cfg.data.ptbxl_dir, "ptbxl_database.csv",
+                             "PTB-XL", sources.load_ptbxl_manifest)
+            signals = np.stack([sources.read_wfdb(r, channels=[1])[0][:, 0]
+                                for r in mani["record"]])
+            labels = mani["label"]
+        else:
+            c = cohort(n_synth, 2 * cfg.data.signal_len)  # at 500 Hz
+            signals, labels = c.signals, c.labels
         return pipeline.materialize_signal(
-            c.signals, c.labels, splits.stratified_622(c.labels, seed),
+            signals, labels, splits.stratified_622(labels, seed),
             preprocess_fn=lambda s: preprocess.preprocess_ptbxl(
                 s, length=cfg.data.signal_len),
             device=device,
         )
     if cfg.name.startswith("physionet"):
-        c = cohort(n_synth)
-        labels = c.labels
-        if cfg.model.num_classes > 2:
-            labels = rng.integers(0, 3, len(labels))
-            split = splits.stratified_712(labels, seed)
+        multiclass = cfg.model.num_classes > 2
+        if source != "synthetic":
+            mani = _manifest(
+                cfg.data.physionet_dir, "REFERENCE.csv", "PhysioNet",
+                lambda d: sources.load_physionet_manifest(
+                    d, multiclass=multiclass))
+            signals = np.stack([
+                preprocess.pad_or_crop(
+                    sources.read_wfdb(r)[0][:, 0].astype(np.float32),
+                    cfg.data.signal_len)
+                for r in mani["record"]])
+            labels = mani["label"]
         else:
-            split = splits.stratified_811(labels, seed)
+            c = cohort(n_synth)
+            signals, labels = c.signals, c.labels
+            if multiclass:
+                labels = rng.integers(0, 3, len(labels))
+        split = (splits.stratified_712(labels, seed) if multiclass
+                 else splits.stratified_811(labels, seed))
         return pipeline.materialize_signal(
-            c.signals, labels, split,
+            signals, labels, split,
             preprocess_fn=preprocess.preprocess_physionet,
             spectrogram=(cfg.name == "physionet_crnn"), device=device,
         )
@@ -186,6 +244,49 @@ def load_data(cfg: Config, n_synth: int,
         preprocess_fn=preprocess.preprocess_hospital, device=device)
 
 
+def _manifest(directory: str, name: str, what: str, read):
+    path = os.path.join(directory, name)
+    if not os.path.exists(path):
+        # an explicit real-data request must not train on the synthetic
+        # cohort instead
+        raise FileNotFoundError(
+            f"real {what} requested but {path} not found — point --data-dir "
+            "at the download or drop --data")
+    return read(directory)
+
+
+def _hospital_cohort(cfg: Config) -> synthetic.SyntheticCohort:
+    """A hospital directory as a cohort (`ecgmm_tpu/workloads/run.py:
+    243-281`, reference dataset.py:118-162): the labels mapped
+    Normal/Abnormal -> 0/1 (Borderline dropped), the patients in every
+    table and with an image folder (less `known_missing`), in the label
+    table's order; each patient's image decoded and resized to
+    img_height x img_width; the clinical columns other than `index`, in
+    the file's order."""
+    d = cfg.data
+    labels, clinical, ecg = sources.load_hospital_tables(
+        os.path.join(d.data_dir, d.label_file),
+        os.path.join(d.data_dir, d.clinical_file),
+        os.path.join(d.data_dir, d.ecg_csv))
+    labels = align.filter_and_map_labels(labels)
+    common = align.intersect_indices(
+        labels["index"], ecg.index, clinical["index"],
+        sources.list_image_indices(d.image_dir), d.known_missing)
+    labels, ecg, clinical = align.align_frames(labels, ecg, clinical, common)
+    order = labels["index"]
+    clin_cols = [c for c in clinical.columns if c != "index"]
+    return synthetic.SyntheticCohort(
+        indices=order,
+        labels=labels["label"],
+        signals=ecg.loc(order).to_numpy(np.float32),
+        clinical=clinical.set_index("index").loc(order).select(clin_cols)
+        .to_numpy(np.float32),
+        images=sources.load_images(d.image_dir, order.tolist(),
+                                   hw=(d.img_height, d.img_width)),
+        clinical_columns=tuple(clin_cols),
+    )
+
+
 def ptbxl_sample_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:
     """Inverse class frequency per train sample (reference
     train_signal_only_ptb.py:230-241)."""
@@ -196,21 +297,34 @@ def ptbxl_sample_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:
 def run(cfg: Config, data: pipeline.MaterializedData,
         run_dir: Optional[str] = None, verbose: bool = True,
         resume: bool = False, device="cuda"):
-    """Train the preset on `data` (materialised on `device`), then run the
-    best/last test protocol, with TF32 off (`no_tf32`). With
-    `cache_embeddings` (the `fusion_cached` preset) the frozen encoders'
-    BatchNorm statistics are first calibrated on the train split, each
-    split is encoded once, and training and the test protocol run the
-    fusion head task over the cached splits (`train/embed.py`). Returns
-    (FitResult, {tag: metrics})."""
+    """Train the preset on `data` (materialised for `device`), then run the
+    best/last test protocol, with TF32 off (`no_tf32`). Splits over the
+    device-memory budget (`pipeline.resolve_hbm_budget`) stay on the host
+    and stream, the test split too; the first of them sets the chunk size
+    when `stream_chunk_batches` is 0 (`ECGMM_STREAM_CHUNK_BATCHES`, else
+    `pipeline.auto_chunk_batches`). With `cache_embeddings` (the
+    `fusion_cached` preset) the frozen encoders' BatchNorm statistics are
+    first calibrated on the train split, each split is encoded once, and
+    training and the test protocol run the fusion head task over the
+    cached splits (`train/embed.py`). Returns (FitResult, {tag:
+    metrics})."""
     with no_tf32():
         return _run(cfg, data, run_dir, verbose, resume, _device(device))
 
 
+def _labels_np(arrays) -> np.ndarray:
+    labels = arrays.labels
+    return labels.cpu().numpy() if isinstance(labels, torch.Tensor) \
+        else np.asarray(labels)
+
+
 def _run(cfg, data, run_dir, verbose, resume, device):
-    if data.train.labels.device.type != device.type:
-        raise ValueError(f"data lies on {data.train.labels.device}, the run "
-                         f"on {device}")
+    for name in ("train", "val", "test"):
+        labels = getattr(data, name).labels
+        if isinstance(labels, torch.Tensor) and \
+                labels.device.type != device.type:
+            raise ValueError(f"data lies on {labels.device}, the run on "
+                             f"{device}")
     t = cfg.train
     if resume and run_dir is None:
         raise ValueError("resume=True requires run_dir (the directory "
@@ -230,12 +344,26 @@ def _run(cfg, data, run_dir, verbose, resume, device):
             print(f"resumed from {run_dir} at epoch {state.epoch}")
     writer = MetricWriter(os.path.join(t.log_dir, stamp))
     try:
+        budget = pipeline.resolve_hbm_budget(device)
+        if budget:
+            data = dataclasses.replace(data, **dict(zip(
+                ("train", "val", "test"), pipeline.fit_splits_in_budget(
+                    (data.train, data.val, data.test), budget, device))))
+            if (t.stream_chunk_batches == 0
+                    and isinstance(data.train, pipeline.HostArrays)):
+                env_k = os.environ.get("ECGMM_STREAM_CHUNK_BATCHES")
+                t = dataclasses.replace(t, stream_chunk_batches=int(
+                    env_k or pipeline.auto_chunk_batches(
+                        budget, data.train, t.batch_size, t.eval_bs)))
+                if verbose and t.stream_chunk_batches > 1:
+                    print(f"streaming in chunks of {t.stream_chunk_batches} "
+                          "batches")
         data, head_task = embed.cache_run_splits(state, data, t,
                                                  frozen=t.freeze_encoders)
         task = head_task or task
         weights = None
         if cfg.name == "ptbxl_af":
-            weights = ptbxl_sample_weights(data.train.labels.cpu().numpy(),
+            weights = ptbxl_sample_weights(_labels_np(data.train),
                                            cfg.model.num_classes)
         result = engine.fit(task, state, data.train, data.val, t, ckpt=ckpt,
                             writer=writer, verbose=verbose,
@@ -248,11 +376,13 @@ def _run(cfg, data, run_dir, verbose, resume, device):
         for tag in ("best", "last"):
             st = ckpt.restore(tag, result.state) if ckpt.exists(tag) \
                 else result.state
-            ev = engine.evaluate(task, st, data.test, t.eval_bs)
+            ev = engine.evaluate(task, st, data.test, t.eval_bs,
+                                 t.stream_chunk_batches)
             results[tag] = test_report(ev.logits, ev.labels, out_dir, tag,
                                        threshold_search=(t.loss == "focal"))
             if data.val.n > 0:
-                vev = engine.evaluate(task, st, data.val, t.eval_bs)
+                vev = engine.evaluate(task, st, data.val, t.eval_bs,
+                                      t.stream_chunk_batches)
                 temp = calibrate.fit_temperature(vev.logits, vev.labels)
                 temperatures[tag] = temp
                 results[tag].update(temperature=round(temp, 4))
@@ -292,10 +422,32 @@ def apply_train_overrides(cfg: Config, epochs=None, batch_size=None,
     return cfg
 
 
+def split_fingerprint(args, cfg: Config) -> dict:
+    """What shapes the materialised splits (the JAX CLI's fingerprint,
+    `ecgmm_tpu/workloads/run.py:570-584`): saved beside a split cache and
+    compared when it is reopened."""
+    return {
+        "preset": args.preset,
+        "source": args.data,
+        "data_dir": args.data_dir or "",
+        "n_synth": args.n_synth,
+        "seed": cfg.train.seed,
+        "variant": cfg.model.variant,
+        "signal_len": cfg.data.signal_len,
+        "img_hw": [cfg.data.img_height, cfg.data.img_width],
+        "clinical_in": cfg.model.clinical_in_features,
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="fusion",
                    choices=FUSION_FAMILIES + STAGE_PRESETS + SIGNAL_FAMILIES)
+    p.add_argument("--data", default="synthetic",
+                   choices=["synthetic", "hospital"])
+    p.add_argument("--data-dir", default=None,
+                   help="the records: a hospital directory, or the PTB-XL "
+                        "or PhysioNet download (implies real data)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -306,8 +458,10 @@ def main(argv=None):
     p.add_argument("--cache-embeddings", action="store_true",
                    help="train a fusion preset's head over embeddings its "
                         "frozen encoders compute once per split")
-    p.add_argument("--data-dir", default=None,
-                   help="real PTB-XL/PhysioNet records: not ported yet")
+    p.add_argument("--split-cache", default=None, metavar="DIR",
+                   help="save the materialised splits here on the first "
+                        "run and reopen them memory-mapped on later ones "
+                        "(splits over the device budget stream from disk)")
     p.add_argument("--run-dir", default=None)
     p.add_argument("--resume", action="store_true",
                    help="continue from --run-dir's last checkpoint")
@@ -315,17 +469,34 @@ def main(argv=None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.data_dir is not None:
-        raise FileNotFoundError(
-            f"training on real records from {args.data_dir!r} waits for "
-            f"{REAL_DATA_ITEM}; drop --data-dir to train on the synthetic "
-            "cohort")
     cfg = apply_train_overrides(get_preset(args.preset), epochs=args.epochs,
                                 batch_size=args.batch_size, lr=args.lr,
                                 seed=args.seed,
                                 cache_embeddings=args.cache_embeddings)
+    if args.data_dir:
+        # one flag for wherever this preset's records live
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, data_dir=args.data_dir, ptbxl_dir=args.data_dir,
+            physionet_dir=args.data_dir))
+        if args.data == "synthetic":
+            args.data = "hospital"  # an explicit --data-dir is real data
     device = _device(args.device)
-    data = load_data(cfg, args.n_synth, device=device)
+    fingerprint = split_fingerprint(args, cfg)
+    if args.split_cache and pipeline.has_materialized(args.split_cache):
+        data = pipeline.load_materialized(args.split_cache, device=device,
+                                          expect_meta=fingerprint)
+        print(f"reopened materialized splits from {args.split_cache}")
+    else:
+        # with a cache the splits stay on the host until saved, then
+        # reopen through the same memory-mapped path later runs take
+        data = load_data(cfg, args.data, args.n_synth,
+                         device=None if args.split_cache else device)
+        if args.split_cache:
+            pipeline.save_materialized(data, args.split_cache,
+                                       meta=fingerprint)
+            print(f"saved materialized splits to {args.split_cache}")
+            data = pipeline.load_materialized(args.split_cache,
+                                              device=device)
     run(cfg, data, run_dir=args.run_dir, resume=args.resume, device=device)
 
 

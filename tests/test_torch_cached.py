@@ -687,7 +687,7 @@ def test_fusion_cached_run_end_to_end(tmp_path, monkeypatch):
     initial state; a resume has nothing left to train."""
     cfg = _small_run_cfg("fusion_cached", tmp_path)
     assert cfg.train.cache_embeddings and cfg.train.cache_bn_calibrate
-    data = port_run.load_data(cfg, 45, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 45, device="cpu")
     encoded = []
     real = embed.precompute_fusion_embeddings
     monkeypatch.setattr(embed, "precompute_fusion_embeddings",

@@ -643,7 +643,8 @@ def _small(cfg, tmp_path=None, epochs=1):
 @pytest.mark.parametrize("name", ["fusion", "fusion_modal_balance"])
 def test_load_data_matches_jax(name):
     want = jax_run.load_data(_small(jax_get_preset(name)), "synthetic", 40)
-    got = port_run.load_data(_small(get_preset(name)), 40, device="cpu")
+    got = port_run.load_data(_small(get_preset(name)), "synthetic", 40,
+                             device="cpu")
     for split in ("train", "val", "test"):
         j, p = getattr(want, split), getattr(got, split)
         np.testing.assert_array_equal(p.indices, j.indices)
@@ -663,7 +664,7 @@ def test_run_end_to_end_on_cpu(name, tmp_path):
     in train mode), logs the attention weights and the val var_loss,
     writes the best/last reports and checkpoints, and resumes."""
     cfg = _small(get_preset(name), tmp_path, epochs=2)
-    data = port_run.load_data(cfg, 40, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 40, device="cpu")
     result, results = port_run.run(cfg, data, run_dir=str(tmp_path / "r"),
                                    verbose=False, device="cpu")
     assert len(result.history) == 2

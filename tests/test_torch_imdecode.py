@@ -327,10 +327,12 @@ def _first_scans(data: bytes, n: int) -> bytes:
 
 
 def test_unsupported_and_undecodable_raise_bad_request(photo):
-    """Progressive JPEG and 16-bit PNG, once refused here, decode now
-    (test_progressive_jpeg_bit_equal_to_pillow, test_png_bit_depths); a
+    """Progressive JPEG, 16-bit PNG and CMYK JPEG, once refused here,
+    decode now (test_progressive_jpeg_bit_equal_to_pillow,
+    test_png_bit_depths, test_cmyk_jpeg_bit_equal_to_pillow); a
     progressive JPEG whose scans stop before its first coefficients are
-    whole takes libjpeg's block smoothing, which the port refuses."""
+    whole takes libjpeg's block smoothing, which the port refuses, and so
+    are lossless, hierarchical and DNL-height JPEG."""
     img = photo[:40, :90]
     partial = _first_scans(_jpeg(img, progressive=True), 2)
     pillow(partial)  # Pillow decodes it, smoothing the blocks
@@ -339,7 +341,7 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
         (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC9),
          "arithmetic-coded JPEG"),
         (_patched(_jpeg(img), b"\xff\xc0", 4, 12), "12-bit JPEG"),
-        (_cmyk_jpeg(img), "CMYK"),
+        (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC3), "lossless JPEG"),
         (b"not an image", "not a decodable image"),
         (_jpeg(img)[:300], "not a decodable image"),
         (b"GIF89a" + b"\x00" * 20, "not a JPEG or PNG"),
@@ -350,17 +352,65 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
     three[ihdr + 17:ihdr + 21] = struct.pack(
         ">I", zlib.crc32(bytes(three[ihdr:ihdr + 17])) & 0xFFFFFFFF)
     cases.append((bytes(three), "bad PNG header"))
+    hierarchical = _patched(_jpeg(img), b"\xff\xc0", 1, 0xC5)
+    dnl = _patched(_patched(_jpeg(img), b"\xff\xc0", 5, 0),
+                   b"\xff\xc0", 6, 0)
+    cases += [(hierarchical, "hierarchical JPEG"), (dnl, "DNL marker")]
     for data, want in cases:
         with pytest.raises(BadRequest, match=want):
             decode_upload(data)
-    for data, want in cases[:4]:
+    for data, want in cases[:4] + cases[-2:]:
         assert "ROADMAP" in _message(data)
 
 
-def _cmyk_jpeg(img) -> bytes:
+def _cmyk_jpeg(img, **kwargs) -> bytes:
     buf = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG", **kwargs)
     return buf.getvalue()
+
+
+def _adobe_transform(data: bytes, transform) -> bytes:
+    """The JPEG with its Adobe APP14 transform flag set to `transform`, or
+    the marker's name spoiled (None) so that decoders see no Adobe
+    marker."""
+    i = data.index(b"Adobe")
+    out = bytearray(data)
+    if transform is None:
+        out[i] = ord("X")
+    else:
+        out[i + 11] = transform
+    return bytes(out)
+
+
+@pytest.mark.parametrize("quality", [75, 95])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_cmyk_jpeg_bit_equal_to_pillow(photo, progressive, quality):
+    """Pillow writes CMYK JPEG inverted, with an Adobe marker of transform
+    0; it reads it back inverted ("CMYK;I") and converts with nk = 255 - K
+    (`Convert.c` cmyk2rgb). The port follows both, bit for bit."""
+    data = _cmyk_jpeg(photo[:120, :300], quality=quality,
+                      progressive=progressive)
+    assert data[data.index(b"Adobe") + 11] == 0
+    assert_bit_equal(data)
+
+
+@pytest.mark.parametrize("transform", [2, 1])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_ycck_jpeg_bit_equal_to_pillow(photo, progressive, transform):
+    """Adobe transform 2 (and any other but 0) makes libjpeg read the four
+    components as YCCK: the first three through its YCbCr->RGB arithmetic,
+    inverted, K as stored (`ycck_cmyk_convert`). Pillow cannot write YCCK,
+    so a CMYK file's transform flag is set to 2 (or 1) here; libjpeg
+    decodes the same scans as YCCK then."""
+    data = _adobe_transform(_cmyk_jpeg(photo[:120, :300],
+                                       progressive=progressive), transform)
+    assert Image.open(io.BytesIO(data)).mode == "CMYK"
+    assert_bit_equal(data)
+
+
+def test_four_component_jpeg_without_adobe_marker_is_cmyk(photo):
+    """Without an Adobe marker libjpeg takes four components as CMYK."""
+    assert_bit_equal(_adobe_transform(_cmyk_jpeg(photo[:64, :96]), None))
 
 
 def _message(data):

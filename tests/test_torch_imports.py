@@ -1,9 +1,10 @@
 """The port stands alone: `ecgmm_torch` and `chip_smoke.py` import neither
 JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, nor Pillow,
-pandas or matplotlib (the card's machine has none), import without nvcc
-or a GPU, and their entry points do not fall back to the CPU. The scan
-and the blocked import walk every module of the package, the explainers
-of `ecgmm_torch/explain/` and the XAI CLI among them."""
+pandas, matplotlib, openpyxl or wfdb (the card's machine has none),
+import without nvcc or a GPU, and their entry points do not fall back to
+the CPU. The scan and the blocked import walk every module of the
+package, the explainers of `ecgmm_torch/explain/` and the XAI CLI, and
+the record readers and writers of the real-data path among them."""
 
 import ast
 import os
@@ -18,9 +19,11 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL",
-             "pandas", "matplotlib")
+             "pandas", "matplotlib", "openpyxl", "wfdb")
 XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
                "shap_fusion", "tabnet_masks")
+REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
+                     "data.preprocess", "tools.records", "train.report")
 
 
 def _port_files():
@@ -35,6 +38,9 @@ def test_no_forbidden_import_in_source():
     for name in XAI_MODULES:
         assert os.path.join(REPO, "ecgmm_torch", "explain",
                             f"{name}.py") in files
+    for name in REAL_DATA_MODULES:
+        assert os.path.join(REPO, "ecgmm_torch",
+                            *name.split(".")) + ".py" in files
     bad = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -66,6 +72,8 @@ def test_imports_with_jax_blocked():
             importlib.import_module(m)
         assert all(f"ecgmm_torch.explain.{{n}}" in mods
                    for n in {XAI_MODULES!r})
+        assert all(f"ecgmm_torch.{{n}}" in mods
+                   for n in {REAL_DATA_MODULES!r})
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         mod = importlib.util.module_from_spec(spec)
@@ -99,7 +107,7 @@ def test_train_cli_runs_on_cpu_with_jax_blocked(tmp_path):
     """`python -m ecgmm_torch.workloads.run --preset ptbxl_af --device cpu
     --epochs 1 --n-synth 48` trains the full-width model on the CPU, with
     JAX and the JAX package blocked, and writes its checkpoints, metric
-    log and best/last reports."""
+    log and best/last reports, the confusion and ROC PNGs among them."""
     code = textwrap.dedent(f"""
         import runpy, sys
         for name in {FORBIDDEN!r}:
@@ -118,14 +126,16 @@ def test_train_cli_runs_on_cpu_with_jax_blocked(tmp_path):
     assert "[best]" in out.stdout and "[last]" in out.stdout
     for path in ("checkpoints/r/best.pt", "checkpoints/r/last.pt",
                  "checkpoints/r/calibration.pt", "runs/r/metrics.jsonl",
-                 "output/r/report_best.txt", "output/r/report_last.txt"):
+                 "output/r/report_best.txt", "output/r/report_last.txt",
+                 "output/r/confusion_best.png", "output/r/roc_last.png"):
         assert (tmp_path / path).is_file(), path
 
 
 def test_train_cli_defaults_to_the_card():
     """Without --device the CLI trains on CUDA: where there is no card it
-    raises instead of quietly using the CPU. A real-data flag raises,
-    naming the ROADMAP item it waits for."""
+    raises instead of quietly using the CPU. `--data-dir` is a real-data
+    request: a directory without the preset's manifest raises, naming it,
+    instead of training on the synthetic cohort."""
     from ecgmm_torch.workloads import run
 
     argv = ["--preset", "ptbxl_af", "--epochs", "1", "--n-synth", "48"]
@@ -134,7 +144,8 @@ def test_train_cli_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="--device cpu"):
             run.main(argv)
-    with pytest.raises(FileNotFoundError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError,
+                       match="ptbxl_database.csv not found"):
         run.main(argv + ["--data-dir", "/nonexistent", "--device", "cpu"])
 
 

@@ -189,7 +189,7 @@ def test_runs_turn_tf32_off_and_restore_it(entry, tmp_path, monkeypatch):
             return pretrain.run_pipeline(cfg, data, str(tmp_path / "p"),
                                          stage_epochs=1, verbose=False,
                                          device="cpu")
-    data = port_run.load_data(cfg, 30, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 30, device="cpu")
     saved = _flags()
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -438,7 +438,7 @@ def test_stage_presets_load_the_trimodal_cohort_and_run(name, tmp_path):
         data=dataclasses.replace(jax_get_preset(name).data, signal_len=T,
                                  img_height=HW[0], img_width=HW[1]))
     want = jax_run.load_data(jcfg, "synthetic", 30)
-    data = port_run.load_data(cfg, 30, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 30, device="cpu")
     for split in ("train", "val", "test"):
         j, p = getattr(want, split), getattr(data, split)
         np.testing.assert_array_equal(p.indices, j.indices)
@@ -474,7 +474,7 @@ def test_run_pipeline_end_to_end(cached, tmp_path):
     cfg = _small(get_preset("fusion"), tmp_path)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, cache_embeddings=cached))
-    data = port_run.load_data(cfg, 40, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 40, device="cpu")
     run_dir = str(tmp_path / "p")
     result, ev = pretrain.run_pipeline(cfg, data, run_dir, stage_epochs=1,
                                        verbose=False, device="cpu")

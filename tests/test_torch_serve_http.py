@@ -456,7 +456,7 @@ def test_pipeline_from_run(tmp_path):
             cfg.train, num_epochs=1, checkpoint_dir=str(tmp_path / "ckpt"),
             log_dir=str(tmp_path / "runs"),
             output_dir=str(tmp_path / "output")))
-    data = port_run.load_data(cfg, 40, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 40, device="cpu")
     run_dir = str(tmp_path / "run")
     port_run.run(cfg, data, run_dir=run_dir, verbose=False, device="cpu")
     f32 = dataclasses.replace(cfg.model, dtype="float32")

@@ -87,13 +87,20 @@ def _small(cfg, t=None, **train):
 @pytest.mark.parametrize("name", sorted(JAX_PRESETS))
 def test_preset_equals_jax(name):
     """Every JAX preset exists in the port with the same values in every
-    field the port has."""
+    field the port has, the data paths, `known_missing`, `signal_fs`,
+    `weight_decay`, `debug_nans` and `stream_chunk_batches` among them,
+    and the same `image_dir`."""
     got, want = get_preset(name), jax_get_preset(name)
     assert got.name == want.name == name
     for part in ("data", "model", "train"):
         g = dataclasses.asdict(getattr(got, part))
         w = dataclasses.asdict(getattr(want, part))
         assert {k: g[k] for k in g} == {k: w[k] for k in g}, part
+    assert set(dataclasses.asdict(got.data)) == set(
+        dataclasses.asdict(want.data))
+    assert {"weight_decay", "debug_nans", "stream_chunk_batches"} <= set(
+        dataclasses.asdict(got.train))
+    assert got.data.image_dir == want.data.image_dir
     assert sorted(PRESETS) == sorted(JAX_PRESETS)
 
 
@@ -149,7 +156,8 @@ def test_preprocess_hospital_matches_jax(shape):
 def test_load_data_matches_jax(name, n):
     jcfg = _small(jax_get_preset(name))
     want = jax_run.load_data(jcfg, "synthetic", n)
-    got = port_run.load_data(_small(get_preset(name)), n, device="cpu")
+    got = port_run.load_data(_small(get_preset(name)), "synthetic", n,
+                             device="cpu")
     for split in ("train", "val", "test"):
         j, p = getattr(want, split), getattr(got, split)
         np.testing.assert_array_equal(p.indices, j.indices)
@@ -224,7 +232,7 @@ def test_three_train_steps_match_jax(name, monkeypatch):
     pcfg = dataclasses.replace(pcfg, model=dataclasses.replace(
         pcfg.model, signal_base_filters=FILTERS))
     jdata = jax_run.load_data(jcfg, "synthetic", 48).train
-    pdata = port_run.load_data(pcfg, 48, device="cpu").train
+    pdata = port_run.load_data(pcfg, "synthetic", 48, device="cpu").train
     t = jcfg.train
     jmodel, jtask_fn, bridge, to_input = _jax_model(name, t_len)
     variables = jax.device_get(jax.jit(jmodel.init)(
@@ -363,7 +371,7 @@ def test_run_one_epoch_on_cpu(name, tmp_path):
     tests/test_workloads.py runs the JAX presets: a finite loss, both
     reports with `accuracy`, checkpoints that restore."""
     cfg = _run_cfg(name, tmp_path)
-    data = port_run.load_data(cfg, 48, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 48, device="cpu")
     result, reports = port_run.run(cfg, data, run_dir=str(tmp_path / "r"),
                                    verbose=False, device="cpu")
     assert len(result.history) == 1
@@ -408,7 +416,8 @@ def test_signal_af_degenerate_split_behaves_as_jax(n, tmp_path):
     jres, jrep = jax_run.run(jcfg, jax_run.load_data(jcfg, "synthetic", n),
                              run_dir=str(tmp_path / "j" / "r"),
                              verbose=False)
-    pres, prep = port_run.run(pcfg, port_run.load_data(pcfg, n, device="cpu"),
+    pres, prep = port_run.run(pcfg, port_run.load_data(pcfg, "synthetic", n,
+                                                       device="cpu"),
                               run_dir=str(tmp_path / "p" / "r"),
                               verbose=False, device="cpu")
     assert len(pres.history) == len(jres.history) == 2

@@ -185,7 +185,7 @@ def test_load_data_matches_jax_signal_task_data():
         pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(
             pcfg.data, signal_len=T))
         want = jax_run._signal_task_data(jcfg, "synthetic", 40)
-        got = port_run.load_data(pcfg, 40, device="cpu")
+        got = port_run.load_data(pcfg, "synthetic", 40, device="cpu")
         for split in ("train", "val", "test"):
             j, p = getattr(want, split), getattr(got, split)
             np.testing.assert_array_equal(p.indices, j.indices)
@@ -601,7 +601,7 @@ def _small_cfg(name, tmp_path, epochs=2):
 @pytest.mark.parametrize("name", ["ptbxl_af", "physionet_multi"])
 def test_run_end_to_end_on_cpu(name, tmp_path):
     cfg = _small_cfg(name, tmp_path)
-    data = port_run.load_data(cfg, 40, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 40, device="cpu")
     result, results = port_run.run(cfg, data, run_dir=str(tmp_path / "r"),
                                    verbose=False, device="cpu")
     assert len(result.history) == 2
@@ -611,7 +611,12 @@ def test_run_end_to_end_on_cpu(name, tmp_path):
     for tag in ("best", "last"):
         assert keys | {"temperature"} <= set(results[tag])
         assert os.path.isfile(tmp_path / "output" / "r" / f"report_{tag}.txt")
-    assert not list((tmp_path / "output" / "r").glob("*.png"))
+    # JAX's figures: the confusion matrix, and the ROC curve for two
+    # classes (drawn by the native PNG encoder)
+    pngs = {p.name for p in (tmp_path / "output" / "r").glob("*.png")}
+    assert pngs == {f"{kind}_{tag}.png" for tag in ("best", "last")
+                    for kind in (("confusion", "roc") if name == "ptbxl_af"
+                                 else ("confusion",))}
     ckpt = CheckpointManager(str(tmp_path / "r"))
     for tag in ("best", "last", "calibration"):
         assert ckpt.exists(tag)
@@ -628,7 +633,7 @@ def test_run_end_to_end_on_cpu(name, tmp_path):
 
 def test_run_refuses_mismatched_device_and_unported_presets(tmp_path):
     cfg = _small_cfg("ptbxl_af", tmp_path)
-    data = port_run.load_data(cfg, 40, device="cpu")
+    data = port_run.load_data(cfg, "synthetic", 40, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_run.run(cfg, data, device="cuda")
