@@ -113,6 +113,24 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      against a resident run's (bit-equal expected, above 1e-6 fails), a
      changed fingerprint refused; streamed and resident step times and
      busy shares;
+  12. (run after phase 11) the CV path (`run_cv_phase`): the fold-axis
+     kernels (`fused_se` at (4*16, C, T) for the three SE widths,
+     `fused_attention_fusion` at 15*16 and 90*16 rows of D = 672,
+     `fused_focal_loss` at (4*16, 2)) against loops over folds of their
+     plain versions with phase 3's bars, forward and backward, times and
+     bounds; the fold program (`cv_parallel.run_fold_parallel`) against
+     each fold's sequential fit with JAX's tests/test_cv_parallel.py bars
+     in float32 at full width: (a) `signal_only` at B = 16, 4 folds of a
+     2x2 nested split, the last with a NaN val split; (b) raw `fusion`
+     (224 x 224 images, frozen train-mode encoders), 4 folds; (c)
+     `fusion` over cached embeddings, the 15 folds of nested 5x3; the
+     launches of each against its plan (each kernel once per vmapped op,
+     never once per fold); `python -m ecgmm_torch.train.cv` nested,
+     nested --fold-parallel --cache-embeddings, exhaustive --k 10
+     --fold-parallel --cache-embeddings and cross --pth in four
+     subprocesses at once (finite summaries, wall times); the peak memory
+     of raw `fusion` and `signal_only` waves at two wave sizes and the
+     rows cap it gives;
   7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16,
      `fusion` and `fusion_cached` (head steps, after a timed calibration
      and encoding of the train split) at B=16 and 256, `image_only` at
@@ -155,7 +173,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ecgmm_torch import native  # noqa: E402
 from ecgmm_torch.config import get_preset  # noqa: E402
-from ecgmm_torch.data import pipeline, preprocess  # noqa: E402
+from ecgmm_torch.data import (  # noqa: E402
+    pipeline, preprocess, splits, synthetic)
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
 from ecgmm_torch.explain import run_xai  # noqa: E402
 from ecgmm_torch.explain.deep_shap import explain_fusion_deep  # noqa: E402
@@ -188,7 +207,8 @@ from ecgmm_torch.tools import fusion_rounding  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
 from ecgmm_torch.tools import serve_hammer  # noqa: E402
 from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
-from ecgmm_torch.train import embed, engine  # noqa: E402
+from ecgmm_torch.train import (  # noqa: E402
+    cv, cv_parallel, embed, engine)
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ecgmm_torch.train.optim import Optimizer  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
@@ -1753,9 +1773,9 @@ NO_LAUNCHES = {k: 0 for k in ("fused_focal_loss", "fused_se",
 
 
 def _zero_launch_counts():
-    focal.launches = se.launches = fusion.launches = 0
-    focal.backward_launches = se.backward_launches = 0
-    fusion.backward_launches = 0
+    for m in (focal, se, fusion):
+        m.launches = m.backward_launches = 0
+        m.fold_launches = m.fold_backward_launches = 0
 
 
 def compare_train_steps(n_steps: int = 3):
@@ -3041,17 +3061,21 @@ def run_xai_phase(smi):
 
 
 def summarize(name, source, replaces, launches_by_path, rows, picked, per,
-              bound_by="bytes", backward=None):
+              bound_by="bytes", backward=None, fold=None):
     """One kernel's entry of the `kernels` line: the times are the sum
     over the calls that `per` names (the `picked` rows); `launches` is the
-    sum over the main paths this script drove. `backward`, for a kernel
-    with a backward kernel, is (backward launches by path, the rows of
-    the calls that run it, what those calls are): `fwd_bwd_ms` and its
-    bound sum forward plus backward over those calls."""
+    sum over the main paths this script drove, the fold-axis launches of
+    the CV paths included. `backward`, for a kernel with a backward
+    kernel, is (backward launches by path, the rows of the calls that run
+    it, what those calls are): `fwd_bwd_ms` and its bound sum forward plus
+    backward over those calls. `fold` is (fold-axis forward launches by
+    path, backward launches by path, the fold-axis rows of phase 12)."""
     lib = [r["library_us"] for r in picked]
+    fold_fwd = sum(fold[0].values()) if fold else 0
     entry = {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": sum(launches_by_path.values()),
+        "replaces": replaces,
+        "launches": sum(launches_by_path.values()) + fold_fwd,
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if "max_abs_err" in r
                            and r.get("dtype", "float32") == "float32"),
@@ -3078,6 +3102,15 @@ def summarize(name, source, replaces, launches_by_path, rows, picked, per,
                                      for r in bwd_rows) / 1e3,
             "fwd_bwd_per": bwd_per,
             "bwd_launches_by_path": by_path,
+        })
+    if fold is not None:
+        fwd_paths, bwd_paths, fold_rows = fold
+        entry.update({
+            "fold_launches": fold_fwd,
+            "fold_bwd_launches": sum(bwd_paths.values()),
+            "fold_launches_by_path": fwd_paths,
+            "fold_bwd_launches_by_path": bwd_paths,
+            "fold_shapes": fold_rows,
         })
     return entry
 
@@ -3484,6 +3517,578 @@ def check_streaming(dirs, tmp, smi) -> dict:
     return launched
 
 
+# ----------------------------------------------------------------- phase 12
+# phase 12, the CV path (`python -m ecgmm_torch.train.cv`): the fold-axis
+# kernels at the fold program's shapes against their plain versions (loops
+# over folds of the phase-3 plain versions), the fold program against the
+# sequential fits at full width on the card, the CLI, and the rows cap
+CV_B = 16  # the CV presets' batch
+CV_SIGNAL_FOLDS = 4  # the 2x2 nested split of configuration (a)
+CV_FUSION_FOLDS = (15, 90)  # nested 5x3; exhaustive k = 10
+CV_NAN_ROWS = 6  # the NaN val split of configuration (a)'s last fold
+CV_CLI_N = 128  # the CLI's --n-synth
+CV_WAVES = (2, 6)  # folds of the two raw waves whose peak memory is read
+CV_N = 96  # records of configurations (a) and (b)
+CV_SIGNAL_LEN = 2476  # the CV presets' full width
+CV_IMG = (224, 224)
+CV_DEVICE = "cuda"
+
+
+def _fold_counts():
+    return {"fused_se_fold": se.fold_launches,
+            "fused_se_fold_backward": se.fold_backward_launches,
+            "fused_attention_fusion_fold": fusion.fold_launches,
+            "fused_attention_fusion_fold_backward":
+                fusion.fold_backward_launches,
+            "fused_focal_loss_fold": focal.fold_launches,
+            "fused_focal_loss_fold_backward": focal.fold_backward_launches}
+
+
+def _grads_within(where, got, want, bar):
+    """Each gradient within bar * its largest component + 1e-6 (phase 3's
+    bar for the SE backward, and for the fusion and focal ones where the
+    reference is a closed form in float32)."""
+    errs = {}
+    for name, g, w in zip(("g%d" % i for i in range(len(got))), got, want):
+        if g is None and w is None:
+            continue
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        errs[name] = err / max(scale, 1e-30)
+        if err > bar * scale + 1e-6:
+            raise AssertionError(f"{where}: {name} err {err} (largest "
+                                 f"component {scale})")
+    return errs
+
+
+def fold_se_row(gen, folds, t, c, peaks):
+    """The fold-axis SE kernels at (folds * 16, C, T) with per-fold weights:
+    the forward within phase 3's 1e-5, each gradient against autograd of
+    the plain loop and against the closed form within 1e-5 of its largest
+    component plus 1e-6, the backward bit-identical on three more
+    launches; device times of the kernels and of the plain loop."""
+    bw, flops = peaks
+    b, r = folds * CV_B, max(1, c // 16)
+    x = torch.randn(b, c, t, generator=gen).cuda()
+    ws = [(torch.randn(folds, *s, generator=gen) * 0.1).cuda()
+          for s in ((r, c), (r,), (c, r), (c,))]
+    g = torch.randn(b, c, t, generator=gen).cuda()
+    leaves = [a.clone().requires_grad_(True) for a in [x] + ws]
+    out = se._FoldSE.apply(*leaves)[0]
+    g_kernel = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [a.clone().requires_grad_(True) for a in [x] + ws]
+    ref = se.reference_fold_se(*ref_leaves)
+    g_auto = torch.autograd.grad(ref, ref_leaves, g)
+    g_closed = se.reference_fold_se_backward([x] + ws, g)
+    _, state = se._launch(x, *ws, folds=folds)
+
+    def backward():
+        return se.launch_backward(x, ws[0], ws[1], ws[2], state, g,
+                                  folds=folds)
+
+    repeats = [backward() for _ in range(3)]
+    torch.cuda.synchronize()
+    where = f"fused_se fold axis F={folds} T={t} C={c}"
+    err = (out - ref).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"{where}: max err {err}")
+    grad_err = {k: _grads_within(f"{where} vs {k}", g_kernel, want, 1e-5)
+                for k, want in (("autograd", g_auto), ("closed", g_closed))}
+    if not all(torch.equal(a, w) for rep in repeats
+               for a, w in zip(rep, g_kernel)):
+        raise AssertionError(f"{where}: repeated backward launches differ")
+    n = x.numel()
+    w_bytes = 4 * sum(w.numel() for w in ws)
+    fwd_bytes = 8 * n + w_bytes + 8 * b * c
+    bwd_bytes = 12 * n + 2 * w_bytes + 8 * b * c
+    fwd_ops, bwd_ops = 2 * n + 4 * b * c * r, 4 * n + 8 * b * c * r
+
+    def fwd_bwd(fn, lv):
+        o = fn(*lv)
+        return torch.autograd.grad(o, lv, g)
+
+    row = {
+        "F": folds, "B": CV_B, "T": t, "C": c, "max_abs_err": err,
+        "grad_err_rel": grad_err,
+        "k_fwd": se.cluster_size(b, c, t, r, 4),
+        "us": device_us(lambda: se._launch(x, *ws, folds=folds)),
+        "plain_us": device_us(lambda: se.reference_fold_se(x, *ws)),
+        "bwd_us": device_us(backward),
+        "fwd_bwd_us": device_us(lambda: fwd_bwd(
+            lambda *a: se._FoldSE.apply(*a)[0], leaves)),
+        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(
+            se.reference_fold_se, ref_leaves)),
+        "bound_us": max(fwd_bytes / bw, fwd_ops / flops) * 1e6,
+        "bwd_bound_us": max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
+        "bound_by": "bytes", "library_us": None,
+    }
+    row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
+    print(f"{where} {row}", flush=True)
+    return row
+
+
+def fold_fusion_row(gen, folds, peaks, dims=FUSION_DIMS[0]):
+    """The fold-axis fusion kernels at (folds * 16, D) with per-fold
+    weights (F, 3), scale and bias (F, D): the values within phase 3's
+    1e-5, the soft weights to the bit against the plain loop, all six
+    gradients for random cotangents on the output and the soft weights
+    against the plain loop's closed form and autograd (rtol 1e-5 / atol
+    1e-4, `weights` against its largest component: phase 3's bars), three
+    more backward launches bit-identical; device times."""
+    bw, flops = peaks
+    b, d, eps = folds * CV_B, sum(dims), 1e-5
+    ins = [torch.randn(b, w, generator=gen) for w in dims] + [
+        torch.randn(folds, 3, generator=gen),
+        torch.randn(folds, d, generator=gen) + 1,
+        torch.randn(folds, d, generator=gen)]
+    ins = [a.cuda() for a in ins]
+    go = torch.randn(b, d, generator=gen).cuda()
+    gsw = torch.randn(folds, 3, generator=gen).cuda()
+
+    def fwd_bwd(fn, lv):
+        out, sw = fn(*lv)
+        return out, sw, torch.autograd.grad((out, sw), lv, (go, gsw))
+
+    def kernel(*a):
+        out, sw, _ = fusion._FoldAttentionFusion.apply(*a, eps, True,
+                                                       folds)
+        return out, sw
+
+    def plain(*a):
+        return fusion.reference_fold_attention_fusion(*a, eps=eps)
+
+    leaves = [a.clone().requires_grad_(True) for a in ins]
+    ref_leaves = [a.clone().requires_grad_(True) for a in ins]
+    out, sw, g_kernel = fwd_bwd(kernel, leaves)
+    ref, ref_sw, g_auto = fwd_bwd(plain, ref_leaves)
+    g_closed = fusion.reference_fold_fusion_backward(ins, eps, go, gsw)
+    prepared = fusion._prepare(*ins, folds=folds)
+    _, _, stats = fusion._launch(*prepared, eps, keep_stats=True,
+                                 folds=folds)
+
+    def backward():
+        return fusion.launch_backward(prepared, stats, go, gsw,
+                                      folds=folds)
+
+    repeats = [backward() for _ in range(3)]
+    torch.cuda.synchronize()
+    where = f"fused_attention_fusion fold axis F={folds} D={d}"
+    err = (out - ref).abs().max().item()
+    sw_err = (sw - ref_sw).abs().max().item()
+    if err > 1e-5 or sw_err != 0.0:
+        raise AssertionError(f"{where}: value err {err}, sw err {sw_err}")
+    errs = {}
+    for name, got, auto, closed in zip(FUSION_GRADS, g_kernel, g_auto,
+                                       g_closed):
+        for ref_kind, want in (("autograd", auto), ("closed", closed)):
+            ref_scale = want.abs().max() if name == "weights" \
+                else want.abs()
+            diff = (got - want).abs()
+            errs[f"{name}_{ref_kind}"] = diff.max().item()
+            if (diff > 1e-4 + 1e-5 * ref_scale).any():
+                raise AssertionError(f"{where}: grad {name} vs {ref_kind} "
+                                     f"max err {diff.max().item()}")
+    if not all(torch.equal(a, w) for rep in repeats
+               for a, w in zip(rep, g_kernel)):
+        raise AssertionError(f"{where}: repeated backward launches differ")
+    fwd_bytes = 4 * (2 * b * d + folds * (2 * d + 6))
+    bwd_bytes = 4 * (2 * b * d + b * d + folds * (d + 3)) \
+        + 4 * (b * d + folds * (3 + 3 + 2 * d))
+    row = {
+        "F": folds, "B": CV_B, "D": d, "max_abs_err": err, "sw_err": sw_err,
+        "grad_err": errs, "layout": fusion.layout(b, dims),
+        "param_groups": fusion.param_groups(CV_B),
+        "us": device_us(lambda: fusion._launch(*prepared, eps,
+                                               folds=folds)),
+        "plain_us": device_us(lambda: plain(*ins)),
+        "bwd_us": device_us(backward),
+        "fwd_bwd_us": device_us(lambda: fwd_bwd(kernel, leaves)),
+        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, ref_leaves)),
+        "bound_us": max(fwd_bytes / bw, 9 * b * d / flops) * 1e6,
+        "bwd_bound_us": max(bwd_bytes / bw, 16 * b * d / flops) * 1e6,
+        "bound_by": "bytes", "library_us": None,
+    }
+    row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
+    print(f"{where} {row}", flush=True)
+    return row
+
+
+def fold_focal_row(gen, folds, peaks, c=2):
+    """The fold-axis focal kernels at (folds * 16, C) with a mask of pad
+    rows in one fold and the sum(mask) = 1 tie in another: the (F,)
+    values within phase 3's rtol 1e-5, dlogits and dmask for an (F,)
+    cotangent within atol 1e-5 of autograd of the plain loop and of the
+    closed form, three more forward launches bit-identical; times."""
+    bw, flops = peaks
+    b = folds * CV_B
+    logits = (torch.randn(b, c, generator=gen) * 2).cuda()
+    labels = torch.randint(0, c, (b,), generator=gen).cuda()
+    mask = torch.ones(b)
+    mask[CV_B - 5:CV_B] = 0.0          # fold 0: a padded last batch
+    if folds > 1:
+        mask[CV_B + 1:2 * CV_B] = 0.0  # fold 1: sum(mask) = 1
+    mask = mask.cuda()
+    g = torch.randn(folds, generator=gen).cuda()
+    inputs = (logits, labels, mask)
+
+    def kernel(lg, mk):
+        return focal._FoldFocalLoss.apply(lg, labels, mk, folds, 1.0,
+                                          2.0)[0]
+
+    def plain(lg, mk):
+        return focal.reference_fold_focal(lg, labels, mk.view(folds, -1))
+
+    def fwd_bwd(fn, lg, mk):
+        out = fn(lg, mk)
+        return out, torch.autograd.grad(out, (lg, mk), g)
+
+    leaves = [logits.clone().requires_grad_(True),
+              mask.clone().requires_grad_(True)]
+    ref_leaves = [logits.clone().requires_grad_(True),
+                  mask.clone().requires_grad_(True)]
+    out, g_kernel = fwd_bwd(kernel, *leaves)
+    ref, g_ref = fwd_bwd(plain, *ref_leaves)
+    g_closed = focal.reference_fold_focal_backward(inputs, 1.0, 2.0, g)
+    repeats = [focal._launch(*inputs, 1.0, 2.0, folds=folds)[0]
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    where = f"fused_focal_loss fold axis F={folds} ({CV_B}, {c})"
+    err = (out - ref).abs().max().item()
+    if (out - ref).abs().gt(1e-5 * ref.abs()).any():
+        raise AssertionError(f"{where}: values {out} vs {ref}")
+    grad_err = max((a - r).abs().max().item()
+                   for want in (g_ref, g_closed)
+                   for a, r in zip(g_kernel, want))
+    if grad_err > 1e-5:
+        raise AssertionError(f"{where}: grad err {grad_err}")
+    if not all(torch.equal(r, out.detach()) for r in repeats):
+        raise AssertionError(f"{where}: repeated launches differ")
+    _, res = focal._launch(*inputs, 1.0, 2.0, folds=folds)
+
+    def backward():
+        return focal.launch_backward(inputs, res, 1.0, 2.0, g,
+                                     (True, False), folds=folds)
+
+    nbytes = 4 * b * c + 8 * b + 4 * b + 4 * folds
+    nops = b * (4 * c + 10) + 2 * folds
+    bwd_bytes = 8 * b * c + 8 * b + 8 * b + 12 * folds
+    row = {
+        "F": folds, "B": CV_B, "C": c, "max_abs_err": err,
+        "grad_err": grad_err,
+        "us": device_us(lambda: focal._launch(*inputs, 1.0, 2.0,
+                                              folds=folds)),
+        "plain_us": device_us(lambda: plain(logits, mask)),
+        "bwd_us": device_us(backward),
+        "fwd_bwd_us": device_us(lambda: fwd_bwd(kernel, *leaves)),
+        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, *ref_leaves)),
+        "bound_us": max(nbytes / bw, nops / flops) * 1e6,
+        "bwd_bound_us": max(bwd_bytes / bw, b * (6 * c + 12) / flops) * 1e6,
+        "bound_by": "bytes" if nbytes / bw >= nops / flops else "operations",
+        "library_us": None,
+    }
+    row["fwd_bwd_bound_us"] = row["bound_us"] + row["bwd_bound_us"]
+    print(f"{where} {row}", flush=True)
+    return row
+
+
+def check_fold_kernels(gen, peaks):
+    """Phase 12.1: each fold-axis kernel at the fold program's shapes."""
+    return {
+        "fused_se": [fold_se_row(gen, CV_SIGNAL_FOLDS, t, c, peaks)
+                     for t, c in SE_SHAPES],
+        "fused_attention_fusion": [fold_fusion_row(gen, f, peaks)
+                                   for f in CV_FUSION_FOLDS],
+        "fused_focal_loss": [fold_focal_row(gen, CV_SIGNAL_FOLDS, peaks)],
+    }
+
+
+def _cv_signal_cfg():
+    """Configuration (a): JAX's test_fold_parallel_matches_sequential_signal
+    (`signal_only`, constant schedule, focal loss, early stop and plateau
+    decay) at full width: signal 2476, base filters 64, B = 16, f32."""
+    cfg = get_preset("signal_only")
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=CV_B, num_epochs=6, lr=1e-3,
+        schedule="constant", patience=2, plateau_patience=1))
+
+
+def _cv_fusion_cfg(cached: bool, epochs: int):
+    """Configurations (b) and (c): `fusion` at full width (224 x 224
+    images, 2476-sample signals) in float32, frozen encoders in train
+    mode; (c) with cached embeddings."""
+    cfg = get_preset("fusion")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
+        train=dataclasses.replace(cfg.train, num_epochs=epochs, patience=2,
+                                  plateau_patience=1, lr=1e-3,
+                                  cache_embeddings=cached))
+
+
+def _cv_sequential(cfg, arrays):
+    """`cv._fold_auc`'s protocol on one fold's splits, history kept."""
+    res, ev = cv.fit_fold(train_run.build_model_and_task,
+                          dict(zip(("train", "val", "test"), arrays)), cfg,
+                          CV_DEVICE)
+    return res, ev, cv._softmax_auc(ev.logits, ev.labels)
+
+
+def compare_fold_program(name, cfg, cohort, folds, smi, raw_arrays=None,
+                         nan_folds=()):
+    """Phase 12.2: the fold program (`run_fold_parallel`) against each
+    fold's sequential fit on the card, with JAX's tests/test_cv_parallel.py
+    bars: val-loss history rtol/atol 1e-3, best and stopped-at epochs
+    equal, test logits within 5e-3 and AUC within 1e-3. The counters are
+    set to 0 just before the program and read just after: each fold-axis
+    kernel launches once per vmapped op of the plan (per train step and
+    eval batch), never once per fold. Returns the launches and times."""
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_tf32():  # the cached pack's calibration and encoding
+        task, state0, pack = cv_parallel.prepare_folds(
+            train_run.build_model_and_task, cohort, folds, cfg,
+            apply_filter=False, device=CV_DEVICE)
+    t1 = time.perf_counter()
+    _zero_launch_counts()
+    with no_tf32():
+        par = cv_parallel.run_fold_parallel(task, state0, pack, cfg.train,
+                                            verbose=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {**_launch_counts(), **_fold_counts()}
+    steps, evals = par.train_steps, par.eval_batches
+    plans = {
+        "signal": dict(fused_se_fold=3 * (steps + evals),
+                       fused_se_fold_backward=3 * steps,
+                       fused_focal_loss_fold=steps + evals,
+                       fused_focal_loss_fold_backward=steps,
+                       fused_se=3),  # the dropout probe: fold 0 alone
+        "fusion_raw": dict(fused_se=3 * (steps + evals) + 3,
+                           fused_attention_fusion_fold=steps + evals,
+                           fused_attention_fusion_fold_backward=steps,
+                           fused_attention_fusion=1),
+        "fusion_cached": dict(fused_attention_fusion_fold=steps + evals,
+                              fused_attention_fusion_fold_backward=steps,
+                              fused_attention_fusion=1),
+    }
+    want = {k: 0 for k in counts}
+    want.update(plans[name])
+    if counts != want:
+        raise AssertionError(f"phase 12 {name}: launches {counts}, the plan "
+                             f"({steps} steps, {evals} eval batches) "
+                             f"{want}")
+    t3 = time.perf_counter()
+    with no_tf32():
+        for f in range(pack.n_folds):
+            arrays = (raw_arrays(f) if raw_arrays is not None
+                      else pack.fold_arrays(f, CV_DEVICE))
+            res, ev, auc = _cv_sequential(cfg, arrays)
+            seq = np.asarray([h["Loss/Val"] for h in res.history])
+            where = f"phase 12 {name} fold {f}"
+            if f in nan_folds:
+                if not (np.isnan(seq).all()
+                        and np.isnan(par.val_history[f]).all()):
+                    raise AssertionError(f"{where}: val losses not NaN")
+            elif not np.allclose(par.val_history[f][:len(seq)], seq,
+                                 rtol=1e-3, atol=1e-3):
+                raise AssertionError(f"{where}: val {par.val_history[f]} "
+                                     f"vs {seq}")
+            stop = len(res.history) if res.stopped_early else -1
+            if (par.best_epochs[f], par.stopped_at[f]) != (res.best_epoch,
+                                                           stop):
+                raise AssertionError(
+                    f"{where}: best/stop {par.best_epochs[f]}/"
+                    f"{par.stopped_at[f]} vs {res.best_epoch}/{stop}")
+            lerr = np.abs(par.logits[f] - ev.logits).max()
+            if not np.allclose(par.logits[f], ev.logits, rtol=5e-3,
+                               atol=5e-3) or abs(par.aucs[f] - auc) > 1e-3:
+                raise AssertionError(f"{where}: logits err {lerr}, AUC "
+                                     f"{par.aucs[f]} vs {auc}")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    out = {"folds": pack.n_folds, "train_steps": steps,
+           "eval_batches": evals, "launches": counts,
+           "prepare_s": t1 - t0, "fold_program_s": t2 - t1,
+           "sequential_s": t4 - t3, "aucs": par.aucs,
+           "best_epochs": par.best_epochs, "stopped_at": par.stopped_at}
+    print(f"phase 12 {name} fold program against sequential ({smi}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def run_cv_cli(smi, tmp):
+    """Phase 12.3: the CV CLI in four subprocesses at once on a synthetic
+    cohort of CV_CLI_N records, 2 epochs: nested (sequential), nested
+    --fold-parallel --cache-embeddings, exhaustive --k 10 (90 pairs)
+    --fold-parallel --cache-embeddings, and cross --pth on a ResNet1D-SE
+    state dict written here by torch.save. Each summary must be finite
+    JSON; prints each run's wall time."""
+    pth = os.path.join(tmp, "resnet1d_se.pth")
+    model = ResNet1DSE(num_classes=2)
+    flax_init_(model, torch.Generator().manual_seed(7))
+    torch.save(model.state_dict(), pth)
+    common = ["--n-synth", str(CV_CLI_N), "--epochs", "2", "--device",
+              CV_DEVICE]
+    runs = {
+        "nested": ["nested", "--preset", "fusion", *common],
+        "nested_fold_parallel": ["nested", "--preset", "fusion", *common,
+                                 "--fold-parallel", "--cache-embeddings"],
+        "exhaustive_fold_parallel": [
+            "exhaustive", "--preset", "fusion", "--k", "10", *common,
+            "--fold-parallel", "--cache-embeddings"],
+        "cross": ["cross", "--pth", pth, "--n-synth", "64", "--device",
+                  CV_DEVICE],
+    }
+    repo = os.path.dirname(os.path.abspath(__file__))
+    done = {}
+
+    def run(key, argv):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "ecgmm_torch.train.cv", *argv], cwd=tmp,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": repo})
+        stdout, stderr = p.communicate(timeout=600)
+        done[key] = (time.perf_counter() - t0, p.returncode, stdout, stderr)
+
+    threads = [threading.Thread(target=run, args=item)
+               for item in runs.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    out = {}
+    for key in runs:
+        wall, code, stdout, stderr = done[key]
+        if code != 0:
+            raise RuntimeError(f"phase 12 CLI {runs[key]} failed:\n"
+                               f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        summary = json.loads(stdout[stdout.rindex("\n{") + 1:]
+                             if "\n{" in stdout else stdout)
+        values = [v for v in summary.values() if not isinstance(v, list)]
+        values += [x for v in summary.values() if isinstance(v, list)
+                   for x in v]
+        if not all(isinstance(v, (int, float)) and np.isfinite(v)
+                   for v in values):
+            raise AssertionError(f"phase 12 CLI {key}: {summary}")
+        out[key] = {"wall_s": wall, "summary": summary}
+        print(f"phase 12 CLI {key}: {wall:.1f} s (four at once; {smi}) "
+              f"{json.dumps(summary)}", flush=True)
+    return out
+
+
+def wave_peak_bytes(cfg, cohort, folds):
+    """The peak device memory of one train step of a raw wave of
+    len(folds) folds (forward, backward, Adam) above what the wave's
+    state and data hold before it."""
+    task, state0, pack = cv_parallel.prepare_folds(
+        train_run.build_model_and_task, cohort, folds, cfg,
+        apply_filter=False, device=CV_DEVICE)
+    program = cv_parallel.make_fold_program(task, state0, cfg.train)
+    w = pack.n_folds
+    data = cv_parallel._wave_data(pack, list(range(w)), CV_DEVICE)
+    gather = cv_parallel._Gather(data, w, CV_DEVICE)
+    idx, mask, _ = cv_parallel.stack_fold_plans(
+        [r[0] for r in pack.rows], cfg.train.batch_size, shuffle=True,
+        seed=0, epochs=1)
+    fields = gather(torch.from_numpy(idx[:, 0, 0]).to(CV_DEVICE),
+                    torch.from_numpy(mask[:, 0, 0]).to(CV_DEVICE))
+    wave = program._new_wave(w)
+    program._probe_draws(fields)
+    active = np.ones(w, bool)
+    with no_tf32():
+        program._train_step(wave, fields, active)  # allocator warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        program._train_step(wave, fields, active)
+        torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def rows_cap(smi):
+    """Phase 12.4: the peak memory of a raw `fusion` wave (float32, 224 x
+    224 images) and of a `signal_only` wave at W * 16 rows for the two W
+    of CV_WAVES; the bytes a row adds (the slope) and the cap
+    `cv_parallel._act_rows_cap` derives from the card's budget."""
+    cohort = synthetic.make_cohort(n=64, signal_len=CV_SIGNAL_LEN,
+                                   img_hw=CV_IMG)
+    folds = [splits.Split(np.arange(i, 64, 4)[:CV_B],
+                          np.arange(i, 64, 4)[CV_B:], np.arange(i, 64, 4))
+             for i in range(4)]
+    out = {}
+    for name, cfg in (("fusion", _cv_fusion_cfg(False, 1)),
+                      ("signal_only", _cv_signal_cfg())):
+        peaks = {w: wave_peak_bytes(cfg, cohort, [folds[i % 4]
+                                                  for i in range(w)])
+                 for w in CV_WAVES}
+        lo, hi = CV_WAVES
+        per_row = (peaks[hi] - peaks[lo]) / ((hi - lo) * CV_B)
+        budget = pipeline.resolve_hbm_budget(CV_DEVICE)
+        out[name] = {"peak_bytes": peaks, "bytes_per_row": per_row,
+                     "budget": budget,
+                     "cap_rows": int(budget // max(per_row, 1.0))}
+        print(f"phase 12 rows cap {name}: {json.dumps(out[name])} ({smi})",
+              flush=True)
+    constants = {"fusion": cv_parallel.IMAGE_ROW_BYTES,
+                 "signal_only": cv_parallel.SIGNAL_ROW_BYTES}
+    for name, row_bytes in constants.items():
+        print(f"phase 12 rows cap {name}: the module's {row_bytes} bytes a "
+              f"row against {out[name]['bytes_per_row']:.0f} measured",
+              flush=True)
+    return out
+
+
+def run_cv_phase(smi, peaks):
+    """Phase 12, the CV path on the card (see the functions above).
+    Returns the fold-kernel rows and the launches of each CV path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(12)
+    rows = check_fold_kernels(gen, peaks)
+    paths = {}
+    # (a) signal: 4 folds of a 2x2 nested split, the last one's val split
+    # replaced by NaN rows of no other fold (JAX's NaN-val test)
+    n = CV_N
+    cohort = synthetic.make_cohort(n=n + CV_NAN_ROWS,
+                                   signal_len=CV_SIGNAL_LEN, img_hw=None)
+    cohort.signals[n:] = np.nan
+    folds = [s for _, _, inner in splits.nested_kfold(
+        cohort.labels[:n], 2, 2, 42) for s in inner]
+    folds[-1] = folds[-1]._replace(val=np.arange(n, n + CV_NAN_ROWS))
+    paths["cv_signal"] = compare_fold_program(
+        "signal", _cv_signal_cfg(), cohort, folds, smi,
+        nan_folds={len(folds) - 1})
+    # (b) fusion raw, 4 folds
+    cohort = synthetic.make_cohort(n=n, signal_len=CV_SIGNAL_LEN,
+                                   img_hw=CV_IMG)
+    folds = [s for _, _, inner in splits.nested_kfold(cohort.labels, 2, 2,
+                                                      42) for s in inner]
+    paths["cv_fusion_raw"] = compare_fold_program(
+        "fusion_raw", _cv_fusion_cfg(False, 2), cohort, folds, smi)
+    # (c) fusion cached, the 15 folds of nested 5x3
+    cfg = _cv_fusion_cfg(True, 4)
+    cohort = synthetic.make_cohort(n=CV_CLI_N, signal_len=CV_SIGNAL_LEN,
+                                   img_hw=CV_IMG)
+    folds = [s for _, _, inner in splits.nested_kfold(cohort.labels, 5, 3,
+                                                      42) for s in inner]
+    n_clin = min(cfg.model.clinical_in_features, cohort.clinical.shape[1])
+
+    def raw(f):
+        s = folds[f]
+        es = preprocess.Scaler.fit(cohort.signals[s.train])
+        cs = preprocess.Scaler.fit(cohort.clinical[s.train, :n_clin])
+        return tuple(cv._build_arrays(cohort, idx, es, cs, False, n_clin,
+                                      CV_DEVICE) for idx in s)
+
+    paths["cv_fusion_cached"] = compare_fold_program(
+        "fusion_cached", cfg, cohort, folds, smi, raw_arrays=raw)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = run_cv_cli(smi, tmp)
+    cap = rows_cap(smi)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, paths, cli, cap
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3608,6 +4213,10 @@ def main() -> int:
     # 11. the real-data path: record directories, the CLI, streaming
     real_launches = run_real_data_phase(smi)
 
+    # 12. the CV path: fold-axis kernels, the fold program against the
+    # sequential fits, the CLI, the rows cap
+    fold_rows, cv_paths, _, _ = run_cv_phase(smi, peaks)
+
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
                           ("fusion_cached", cached_run)):
@@ -3642,10 +4251,17 @@ def main() -> int:
         "xai": xai_launches,
         **real_launches,
         **{f"train_{name}": n for name, n in new_launches.items()},
+        **{p: out["launches"] for p, out in cv_paths.items()},
     }
 
     def by_path(kernel):
         return {p: n.get(kernel, 0) for p, n in paths.items()}
+
+    def fold_paths(kernel):
+        return ({p: out["launches"][kernel + "_fold"]
+                 for p, out in cv_paths.items()},
+                {p: out["launches"][kernel + "_fold_backward"]
+                 for p, out in cv_paths.items()}, fold_rows[kernel])
 
     focal_picked = [r for r in focal_rows
                     if (r["B"], r["C"]) == (TRAIN_B, 2) and "us" in r]
@@ -3657,7 +4273,8 @@ def main() -> int:
                   se_picked,
                   "ptbxl_af train step: 3 forward calls at B=16",
                   backward=(by_path("fused_se_backward"), se_picked,
-                            "ptbxl_af train step: 3 calls at B=16")),
+                            "ptbxl_af train step: 3 calls at B=16"),
+                  fold=fold_paths("fused_se")),
         summarize("fused_attention_fusion", "ecgmm_torch/ops/csrc/fusion.cu",
                   "ecgmm_tpu/ops/pallas_fusion.py:98",
                   by_path("fused_attention_fusion"),
@@ -3669,7 +4286,8 @@ def main() -> int:
                             [r for r in fusion_bwd_rows
                              if r["needs"] in ("shap", "ig")],
                             "serving request: SHAP (B=32, the three "
-                            "embeddings) and IG (B=8, clin) at D=672")),
+                            "embeddings) and IG (B=8, clin) at D=672"),
+                  fold=fold_paths("fused_attention_fusion")),
         summarize("fused_focal_loss", "ecgmm_torch/ops/csrc/focal.cu",
                   "ecgmm_tpu/ops/pallas_losses.py:66",
                   by_path("fused_focal_loss"), focal_rows, focal_picked,
@@ -3677,7 +4295,8 @@ def main() -> int:
                   bound_by=focal_picked[0]["bound_by"],
                   backward=(by_path("fused_focal_loss_backward"),
                             focal_picked,
-                            "ptbxl_af train step: 1 call at (16, 2)")),
+                            "ptbxl_af train step: 1 call at (16, 2)"),
+                  fold=fold_paths("fused_focal_loss")),
     ]
     kernels[1]["layout_sweep"] = fusion_sweep
     kernels[2]["cluster_sweep"] = focal_sweep

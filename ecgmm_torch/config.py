@@ -124,6 +124,10 @@ class TrainConfig:
     # FloatingPointError (jax_debug_nans in the JAX package); it costs a
     # host sync a step, so it is off by default
     debug_nans: bool = False
+    # CV settings (reference config.py:39-40): nested k_outer x k_inner
+    # folds (`train/cv.nested_cv`)
+    k_outer: int = 5
+    k_inner: int = 3
     # Fusion only: encode each split once with the frozen encoders in eval
     # mode and train the surface after them over the cached embeddings
     # (`train/embed.py`). Needs freeze_encoders.

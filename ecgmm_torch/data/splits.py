@@ -9,13 +9,16 @@ class ids, `_approximate_mode` for the per-class train and test counts, a
 `RandomState` permutation within each class, then a permutation of each
 side. `manual_split` pins val and test index lists, and
 `manual_af_split` is the tiny-positive AF split of the `signal_af`
-preset. The nested and exhaustive CV splits wait with CV (ROADMAP.md).
+preset. `nested_kfold` and `exhaustive_fold_pairs`, the CV splits, run on
+`_stratified_kfold`, a numpy copy of sklearn's
+`StratifiedKFold(n_splits, shuffle=True, random_state=seed)`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+import warnings
+from typing import Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -106,6 +109,83 @@ def stratified_622(labels: np.ndarray, seed: int = 42) -> Split:
 def stratified_712(labels: np.ndarray, seed: int = 42) -> Split:
     """70/10/20 (reference train_physionet_multi.py:91-96)."""
     return _three_way(labels, 0.3, 2 / 3, seed)
+
+
+def _stratified_kfold(labels: np.ndarray, n_splits: int, seed: int
+                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The (train, test) positions of each fold, as sklearn's
+    `StratifiedKFold(n_splits, shuffle=True, random_state=seed).split`
+    yields them (`_make_test_folds`): classes numbered in order of first
+    appearance; each class's rows spread over the folds by a round robin
+    over the sorted class ids; each class's block of fold numbers shuffled
+    by one `RandomState(seed)`, class by class. Raises ValueError where
+    `n_splits` exceeds the rows or every class's count, and warns where
+    it exceeds the smallest class's."""
+    y = np.asarray(labels).reshape(-1)
+    n = y.shape[0]
+    if n_splits > n:
+        raise ValueError(
+            f"Cannot have number of splits n_splits={n_splits} greater "
+            f"than the number of samples: n_samples={n}.")
+    _, first, inverse = np.unique(y, return_index=True, return_inverse=True)
+    _, class_perm = np.unique(first, return_inverse=True)
+    encoded = class_perm[inverse]
+    n_classes = len(first)
+    counts = np.bincount(encoded)
+    if np.all(n_splits > counts):
+        raise ValueError(f"n_splits={n_splits} cannot be greater than the "
+                         "number of members in each class.")
+    if n_splits > counts.min():
+        warnings.warn(
+            f"The least populated class in y has only {counts.min()} "
+            f"members, which is less than n_splits={n_splits}.",
+            UserWarning, stacklevel=3)
+    order = np.sort(encoded)
+    allocation = np.asarray([
+        np.bincount(order[i::n_splits], minlength=n_classes)
+        for i in range(n_splits)])
+    rng = np.random.RandomState(seed)
+    test_folds = np.empty(n, dtype="i")
+    for k in range(n_classes):
+        folds_for_class = np.arange(n_splits).repeat(allocation[:, k])
+        rng.shuffle(folds_for_class)
+        test_folds[encoded == k] = folds_for_class
+    positions = np.arange(n)
+    return [(positions[test_folds != i], positions[test_folds == i])
+            for i in range(n_splits)]
+
+
+def nested_kfold(labels: np.ndarray, k_outer: int = 5, k_inner: int = 3,
+                 seed: int = 42
+                 ) -> Iterator[Tuple[int, np.ndarray, List[Split]]]:
+    """Nested CV (reference train_kfold.py:137-172): for each outer fold,
+    (fold_id, outer_test, [inner Split(train, val, test=outer_test)]), the
+    inner folds stratified over the outer train rows."""
+    labels = np.asarray(labels)
+    for fold_id, (outer_train, outer_test) in enumerate(
+            _stratified_kfold(labels, k_outer, seed)):
+        inner = _stratified_kfold(labels[outer_train], k_inner, seed)
+        yield fold_id, outer_test, [
+            Split(outer_train[tr], outer_train[va], outer_test)
+            for tr, va in inner]
+
+
+def exhaustive_fold_pairs(labels: np.ndarray, k: int = 10, seed: int = 42
+                          ) -> Iterator[Tuple[int, int, Split]]:
+    """All k x (k - 1) ordered (test_fold, val_fold) pairs over one
+    stratified k-fold partition (reference train_exhausted.py:167-191);
+    the other folds train."""
+    labels = np.asarray(labels)
+    folds = [te for _, te in _stratified_kfold(labels, k, seed)]
+    positions = np.arange(len(labels))
+    for ti in range(k):
+        for vi in range(k):
+            if vi == ti:
+                continue
+            train = np.ones(len(labels), dtype=bool)
+            train[folds[ti]] = False
+            train[folds[vi]] = False
+            yield ti, vi, Split(positions[train], folds[vi], folds[ti])
 
 
 def manual_split(n: int, val_indices, test_indices) -> Split:

@@ -5,7 +5,10 @@ Train mode follows flax, not torch: BatchNorm normalises with the biased
 batch variance and also folds the biased variance into `running_var`
 (torch's BatchNorm folds the unbiased one), with eps 1e-5; the batch
 statistics are taken in at least float32 whatever the activation's dtype
-(flax promotes them too). Dropout draws from an explicit `torch.Generator`.
+(flax promotes them too). Dropout draws from an explicit `torch.Generator`,
+or takes a keep mask the caller gives it. Both run under `torch.func.vmap`
+with a fold axis on the buffers, as the CV fold program runs them
+(`train/cv_parallel.py`).
 `MultiHeadSelfAttention` is flax's attention, broadcast dropout
 included. `flax_init_` initialises like flax's defaults.
 """
@@ -24,6 +27,18 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lerp_(buf: torch.Tensor, end: torch.Tensor, weight: float) -> None:
+    """buf <- lerp(buf, end, weight), in place. A buffer batched by
+    `torch.func.vmap` (one per fold) takes the out-of-place lerp and a
+    copy, which vmap batches, where `lerp_` has no batching rule and would
+    loop over the folds; both run the same lerp kernel, so the bits are
+    the same."""
+    if torch._C._functorch.is_batchedtensor(buf):
+        buf.copy_(torch.lerp(buf, end, weight))
+    else:
+        buf.lerp_(end, weight)
+
+
 class _FlaxBatchStats:
     """The train-mode forward of flax's BatchNorm over every dimension but
     the channels (dim 1): the batch's biased variance both normalises and
@@ -38,8 +53,8 @@ class _FlaxBatchStats:
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(stats_dtype), dim=dims,
                                        unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            _lerp_(self.running_mean, mean, self.momentum)
+            _lerp_(self.running_var, var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
@@ -56,18 +71,34 @@ class BatchNorm2d(_FlaxBatchStats, nn.BatchNorm2d):
 class Dropout(nn.Module):
     """Inverted dropout like flax's: keep with probability 1 - p and scale
     by 1 / (1 - p). The mask comes from `generator` (torch's default
-    generator when None), which must lie on the input's device."""
+    generator when None), which must lie on the input's device, or, where
+    `keep` is set, is `keep`: the CV fold program draws each fold's mask
+    from that fold's generator (`draw_keep`, the draw `forward` makes) and
+    hands the folds' masks in under vmap."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.keep: Optional[torch.Tensor] = None
+
+    def keep_shape(self, x) -> tuple:
+        """The shape of the keep mask for the input x."""
+        return tuple(x.shape)
+
+    def draw_keep(self, shape, dtype, device, generator):
+        """A keep mask as `forward` draws it for a contiguous input of
+        that shape, dtype and device."""
+        return torch.empty(shape, dtype=dtype, device=device).bernoulli_(
+            1.0 - self.p, generator=generator)
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
+        keep = self.keep
+        if keep is None:
+            keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                                  generator=self.generator)
         return x * keep / (1.0 - self.p)
 
 
@@ -77,12 +108,16 @@ class BroadcastDropout(Dropout):
     dimensions, shared by every leading one (the batch and the heads),
     scaled by 1 / (1 - p), from `generator` like `Dropout`."""
 
+    def keep_shape(self, x) -> tuple:
+        return (1,) * (x.dim() - 2) + tuple(x.shape[-2:])
+
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        shape = (1,) * (x.dim() - 2) + tuple(x.shape[-2:])
-        keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
-            1.0 - self.p, generator=self.generator)
+        keep = self.keep
+        if keep is None:
+            keep = self.draw_keep(self.keep_shape(x), x.dtype, x.device,
+                                  self.generator)
         return x * (keep / (1.0 - self.p))
 
 

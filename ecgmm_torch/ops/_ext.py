@@ -56,6 +56,23 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
     "ecgmm_focal_loss_backward_i64":
         [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+    # the fold axis (F folds of B rows, one launch): the same kernels
+    "ecgmm_se_fold_forward_f32": [_P] * 8 + [_I] * 7 + [_P],
+    "ecgmm_se_fold_forward_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    "ecgmm_se_fold_backward_f32": [_P] * 13 + [_I] * 7 + [_P],
+    "ecgmm_se_fold_backward_bf16": [_P] * 13 + [_I] * 7 + [_P],
+    "ecgmm_attention_fusion_fold_forward":
+        [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "ecgmm_attention_fusion_fold_backward":
+        [_P] * 15 + [_I] * 10 + [_P],
+    "ecgmm_focal_loss_fold_forward_i32":
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P],
+    "ecgmm_focal_loss_fold_forward_i64":
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P],
+    "ecgmm_focal_loss_fold_backward_i32":
+        [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P],
+    "ecgmm_focal_loss_fold_backward_i64":
+        [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P],
 }
 
 
@@ -146,6 +163,16 @@ def launch_target(device: torch.device):
         return contextlib.nullcontext(), \
             torch._C._cuda_getCurrentRawStream(current)
     return torch.cuda.device(index), torch._C._cuda_getCurrentRawStream(index)
+
+
+def batch_first(t: torch.Tensor, dim, n: int) -> torch.Tensor:
+    """A `vmap` rule's input with its batch dimension first: moved there,
+    or, where the input is not batched (dim None), expanded to n. The
+    kernels' autograd Functions take the fold axis of the CV fold program
+    this way."""
+    if dim is None:
+        return t.expand(n, *t.shape)
+    return t.movedim(dim, 0)
 
 
 def check(status: int, name: str) -> None:

@@ -41,6 +41,13 @@
 // only where it is asked for (a null pointer skips it). No atomics: the
 // same inputs give the same bits on every launch.
 //
+// The fold axis (the CV fold program, `ecgmm_torch/train/cv_parallel.py`):
+// F folds of B rows each, logits (F*B, C), one loss, residual and
+// cotangent a fold. The fold is the grid's y index; fold f's blocks (its
+// cluster, where K > 1) take rows f*B .. f*B + B-1 exactly as the kernels
+// take a single fold's rows, so all F folds are one launch of each kernel.
+// The entry points without the fold axis are the same kernels at F = 1.
+//
 // A label outside [0, C) contributes a zero label logit (and no one-hot
 // entry in the backward), as the Pallas kernel's one-hot does. gamma is a
 // float, applied with powf.
@@ -139,6 +146,12 @@ focal_fwd(const float* __restrict__ logits, const L* __restrict__ labels,
     const int K = gridDim.x;
     const int rank = blockIdx.x;
     const int tid = threadIdx.x;
+    const size_t fold = blockIdx.y;
+    logits += fold * B * C;
+    labels += fold * B;
+    mask += fold * B;
+    out += fold;
+    res += 2 * fold;
     const int r1 = row_begin(B, K, rank + 1);
     float term = 0.0f;
     float msum = 0.0f;
@@ -197,7 +210,14 @@ focal_bwd(const float* __restrict__ logits, const L* __restrict__ labels,
           int vec) {
     const int K = gridDim.x;
     const int rank = blockIdx.x;
-    const float g = grad[0];
+    const size_t fold = blockIdx.y;
+    logits += fold * B * C;
+    labels += fold * B;
+    mask += fold * B;
+    res += 2 * fold;
+    if (dlogits != nullptr) dlogits += fold * B * C;
+    if (dmask != nullptr) dmask += fold * B;
+    const float g = grad[fold];
     const float msum = res[1];
     const float den = fmaxf(msum, 1.0f);
     const float loss = res[0] / den;  // the forward's value, to the bit
@@ -246,16 +266,20 @@ cudaError_t configure(Kernel kernel, bool (&done)[kMaxDevices]) {
     return err;
 }
 
-bool bad_launch(int B, int C, int K, int max_k, int threads, int vec) {
+bool bad_launch(int B, int C, int K, int max_k, int threads, int vec,
+                int F) {
     return B < 0 || C < 1 || K < 1 || K > max_k || threads < 32
-           || threads > kMaxThreads || threads % 32 != 0 || (vec && C != 2);
+           || threads > kMaxThreads || threads % 32 != 0 || (vec && C != 2)
+           || F < 1 || F > 65535;
 }
 
+// B rows in each of F folds (grid (K, F))
 template <typename L>
 int focal_forward(const void* logits, const void* labels, const void* mask,
                   void* out, void* res, int B, int C, int K, int threads,
-                  int vec, float alpha, float gamma, cudaStream_t stream) {
-    if (bad_launch(B, C, K, kMaxCluster, threads, vec))
+                  int vec, float alpha, float gamma, int F,
+                  cudaStream_t stream) {
+    if (bad_launch(B, C, K, kMaxCluster, threads, vec, F))
         return (int)cudaErrorInvalidValue;
     const float* lg = static_cast<const float*>(logits);
     const L* lb = static_cast<const L*>(labels);
@@ -263,7 +287,7 @@ int focal_forward(const void* logits, const void* labels, const void* mask,
     float* o = static_cast<float*>(out);
     float* r = static_cast<float*>(res);
     if (K == 1) {
-        focal_fwd<L, false><<<1, threads, 0, stream>>>(
+        focal_fwd<L, false><<<dim3(1, (unsigned)F), threads, 0, stream>>>(
             lg, lb, mk, o, r, B, C, alpha, gamma, vec);
         return (int)cudaGetLastError();
     }
@@ -271,7 +295,7 @@ int focal_forward(const void* logits, const void* labels, const void* mask,
     cudaError_t err = configure(focal_fwd<L, true>, done);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)K, 1, 1);
+    cfg.gridDim = dim3((unsigned)K, (unsigned)F, 1);
     cfg.blockDim = dim3((unsigned)threads, 1, 1);
     cfg.dynamicSmemBytes = 0;
     cfg.stream = stream;
@@ -292,10 +316,10 @@ template <typename L>
 int focal_backward(const void* logits, const void* labels, const void* mask,
                    const void* res, const void* grad, void* dlogits,
                    void* dmask, int B, int C, int K, int threads, int vec,
-                   float alpha, float gamma, cudaStream_t stream) {
-    if (bad_launch(B, C, K, kMaxGrid, threads, vec))
+                   float alpha, float gamma, int F, cudaStream_t stream) {
+    if (bad_launch(B, C, K, kMaxGrid, threads, vec, F))
         return (int)cudaErrorInvalidValue;
-    focal_bwd<L><<<K, threads, 0, stream>>>(
+    focal_bwd<L><<<dim3((unsigned)K, (unsigned)F), threads, 0, stream>>>(
         static_cast<const float*>(logits), static_cast<const L*>(labels),
         static_cast<const float*>(mask), static_cast<const float*>(res),
         static_cast<const float*>(grad), static_cast<float*>(dlogits),
@@ -313,7 +337,7 @@ extern "C" int ecgmm_focal_loss_forward_i32(
     void* res, int B, int C, int K, int threads, int vec, float alpha,
     float gamma, void* stream) {
     return focal_forward<int32_t>(logits, labels, mask, out, res, B, C, K,
-                                  threads, vec, alpha, gamma,
+                                  threads, vec, alpha, gamma, 1,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -322,7 +346,7 @@ extern "C" int ecgmm_focal_loss_forward_i64(
     void* res, int B, int C, int K, int threads, int vec, float alpha,
     float gamma, void* stream) {
     return focal_forward<int64_t>(logits, labels, mask, out, res, B, C, K,
-                                  threads, vec, alpha, gamma,
+                                  threads, vec, alpha, gamma, 1,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -336,7 +360,7 @@ extern "C" int ecgmm_focal_loss_backward_i32(
     void* stream) {
     return focal_backward<int32_t>(logits, labels, mask, res, grad, dlogits,
                                    dmask, B, C, K, threads, vec, alpha, gamma,
-                                   static_cast<cudaStream_t>(stream));
+                                   1, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ecgmm_focal_loss_backward_i64(
@@ -346,5 +370,46 @@ extern "C" int ecgmm_focal_loss_backward_i64(
     void* stream) {
     return focal_backward<int64_t>(logits, labels, mask, res, grad, dlogits,
                                    dmask, B, C, K, threads, vec, alpha, gamma,
-                                   static_cast<cudaStream_t>(stream));
+                                   1, static_cast<cudaStream_t>(stream));
+}
+
+// The fold axis: logits (F*B, C), labels and mask (F*B,), out (F,), res
+// (F, 2), grad (F,); B rows a fold, grid (K, F).
+
+extern "C" int ecgmm_focal_loss_fold_forward_i32(
+    const void* logits, const void* labels, const void* mask, void* out,
+    void* res, int B, int C, int K, int threads, int vec, float alpha,
+    float gamma, int F, void* stream) {
+    return focal_forward<int32_t>(logits, labels, mask, out, res, B, C, K,
+                                  threads, vec, alpha, gamma, F,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_focal_loss_fold_backward_i32(
+    const void* logits, const void* labels, const void* mask,
+    const void* res, const void* grad, void* dlogits, void* dmask, int B,
+    int C, int K, int threads, int vec, float alpha, float gamma, int F,
+    void* stream) {
+    return focal_backward<int32_t>(logits, labels, mask, res, grad, dlogits,
+                                   dmask, B, C, K, threads, vec, alpha, gamma,
+                                   F, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_focal_loss_fold_forward_i64(
+    const void* logits, const void* labels, const void* mask, void* out,
+    void* res, int B, int C, int K, int threads, int vec, float alpha,
+    float gamma, int F, void* stream) {
+    return focal_forward<int64_t>(logits, labels, mask, out, res, B, C, K,
+                                  threads, vec, alpha, gamma, F,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_focal_loss_fold_backward_i64(
+    const void* logits, const void* labels, const void* mask,
+    const void* res, const void* grad, void* dlogits, void* dmask, int B,
+    int C, int K, int threads, int vec, float alpha, float gamma, int F,
+    void* stream) {
+    return focal_backward<int64_t>(logits, labels, mask, res, grad, dlogits,
+                                   dmask, B, C, K, threads, vec, alpha, gamma,
+                                   F, static_cast<cudaStream_t>(stream));
 }

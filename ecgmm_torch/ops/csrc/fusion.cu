@@ -57,6 +57,16 @@
 // added in rank order. The dsw partials are summed the same way, by the
 // blocks of tile 0. No atomics: a relaunch gives the same bits.
 //
+// The fold axis (the CV fold program, `ecgmm_torch/train/cv_parallel.py`):
+// F folds of B rows each, every fold with its own parameters (weights
+// (F, 3), scale and bias (F, D)) and its own soft weights (F, 3). The fold
+// is the grid's y index of all three kernels: fold f's blocks read and
+// write rows f*B .. f*B + B-1 and fold f's parameters, and the parameter
+// kernel sums only fold f's rows into fold f's gradients, in the same
+// fixed order as one fold alone. All F folds are one launch of each
+// kernel; the entry points without the fold axis are the same kernels at
+// F = 1.
+//
 // Plain C interface (bound with ctypes): every entry point launches on the
 // given stream, never synchronises, allocates nothing, and returns a CUDA
 // error code (0 on success).
@@ -257,6 +267,16 @@ fusion_fwd(const float* __restrict__ img, const float* __restrict__ sig,
            float* __restrict__ stats, int B, Layout L, int W, float eps) {
     extern __shared__ float4 smem[];
     __shared__ float red_mu[1][kMaxWarps], red_sq[1][kMaxWarps];
+    const size_t fold = blockIdx.y;  // fold f's rows and parameters
+    img += fold * B * L.w[0];
+    sig += fold * B * L.w[1];
+    clin += fold * B * L.w[2];
+    logits += 3 * fold;
+    scale += fold * L.D;
+    bias += fold * L.D;
+    out += fold * B * L.D;
+    sw_out += 3 * fold;
+    if (stats != nullptr) stats += 2 * fold * B;
     const int lane = threadIdx.x & 31;
     const int n = L.start[3];
     const Part p = part_of(n, W);
@@ -358,6 +378,18 @@ fusion_bwd_rows(const float* __restrict__ img, const float* __restrict__ sig,
                 float* __restrict__ dsw_part, int B, Layout L, int W) {
     extern __shared__ float4 smem[];
     __shared__ float red_d[2][kMaxWarps], red_p[3][kMaxWarps];
+    const size_t fold = blockIdx.y;  // fold f's rows and parameters
+    img += fold * B * L.w[0];
+    sig += fold * B * L.w[1];
+    clin += fold * B * L.w[2];
+    logits += 3 * fold;
+    scale += fold * L.D;
+    go += fold * B * L.D;
+    stats += 2 * fold * B;
+    if (d_img != nullptr) d_img += fold * B * L.w[0];
+    if (d_sig != nullptr) d_sig += fold * B * L.w[1];
+    if (d_clin != nullptr) d_clin += fold * B * L.w[2];
+    if (dsw_part != nullptr) dsw_part += 3 * fold * B;
     const int lane = threadIdx.x & 31;
     const int n = L.start[3];
     const Part p = part_of(n, W);
@@ -471,6 +503,18 @@ fusion_bwd_params(const float* __restrict__ img,
     __shared__ float red[kParamWarps][kPart];
     __shared__ float part[kMaxGroups][kPart];  // rank 0's: every group's sums
     if constexpr (kCluster) cluster_arrive_relaxed();
+    const size_t fold = blockIdx.y;  // fold f's rows and parameters
+    img += fold * B * L.w[0];
+    sig += fold * B * L.w[1];
+    clin += fold * B * L.w[2];
+    logits += 3 * fold;
+    go += fold * B * L.D;
+    if (gsw != nullptr) gsw += 3 * fold;
+    stats += 2 * fold * B;
+    if (dsw_part != nullptr) dsw_part += 3 * fold * B;
+    if (d_logits != nullptr) d_logits += 3 * fold;
+    if (d_scale != nullptr) d_scale += fold * L.D;
+    if (d_bias != nullptr) d_bias += fold * L.D;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
@@ -589,6 +633,7 @@ struct FwdArgs {
     Layout L;
     int W;
     float eps;
+    int F;
 };
 
 template <int kSlots>
@@ -605,6 +650,7 @@ struct BwdArgs {
     int B;
     Layout L;
     int W;
+    int F;
 };
 
 template <int kSlots>
@@ -615,15 +661,16 @@ void bwd(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
         a.d_sig, a.d_clin, a.dsw_part, a.B, a.L, a.W);
 }
 
-// one launch of a row kernel (`launch` is fwd or bwd) on B rows: registers
-// where `regs`, else shared memory (opted into once per device)
+// one launch of a row kernel (`launch` is fwd or bwd) on B rows of each of
+// F folds (grid y): registers where `regs`, else shared memory (opted into
+// once per device)
 template <typename Args>
 cudaError_t launch_rows(void (*const launch[6])(dim3, dim3, size_t,
                                                  cudaStream_t, const Args&),
                         const void* smem_kernel, bool (&done)[kMaxDevices],
                         int rows, int regs, size_t smem, cudaStream_t s,
                         const Args& a) {
-    const dim3 grid((unsigned)((a.B + rows - 1) / rows));
+    const dim3 grid((unsigned)((a.B + rows - 1) / rows), (unsigned)a.F);
     const dim3 block((unsigned)(32 * rows * a.W));
     if (regs) {
         switch (reg_slots(a.L.start[3], a.W)) {
@@ -649,27 +696,21 @@ cudaError_t launch_rows(void (*const launch[6])(dim3, dim3, size_t,
     return cudaGetLastError();
 }
 
-}  // namespace
-
-// stats: (B, 2) f32 (mu, rstd) per row, or null (not needed). rows: rows
-// per block; W: warps per row (W > 1 only with rows = 1 and regs); regs:
-// the row in registers (else in shared memory); vec: bit k set where chunk
-// k takes 16-byte accesses.
-extern "C" int ecgmm_attention_fusion_forward(
-    const void* img, const void* sig, const void* clin, const void* logits,
-    const void* scale, const void* bias, void* out, void* sw_out,
-    void* stats, int B, int D0, int D1, int D2, int rows, int W, int regs,
-    int vec, float eps, void* stream) {
+int fusion_forward(const void* img, const void* sig, const void* clin,
+                   const void* logits, const void* scale, const void* bias,
+                   void* out, void* sw_out, void* stats, int B, int D0,
+                   int D1, int D2, int rows, int W, int regs, int vec,
+                   float eps, int F, void* stream) {
     const Layout L = make_layout(D0, D1, D2, vec);
     const size_t smem = row_smem(L, rows, regs, 1);
-    if (B < 1 || bad_rows(L, rows, W, regs, smem))
+    if (B < 1 || F < 1 || F > 65535 || bad_rows(L, rows, W, regs, smem))
         return (int)cudaErrorInvalidValue;
     const FwdArgs a = {
         static_cast<const float*>(img), static_cast<const float*>(sig),
         static_cast<const float*>(clin), static_cast<const float*>(logits),
         static_cast<const float*>(scale), static_cast<const float*>(bias),
         static_cast<float*>(out), static_cast<float*>(sw_out),
-        static_cast<float*>(stats), B, L, W, eps};
+        static_cast<float*>(stats), B, L, W, eps, F};
     static void (*const launch[6])(dim3, dim3, size_t, cudaStream_t,
                                    const FwdArgs&) = {
         fwd<0>, fwd<1>, fwd<2>, fwd<3>, fwd<6>, fwd<kRegSlots>};
@@ -679,21 +720,17 @@ extern "C" int ecgmm_attention_fusion_forward(
         static_cast<cudaStream_t>(stream), a);
 }
 
-// stats: the forward's (B, 2) residual. d_img, d_sig, d_clin: null where
-// the input needs no gradient; d_logits, d_scale, d_bias likewise, and
-// where none of them is wanted the backward is one launch. dsw_part: a
-// (B, 3) f32 scratch where d_logits is wanted, else null. gsw may be null
-// (no cotangent on the soft weights). rows, W, regs and vec as in the
-// forward; groups: row groups G of the parameter kernel, 1..8.
-extern "C" int ecgmm_attention_fusion_backward(
-    const void* img, const void* sig, const void* clin, const void* logits,
-    const void* scale, const void* go, const void* gsw, const void* stats,
-    void* d_img, void* d_sig, void* d_clin, void* d_logits, void* d_scale,
-    void* d_bias, void* dsw_part, int B, int D0, int D1, int D2, int rows,
-    int W, int regs, int vec, int groups, void* stream) {
+int fusion_backward(const void* img, const void* sig, const void* clin,
+                    const void* logits, const void* scale, const void* go,
+                    const void* gsw, const void* stats, void* d_img,
+                    void* d_sig, void* d_clin, void* d_logits, void* d_scale,
+                    void* d_bias, void* dsw_part, int B, int D0, int D1,
+                    int D2, int rows, int W, int regs, int vec, int groups,
+                    int F, void* stream) {
     const Layout L = make_layout(D0, D1, D2, vec);
     const size_t smem = row_smem(L, rows, regs, 2);
-    if (B < 0 || bad_rows(L, rows, W, regs, smem) || groups < 1
+    if (B < 0 || F < 1 || F > 65535 || bad_rows(L, rows, W, regs, smem)
+        || groups < 1
         || groups > kMaxGroups || (d_logits != nullptr && dsw_part == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -709,7 +746,7 @@ extern "C" int ecgmm_attention_fusion_backward(
         const BwdArgs a = {
             x0, x1, x2, lg, static_cast<const float*>(scale), g, st,
             static_cast<float*>(d_img), static_cast<float*>(d_sig),
-            static_cast<float*>(d_clin), part, B, L, W};
+            static_cast<float*>(d_clin), part, B, L, W, F};
         static void (*const launch[6])(dim3, dim3, size_t, cudaStream_t,
                                        const BwdArgs&) = {
             bwd<0>, bwd<1>, bwd<2>, bwd<3>, bwd<6>, bwd<kRegSlots>};
@@ -729,12 +766,13 @@ extern "C" int ecgmm_attention_fusion_backward(
     float* dsc = static_cast<float*>(d_scale);
     float* dbi = static_cast<float*>(d_bias);
     if (groups == 1) {
-        fusion_bwd_params<false><<<tiles, 32 * kParamWarps, 0, s>>>(
+        fusion_bwd_params<false><<<dim3((unsigned)tiles, (unsigned)F),
+                                   32 * kParamWarps, 0, s>>>(
             x0, x1, x2, lg, g, gs, st, part, dl, dsc, dbi, B, 1, L);
         return (int)cudaGetLastError();
     }
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(tiles * groups), 1, 1);
+    cfg.gridDim = dim3((unsigned)(tiles * groups), (unsigned)F, 1);
     cfg.blockDim = dim3(32 * kParamWarps, 1, 1);
     cfg.dynamicSmemBytes = 0;
     cfg.stream = s;
@@ -751,4 +789,64 @@ extern "C" int ecgmm_attention_fusion_backward(
                                          groups, L);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// stats: (B, 2) f32 (mu, rstd) per row, or null (not needed). rows: rows
+// per block; W: warps per row (W > 1 only with rows = 1 and regs); regs:
+// the row in registers (else in shared memory); vec: bit k set where chunk
+// k takes 16-byte accesses.
+extern "C" int ecgmm_attention_fusion_forward(
+    const void* img, const void* sig, const void* clin, const void* logits,
+    const void* scale, const void* bias, void* out, void* sw_out,
+    void* stats, int B, int D0, int D1, int D2, int rows, int W, int regs,
+    int vec, float eps, void* stream) {
+    return fusion_forward(img, sig, clin, logits, scale, bias, out, sw_out,
+                          stats, B, D0, D1, D2, rows, W, regs, vec, eps, 1,
+                          stream);
+}
+
+// stats: the forward's (B, 2) residual. d_img, d_sig, d_clin: null where
+// the input needs no gradient; d_logits, d_scale, d_bias likewise, and
+// where none of them is wanted the backward is one launch. dsw_part: a
+// (B, 3) f32 scratch where d_logits is wanted, else null. gsw may be null
+// (no cotangent on the soft weights). rows, W, regs and vec as in the
+// forward; groups: row groups G of the parameter kernel, 1..8.
+extern "C" int ecgmm_attention_fusion_backward(
+    const void* img, const void* sig, const void* clin, const void* logits,
+    const void* scale, const void* go, const void* gsw, const void* stats,
+    void* d_img, void* d_sig, void* d_clin, void* d_logits, void* d_scale,
+    void* d_bias, void* dsw_part, int B, int D0, int D1, int D2, int rows,
+    int W, int regs, int vec, int groups, void* stream) {
+    return fusion_backward(img, sig, clin, logits, scale, go, gsw, stats,
+                           d_img, d_sig, d_clin, d_logits, d_scale, d_bias,
+                           dsw_part, B, D0, D1, D2, rows, W, regs, vec,
+                           groups, 1, stream);
+}
+
+// The fold axis: B rows in each of F folds. img, sig, clin, out, stats,
+// the input gradients and dsw_part hold the F folds' rows in turn (F*B
+// rows); logits, sw_out, gsw and d_logits are (F, 3), scale, bias,
+// d_scale and d_bias (F, D). groups: row groups of one fold's B rows.
+extern "C" int ecgmm_attention_fusion_fold_forward(
+    const void* img, const void* sig, const void* clin, const void* logits,
+    const void* scale, const void* bias, void* out, void* sw_out,
+    void* stats, int B, int D0, int D1, int D2, int rows, int W, int regs,
+    int vec, float eps, int F, void* stream) {
+    return fusion_forward(img, sig, clin, logits, scale, bias, out, sw_out,
+                          stats, B, D0, D1, D2, rows, W, regs, vec, eps, F,
+                          stream);
+}
+
+extern "C" int ecgmm_attention_fusion_fold_backward(
+    const void* img, const void* sig, const void* clin, const void* logits,
+    const void* scale, const void* go, const void* gsw, const void* stats,
+    void* d_img, void* d_sig, void* d_clin, void* d_logits, void* d_scale,
+    void* d_bias, void* dsw_part, int B, int D0, int D1, int D2, int rows,
+    int W, int regs, int vec, int groups, int F, void* stream) {
+    return fusion_backward(img, sig, clin, logits, scale, go, gsw, stats,
+                           d_img, d_sig, d_clin, d_logits, d_scale, d_bias,
+                           dsw_part, B, D0, D1, D2, rows, W, regs, vec,
+                           groups, F, stream);
 }

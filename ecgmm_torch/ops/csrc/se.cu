@@ -48,6 +48,15 @@
 // over the batch in a fixed order. There are no atomics, so a relaunch
 // gives the same bits.
 //
+// The fold axis (the CV fold program, `ecgmm_torch/train/cv_parallel.py`):
+// F folds of Bf samples each, x (F*Bf, C, T), every fold with its own
+// weights, W1 (F, R, C), b1 (F, R), W2 (F, C, R), b2 (F, C). The fold is
+// the grid's y index: sample b of the grid's x axis in fold f is sample
+// f*Bf + b, and its cluster reads fold f's weights, so all F folds are one
+// launch of the same kernels. The weight part of the backward sums each
+// fold's Bf samples in order into that fold's gradients (F, ...). The
+// entry points without the fold axis are the same kernels at F = 1.
+//
 // Plain C interface (bound with ctypes): every entry point launches on the
 // given stream, never synchronises, allocates nothing, and returns a CUDA
 // error code (0 on success).
@@ -170,14 +179,19 @@ se_fwd(const T* __restrict__ x, const T* __restrict__ w1,
        const T* __restrict__ b1, const T* __restrict__ w2,
        const T* __restrict__ b2, float* __restrict__ mean_out,
        float* __restrict__ gate_out, T* __restrict__ out, int C, int Tlen,
-       int R, int vec) {
+       int R, int vec, int Bf) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster_arrive_relaxed();
     extern __shared__ __align__(16) unsigned char smem[];
     const int K = (int)cluster.num_blocks();
     const int cpb = C / K;
     const int c0 = (int)cluster.block_rank() * cpb;
-    const int b = blockIdx.x / K;
+    const int fold = blockIdx.y;
+    const int b = fold * Bf + blockIdx.x / K;
+    w1 += (size_t)fold * R * C;
+    b1 += (size_t)fold * R;
+    w2 += (size_t)fold * C * R;
+    b2 += (size_t)fold * C;
     const int n = cpb * Tlen;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -234,14 +248,18 @@ se_bwd(const T* __restrict__ x, const T* __restrict__ g,
        const T* __restrict__ w2, const float* __restrict__ mean,
        const float* __restrict__ gate, T* __restrict__ dx,
        float* __restrict__ dz2_out, float* __restrict__ dz1_out,
-       float* __restrict__ h_out, int C, int Tlen, int R, int vec) {
+       float* __restrict__ h_out, int C, int Tlen, int R, int vec, int Bf) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster_arrive_relaxed();
     extern __shared__ __align__(16) unsigned char smem[];
     const int K = (int)cluster.num_blocks();
     const int cpb = C / K;
     const int c0 = (int)cluster.block_rank() * cpb;
-    const int b = blockIdx.x / K;
+    const int fold = blockIdx.y;
+    const int b = fold * Bf + blockIdx.x / K;
+    w1 += (size_t)fold * R * C;
+    b1 += (size_t)fold * R;
+    w2 += (size_t)fold * C * R;
     const int n = cpb * Tlen;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -315,9 +333,13 @@ se_bwd(const T* __restrict__ x, const T* __restrict__ g,
     }
 }
 
-// Backward, weight part: each output element sums its per-sample terms
-// over b = 0, 1, ..., B-1 in that order. Outputs are laid out one after
-// another (dW1 R*C, db1 R, dW2 C*R, db2 C); a null output is skipped.
+// Backward, weight part, grid (blocks, F): fold f's blocks sum each
+// output element's per-sample terms over that fold's samples f*B, f*B + 1,
+// ..., f*B + B-1 in that order (B samples a fold). The outputs are laid
+// out one after another (dW1 R*C, db1 R, dW2 C*R, db2 C), each holding
+// the F folds' in turn; a null output is skipped. (A flat grid whose
+// threads divide their index by the fold's size made chip_smoke.py's B=16
+// backward rows slower on an H100: PERF.md.)
 template <typename T>
 __global__ void __launch_bounds__(kParamThreads)
 se_bwd_params(const float* __restrict__ dz2, const float* __restrict__ dz1,
@@ -326,6 +348,16 @@ se_bwd_params(const float* __restrict__ dz2, const float* __restrict__ dz1,
               T* __restrict__ db2, int B, int C, int R) {
     const int n_w = R * C;
     const int total = 2 * n_w + R + C;
+    const size_t f = blockIdx.y;  // the fold: grid (blocks, F)
+    const size_t s0 = f * B;      // the fold's first sample
+    dz2 += s0 * C;
+    dz1 += s0 * R;
+    h += s0 * R;
+    mean += s0 * C;
+    if (dw1 != nullptr) dw1 += f * n_w;
+    if (db1 != nullptr) db1 += f * R;
+    if (dw2 != nullptr) dw2 += f * n_w;
+    if (db2 != nullptr) db2 += f * C;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
          i += gridDim.x * blockDim.x) {
         float acc = 0.0f;
@@ -373,11 +405,12 @@ cudaError_t configure(Kernel kernel, bool (&done)[kMaxDevices]) {
     return err;
 }
 
-cudaLaunchConfig_t cluster_config(int B, int K, size_t smem,
+// grid (B*K, F): B samples a fold, K blocks a sample, F folds
+cudaLaunchConfig_t cluster_config(int B, int K, int F, size_t smem,
                                   cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(B * K), 1, 1);
+    cfg.gridDim = dim3((unsigned)(B * K), (unsigned)F, 1);
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -390,64 +423,71 @@ cudaLaunchConfig_t cluster_config(int B, int K, size_t smem,
     return cfg;
 }
 
-bool bad_split(int C, int K, size_t smem) {
-    return K < 1 || K > 16 || C % K != 0 || smem > (size_t)kMaxSmem;
+bool bad_split(int C, int K, int F, size_t smem) {
+    return K < 1 || K > 16 || C % K != 0 || F < 1 || F > 65535
+           || smem > (size_t)kMaxSmem;
 }
 
+// B samples in each of F folds (B*F in all)
 template <typename T>
 int se_forward(const void* x, const void* w1, const void* b1, const void* w2,
                const void* b2, void* mean, void* gate, void* out, int B,
-               int C, int Tlen, int R, int K, int vec, cudaStream_t stream) {
+               int C, int Tlen, int R, int K, int vec, int F,
+               cudaStream_t stream) {
     static bool done[kMaxDevices] = {};
     const int cpb = C / K;
     const size_t smem = align16(4 * (size_t)(C + R + cpb))
                         + align16((size_t)cpb * Tlen * sizeof(T));
-    if (bad_split(C, K, smem)) return (int)cudaErrorInvalidValue;
+    if (bad_split(C, K, F, smem)) return (int)cudaErrorInvalidValue;
     cudaError_t err = configure(se_fwd<T>, done);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(B, K, smem, stream, attr);
+    const cudaLaunchConfig_t cfg = cluster_config(B, K, F, smem, stream,
+                                                  attr);
     err = cudaLaunchKernelEx(
         &cfg, se_fwd<T>, static_cast<const T*>(x), static_cast<const T*>(w1),
         static_cast<const T*>(b1), static_cast<const T*>(w2),
         static_cast<const T*>(b2), static_cast<float*>(mean),
-        static_cast<float*>(gate), static_cast<T*>(out), C, Tlen, R, vec);
+        static_cast<float*>(gate), static_cast<T*>(out), C, Tlen, R, vec, B);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-// scratch: f32 dz2 (B, C), dz1 (B, R), h (B, R) one after another, or null
-// when no weight needs a gradient (then the weight outputs are null too).
+// scratch: f32 dz2 (F*B, C), dz1 (F*B, R), h (F*B, R) one after another,
+// or null when no weight needs a gradient (then the weight outputs are
+// null too). B samples in each of F folds.
 template <typename T>
 int se_backward(const void* x, const void* g, const void* w1, const void* b1,
                 const void* w2, const void* mean, const void* gate, void* dx,
                 void* dw1, void* db1, void* dw2, void* db2, void* scratch,
-                int B, int C, int Tlen, int R, int K, int vec,
+                int B, int C, int Tlen, int R, int K, int vec, int F,
                 cudaStream_t stream) {
     static bool done[kMaxDevices] = {};
     const int cpb = C / K;
     const size_t smem = align16(8 * (size_t)(C + R + cpb))
                         + 2 * align16((size_t)cpb * Tlen * sizeof(T));
-    if (bad_split(C, K, smem)) return (int)cudaErrorInvalidValue;
+    if (bad_split(C, K, F, smem)) return (int)cudaErrorInvalidValue;
     cudaError_t err = configure(se_bwd<T>, done);
     if (err != cudaSuccess) return (int)err;
+    const size_t rows = (size_t)F * B;
     float* dz2 = static_cast<float*>(scratch);
-    float* dz1 = dz2 == nullptr ? nullptr : dz2 + (size_t)B * C;
-    float* h = dz1 == nullptr ? nullptr : dz1 + (size_t)B * R;
+    float* dz1 = dz2 == nullptr ? nullptr : dz2 + rows * C;
+    float* h = dz1 == nullptr ? nullptr : dz1 + rows * R;
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(B, K, smem, stream, attr);
+    const cudaLaunchConfig_t cfg = cluster_config(B, K, F, smem, stream,
+                                                  attr);
     err = cudaLaunchKernelEx(
         &cfg, se_bwd<T>, static_cast<const T*>(x), static_cast<const T*>(g),
         static_cast<const T*>(w1), static_cast<const T*>(b1),
         static_cast<const T*>(w2), static_cast<const float*>(mean),
         static_cast<const float*>(gate), static_cast<T*>(dx), dz2, dz1, h, C,
-        Tlen, R, vec);
+        Tlen, R, vec, B);
     if (err != cudaSuccess) return (int)err;
     err = cudaGetLastError();
     if (err != cudaSuccess || scratch == nullptr) return (int)err;
     const int total = 2 * R * C + R + C;
-    const int blocks = (total + kParamThreads - 1) / kParamThreads;
-    se_bwd_params<T><<<blocks, kParamThreads, 0, stream>>>(
+    const dim3 grid((total + kParamThreads - 1) / kParamThreads, F);
+    se_bwd_params<T><<<grid, kParamThreads, 0, stream>>>(
         dz2, dz1, h, static_cast<const float*>(mean), static_cast<T*>(dw1),
         static_cast<T*>(db1), static_cast<T*>(dw2), static_cast<T*>(db2), B,
         C, R);
@@ -462,7 +502,7 @@ extern "C" int ecgmm_se_forward_f32(const void* x, const void* w1,
                                     void* out, int B, int C, int Tlen, int R,
                                     int K, int vec, void* stream) {
     return se_forward<float>(x, w1, b1, w2, b2, mean, gate, out, B, C, Tlen,
-                             R, K, vec, static_cast<cudaStream_t>(stream));
+                             R, K, vec, 1, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ecgmm_se_forward_bf16(const void* x, const void* w1,
@@ -471,7 +511,7 @@ extern "C" int ecgmm_se_forward_bf16(const void* x, const void* w1,
                                      void* out, int B, int C, int Tlen, int R,
                                      int K, int vec, void* stream) {
     return se_forward<__nv_bfloat16>(x, w1, b1, w2, b2, mean, gate, out, B,
-                                     C, Tlen, R, K, vec,
+                                     C, Tlen, R, K, vec, 1,
                                      static_cast<cudaStream_t>(stream));
 }
 
@@ -481,7 +521,7 @@ extern "C" int ecgmm_se_backward_f32(
     void* db1, void* dw2, void* db2, void* scratch, int B, int C, int Tlen,
     int R, int K, int vec, void* stream) {
     return se_backward<float>(x, g, w1, b1, w2, mean, gate, dx, dw1, db1, dw2,
-                              db2, scratch, B, C, Tlen, R, K, vec,
+                              db2, scratch, B, C, Tlen, R, K, vec, 1,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -492,6 +532,46 @@ extern "C" int ecgmm_se_backward_bf16(
     int R, int K, int vec, void* stream) {
     return se_backward<__nv_bfloat16>(x, g, w1, b1, w2, mean, gate, dx, dw1,
                                       db1, dw2, db2, scratch, B, C, Tlen, R,
-                                      K, vec,
+                                      K, vec, 1,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The fold axis: x (F*B, C, T), the weights and their gradients (F, ...),
+// mean and gate (F*B, C); B samples a fold.
+extern "C" int ecgmm_se_fold_forward_f32(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* mean, void* gate, void* out, int B, int C,
+    int Tlen, int R, int K, int vec, int F, void* stream) {
+    return se_forward<float>(x, w1, b1, w2, b2, mean, gate, out, B, C, Tlen,
+                             R, K, vec, F, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_se_fold_forward_bf16(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* mean, void* gate, void* out, int B, int C,
+    int Tlen, int R, int K, int vec, int F, void* stream) {
+    return se_forward<__nv_bfloat16>(x, w1, b1, w2, b2, mean, gate, out, B,
+                                     C, Tlen, R, K, vec, F,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_se_fold_backward_f32(
+    const void* x, const void* g, const void* w1, const void* b1,
+    const void* w2, const void* mean, const void* gate, void* dx, void* dw1,
+    void* db1, void* dw2, void* db2, void* scratch, int B, int C, int Tlen,
+    int R, int K, int vec, int F, void* stream) {
+    return se_backward<float>(x, g, w1, b1, w2, mean, gate, dx, dw1, db1, dw2,
+                              db2, scratch, B, C, Tlen, R, K, vec, F,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ecgmm_se_fold_backward_bf16(
+    const void* x, const void* g, const void* w1, const void* b1,
+    const void* w2, const void* mean, const void* gate, void* dx, void* dw1,
+    void* db1, void* dw2, void* db2, void* scratch, int B, int C, int Tlen,
+    int R, int K, int vec, int F, void* stream) {
+    return se_backward<__nv_bfloat16>(x, g, w1, b1, w2, mean, gate, dx, dw1,
+                                      db1, dw2, db2, scratch, B, C, Tlen, R,
+                                      K, vec, F,
                                       static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,17 @@ is the plain version of the forward's (mu, rstd) residual.
 The kernels' shapes are pure functions of the shape here:
 `warps_per_row`, `rows_per_block` (both through `layout`),
 `in_registers`, `smem_bytes`, `vector_chunks` and `param_groups`.
+
+Under `torch.func.vmap` (the CV fold program, `train/cv_parallel.py`) the
+op takes a fold axis. With parameters shared by every fold the folds'
+rows fold into the batch: one launch of the kernels above, one set of
+soft weights. With per-fold parameters, weights (F, 3) and scale and
+bias (F, D), `_FoldAttentionFusion` launches the fold-axis kernels: all
+F folds in one launch, forward and backward (all six gradients, the
+parameters' summed per fold), the soft weights (F, 3).
+`fold_launches` and `fold_backward_launches` count those;
+`reference_fold_attention_fusion` and `reference_fold_fusion_backward`
+(loops over folds) are their plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from ecgmm_torch.ops import _ext
 
 launches = 0
 backward_launches = 0
+fold_launches = 0
+fold_backward_launches = 0
 
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
@@ -137,8 +150,10 @@ def reference_attention_fusion(img, sig, clin, weights, scale, bias,
     return out, sw
 
 
-def _prepare(img, sig, clin, weights, scale, bias):
-    """Check the inputs of the kernels; returns them contiguous."""
+def _prepare(img, sig, clin, weights, scale, bias, folds=None):
+    """Check the inputs of the kernels; returns them contiguous. With
+    `folds` = F the rows are F folds' and the parameters have a leading
+    fold axis."""
     tensors = (img, sig, clin, weights, scale, bias)
     dev = img.device
     for t in tensors:
@@ -149,8 +164,11 @@ def _prepare(img, sig, clin, weights, scale, bias):
             )
     b = img.shape[0]
     d = img.shape[1] + sig.shape[1] + clin.shape[1]
-    if sig.shape[0] != b or clin.shape[0] != b or weights.shape != (3,) \
-            or scale.shape != (d,) or bias.shape != (d,):
+    lead = () if folds is None else (folds,)
+    if sig.shape[0] != b or clin.shape[0] != b \
+            or weights.shape != lead + (3,) or scale.shape != lead + (d,) \
+            or bias.shape != lead + (d,) \
+            or (folds is not None and (folds < 1 or b % folds)):
         raise ValueError("fused_attention_fusion: inconsistent shapes")
     if d > _MAX_WIDTH:
         raise ValueError(
@@ -164,48 +182,61 @@ def _ptr(t):
 
 
 def _launch(img, sig, clin, weights, scale, bias, eps, keep_stats=False,
-            warps=None):
+            warps=None, folds=None):
     """The forward kernel on inputs that `_prepare` returned: (out, sw,
     stats), stats the (B, 2) f32 (mu, rstd) of each row where
-    `keep_stats`, else None. `warps` overrides `warps_per_row`."""
+    `keep_stats`, else None. `warps` overrides `warps_per_row`. With
+    `folds` = F (the fold entry point, one launch) the rows are F folds'
+    and sw is (F, 3)."""
     dev = img.device
     b = img.shape[0]
     dims = (img.shape[1], sig.shape[1], clin.shape[1])
     out = torch.empty((b, sum(dims)), dtype=torch.float32, device=dev)
-    sw = torch.empty((3,), dtype=torch.float32, device=dev)
+    sw = torch.empty(weights.shape, dtype=torch.float32, device=dev)
     stats = None
     if keep_stats:
         stats = torch.empty((b, 2), dtype=torch.float32, device=dev)
     if b == 0:
-        return out, torch.softmax(weights, dim=0), stats
+        return out, torch.softmax(weights, dim=-1), stats
     rows, w = layout(b, dims, warps=warps)
     vec = vector_chunks(dims, img.data_ptr(), sig.data_ptr(),
                         clin.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                         out.data_ptr())
+    if folds is None:
+        entry, bf, extra = "ecgmm_attention_fusion_forward", b, ()
+        counter = "launches"
+    else:
+        entry, bf, extra = ("ecgmm_attention_fusion_fold_forward",
+                            b // folds, (folds,))
+        counter = "fold_launches"
     lib = _ext.library()
     context, stream = _ext.launch_target(dev)
     with context:
-        status = lib.ecgmm_attention_fusion_forward(
+        status = getattr(lib, entry)(
             img.data_ptr(), sig.data_ptr(), clin.data_ptr(),
             weights.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), sw.data_ptr(), _ptr(stats), b, *dims, rows, w,
-            int(in_registers(dims)), vec, float(eps), stream,
+            out.data_ptr(), sw.data_ptr(), _ptr(stats), bf, *dims, rows, w,
+            int(in_registers(dims)), vec, float(eps), *extra, stream,
         )
-    _ext.check(status, "ecgmm_attention_fusion_forward")
-    _ext.count(__name__, "launches")
+    _ext.check(status, entry)
+    _ext.count(__name__, counter)
     return out, sw, stats
 
 
 def launch_backward(inputs, stats, grad_out, grad_sw, needs=(True,) * 6,
-                    warps=None):
+                    warps=None, folds=None):
     """The backward kernels for the six inputs that `_prepare` returned,
     the forward's (B, 2) stats and the cotangents (grad_out, grad_sw):
     gradients w.r.t. the six inputs, None where `needs` is False. grad_sw
-    may be None. `warps` overrides `warps_per_row`."""
+    may be None. `warps` overrides `warps_per_row`. With `folds` = F (the
+    fold entry point) the rows are F folds', the parameters, grad_sw and
+    the parameter gradients have a leading fold axis, and each fold's
+    parameter gradients sum its own rows only."""
     img, sig, clin, weights, scale, _ = inputs
     dev = img.device
     b = img.shape[0]
     dims = (img.shape[1], sig.shape[1], clin.shape[1])
+    bf = b if folds is None else b // folds
     grads = [torch.empty_like(t) if need else None
              for t, need in zip(inputs, needs)]
     # per row, the three dsw partial sums (at least one row, so that the
@@ -222,17 +253,24 @@ def launch_backward(inputs, stats, grad_out, grad_sw, needs=(True,) * 6,
     vec = vector_chunks(dims, img.data_ptr(), sig.data_ptr(),
                         clin.data_ptr(), scale.data_ptr(), go.data_ptr(),
                         *(g.data_ptr() for g in grads[:3] if g is not None))
+    if folds is None:
+        entry, extra = "ecgmm_attention_fusion_backward", ()
+        counter = "backward_launches"
+    else:
+        entry, extra = "ecgmm_attention_fusion_fold_backward", (folds,)
+        counter = "fold_backward_launches"
     lib = _ext.library()
     context, stream = _ext.launch_target(dev)
     with context:
-        status = lib.ecgmm_attention_fusion_backward(
+        status = getattr(lib, entry)(
             img.data_ptr(), sig.data_ptr(), clin.data_ptr(),
             weights.data_ptr(), scale.data_ptr(), go.data_ptr(), _ptr(gsw),
-            _ptr(stats), *map(_ptr, grads), _ptr(dsw_part), b, *dims, rows,
-            w, int(in_registers(dims)), vec, param_groups(b), stream,
+            _ptr(stats), *map(_ptr, grads), _ptr(dsw_part), bf, *dims, rows,
+            w, int(in_registers(dims)), vec, param_groups(bf), *extra,
+            stream,
         )
-    _ext.check(status, "ecgmm_attention_fusion_backward")
-    _ext.count(__name__, "backward_launches")
+    _ext.check(status, entry)
+    _ext.count(__name__, counter)
     return tuple(grads)
 
 
@@ -289,24 +327,126 @@ def reference_fusion_backward(inputs, eps, grad_out, grad_sw,
     return tuple(g if need else None for g, need in zip(grads, needs))
 
 
+def reference_fold_attention_fusion(img, sig, clin, weights, scale, bias,
+                                    eps: float = 1e-6):
+    """The plain version of the fold-axis forward: F folds' rows, the
+    parameters with a leading fold axis F; (out, sw (F, 3)), a loop over
+    folds of `reference_attention_fusion`."""
+    f = weights.shape[0]
+    parts = [reference_attention_fusion(
+        *(a.reshape(f, -1, a.shape[-1])[i] for a in (img, sig, clin)),
+        weights[i], scale[i], bias[i], eps) for i in range(f)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
+
+
+def reference_fold_fusion_backward(inputs, eps, grad_out, grad_sw,
+                                   needs=(True,) * 6):
+    """The plain version of the fold-axis backward: the six gradients of
+    F folds for the cotangents grad_out (F*B, D) and grad_sw (F, 3) or
+    None, the parameters' per fold; a loop over folds of
+    `reference_fusion_backward`."""
+    img, sig, clin, weights, scale, bias = inputs
+    f = weights.shape[0]
+
+    def fold(a, i):
+        return a.reshape(f, -1, a.shape[-1])[i]
+
+    parts = [reference_fusion_backward(
+        (fold(img, i), fold(sig, i), fold(clin, i), weights[i], scale[i],
+         bias[i]), eps, fold(grad_out, i),
+        None if grad_sw is None else grad_sw[i], needs) for i in range(f)]
+    return tuple(
+        None if not need else (torch.cat if j < 3 else torch.stack)(
+            [p[j] for p in parts]) for j, need in enumerate(needs))
+
+
+def _save(ctx, inputs, output):
+    """setup_context of both Functions: the six inputs as given (the
+    backward prepares them again: a strided parameter, such as a fold's
+    view of the fold program's stacked parameters, becomes contiguous) and
+    the (mu, rstd) residual where the forward kept one."""
+    *tensors, eps, keep = inputs[:8]
+    # an output autograd has no cotangent for (the residual, soft weights
+    # that the loss does not read) reaches the backward as None, not as a
+    # zero tensor another kernel would fill
+    ctx.set_materialize_grads(False)
+    if keep:
+        ctx.save_for_backward(*tensors[:6], output[2])
+        ctx.mark_non_differentiable(output[2])
+
+
 class _FusedAttentionFusion(torch.autograd.Function):
-    # `keep`: autograd will run the backward (grad mode on and an input
-    # that requires a gradient), so the forward keeps (mu, rstd); inside
-    # forward, grad mode is always off and needs_input_grad ignores it
-    @staticmethod
-    def forward(ctx, img, sig, clin, weights, scale, bias, eps, keep):
-        inputs = _prepare(img, sig, clin, weights, scale, bias)
-        out, sw, stats = _launch(*inputs, eps, keep_stats=keep)
-        if keep:
-            ctx.save_for_backward(*inputs, stats)
-        return out, sw
+    """The kernels on one batch: (out, sw, stats), the (B, 2) residual
+    (or None) not differentiable. `keep`: autograd will run the backward
+    (grad mode on and an input that requires a gradient), so the forward
+    keeps (mu, rstd). Under `vmap` the fold axis: shared parameters fold
+    the folds into the batch, per-fold ones take `_FoldAttentionFusion`."""
 
     @staticmethod
-    def backward(ctx, grad_out, grad_sw):
+    def forward(img, sig, clin, weights, scale, bias, eps, keep):
+        inputs = _prepare(img, sig, clin, weights, scale, bias)
+        return _launch(*inputs, eps, keep_stats=keep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _save(ctx, inputs, output)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_sw, _):
         *inputs, stats = ctx.saved_tensors
-        grads = launch_backward(inputs, stats, grad_out, grad_sw,
+        grads = launch_backward(_prepare(*inputs), stats, grad_out, grad_sw,
                                 ctx.needs_input_grad[:6])
         return (*grads, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, img, sig, clin, weights, scale, bias, eps, keep):
+        n = info.batch_size
+        chunks = [_ext.batch_first(t, d, n) for t, d in
+                  zip((img, sig, clin), in_dims[:3])]
+        b = chunks[0].shape[1]
+        rows = [c.reshape(n * b, c.shape[-1]) for c in chunks]
+        params = (weights, scale, bias)
+        keep = torch.is_grad_enabled() and any(
+            t.requires_grad for t in rows + list(params))
+        if all(d is None for d in in_dims[3:6]):
+            out, sw, stats = _FusedAttentionFusion.apply(
+                *rows, *params, eps, keep)
+            sw_dim = None
+        else:
+            params = [_ext.batch_first(t, d, n)
+                      for t, d in zip(params, in_dims[3:6])]
+            out, sw, stats = _FoldAttentionFusion.apply(
+                *rows, *params, eps, keep, n)
+            sw_dim = 0
+        if stats is not None:
+            stats = stats.view(n, b, 2)
+        return ((out.view(n, b, -1), sw, stats),
+                (0, sw_dim, None if stats is None else 0))
+
+
+class _FoldAttentionFusion(torch.autograd.Function):
+    """The fold-axis kernels: F folds' rows with per-fold parameters give
+    (out, sw (F, 3), stats) in one launch; the backward is one launch plus,
+    where a parameter needs a gradient, one per-fold column reduction."""
+
+    @staticmethod
+    def forward(img, sig, clin, weights, scale, bias, eps, keep, folds):
+        inputs = _prepare(img, sig, clin, weights, scale, bias, folds=folds)
+        return _launch(*inputs, eps, keep_stats=keep, folds=folds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _save(ctx, inputs, output)
+        ctx.folds = inputs[8]
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_sw, _):
+        *inputs, stats = ctx.saved_tensors
+        grads = launch_backward(_prepare(*inputs, folds=ctx.folds), stats,
+                                grad_out, grad_sw, ctx.needs_input_grad[:6],
+                                folds=ctx.folds)
+        return (*grads, None, None, None)
 
 
 def fused_attention_fusion(img, sig, clin, weights, scale, bias,
@@ -328,4 +468,5 @@ def _through_kernels(img, sig, clin, weights, scale, bias, eps):
     where autograd will run the backward."""
     tensors = (img, sig, clin, weights, scale, bias)
     keep = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    return _FusedAttentionFusion.apply(*tensors, eps, keep)
+    out, sw, _ = _FusedAttentionFusion.apply(*tensors, eps, keep)
+    return out, sw

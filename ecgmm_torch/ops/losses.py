@@ -16,6 +16,14 @@ launches.
 `reference_backward` (autograd of `reference_focal`, the JAX custom_vjp's
 design) and `reference_focal_backward` (the closed form the backward
 kernel computes) are the plain versions of the backward.
+
+Under `torch.func.vmap` (the CV fold program, `train/cv_parallel.py`) the
+op takes the fold axis: F folds of (B, C) logits give (F,) losses, one
+launch of the forward kernel for all F (`_FoldFocalLoss`, the fold
+entry points of `csrc/focal.cu`), and one of the backward from an (F,)
+cotangent. `fold_launches` and `fold_backward_launches` count those;
+`reference_fold_focal` (a loop over folds of `reference_focal`) is their
+plain version.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from ecgmm_torch.ops import _ext
 
 launches = 0
 backward_launches = 0
+fold_launches = 0
+fold_backward_launches = 0
 
 MAX_CLUSTER = 16  # blocks per cluster, with non-portable sizes allowed
 # logits elements up to which the forward runs on one block; above, on a
@@ -41,6 +51,14 @@ _FORWARD = {
 _BACKWARD = {
     torch.int32: "ecgmm_focal_loss_backward_i32",
     torch.int64: "ecgmm_focal_loss_backward_i64",
+}
+_FOLD_FORWARD = {
+    torch.int32: "ecgmm_focal_loss_fold_forward_i32",
+    torch.int64: "ecgmm_focal_loss_fold_forward_i64",
+}
+_FOLD_BACKWARD = {
+    torch.int32: "ecgmm_focal_loss_fold_backward_i32",
+    torch.int64: "ecgmm_focal_loss_fold_backward_i64",
 }
 
 
@@ -121,16 +139,32 @@ def _check(logits, labels, mask):
             raise ValueError(f"fused_focal_loss: {name} must be contiguous")
 
 
-def _launch(logits, labels, mask, alpha, gamma, k=None):
+def _fold_rows(b: int, folds: int) -> int:
+    if folds < 1 or b % folds:
+        raise ValueError(f"fused_focal_loss: {b} rows do not split into "
+                         f"{folds} folds")
+    return b // folds
+
+
+def _launch(logits, labels, mask, alpha, gamma, k=None, folds=None):
     """The forward kernel: returns the 0-d loss and the residual (2,) f32,
-    sum(term) and sum(mask). `k` overrides `cluster_size` (for timing)."""
+    sum(term) and sum(mask). `k` overrides `cluster_size` (for timing).
+    With `folds` = F the rows are F folds of B each (the fold entry point,
+    one launch): the loss is (F,) and the residual (F, 2)."""
     _check(logits, labels, mask)
     b, c = logits.shape
     dev = logits.device
-    out = torch.empty((), dtype=torch.float32, device=dev)
-    res = torch.empty((2,), dtype=torch.float32, device=dev)
+    if folds is None:
+        out = torch.empty((), dtype=torch.float32, device=dev)
+        res = torch.empty((2,), dtype=torch.float32, device=dev)
+        entry, extra, counter = _FORWARD[labels.dtype], (), "launches"
+    else:
+        b = _fold_rows(b, folds)
+        out = torch.empty((folds,), dtype=torch.float32, device=dev)
+        res = torch.empty((folds, 2), dtype=torch.float32, device=dev)
+        entry, extra = _FOLD_FORWARD[labels.dtype], (folds,)
+        counter = "fold_launches"
     k = cluster_size(b, c) if k is None else k
-    entry = _FORWARD[labels.dtype]
     lib = _ext.library()
     context, stream = _ext.launch_target(dev)
     with context:
@@ -138,18 +172,20 @@ def _launch(logits, labels, mask, alpha, gamma, k=None):
             logits.data_ptr(), labels.data_ptr(), mask.data_ptr(),
             out.data_ptr(), res.data_ptr(), b, c, k, block_threads(b, k),
             int(vector_rows(c, logits.data_ptr())), float(alpha),
-            float(gamma), stream,
+            float(gamma), *extra, stream,
         )
     _ext.check(status, entry)
-    _ext.count(__name__, "launches")
+    _ext.count(__name__, counter)
     return out, res
 
 
-def launch_backward(inputs, res, alpha, gamma, grad, needs=(True, True)):
+def launch_backward(inputs, res, alpha, gamma, grad, needs=(True, True),
+                    folds=None):
     """The backward kernel for the saved (logits, labels, mask), the
     forward's residual and the 0-d cotangent `grad`: (dlogits, dmask),
     None where `needs` is False. One launch, or none if nothing is
-    needed."""
+    needed. With `folds` = F: F folds of B rows, the (F, 2) residual and
+    an (F,) cotangent (the fold entry point, one launch)."""
     logits, labels, mask = inputs
     b, c = logits.shape
     dlogits = torch.empty_like(logits) if needs[0] else None
@@ -157,8 +193,14 @@ def launch_backward(inputs, res, alpha, gamma, grad, needs=(True, True)):
     if not any(needs) or b == 0:
         return dlogits, dmask
     grad = grad.to(torch.float32).contiguous()
+    if folds is None:
+        entry, extra = _BACKWARD[labels.dtype], ()
+        counter = "backward_launches"
+    else:
+        b = _fold_rows(b, folds)
+        entry, extra = _FOLD_BACKWARD[labels.dtype], (folds,)
+        counter = "fold_backward_launches"
     k = backward_blocks(b)
-    entry = _BACKWARD[labels.dtype]
     lib = _ext.library()
     context, stream = _ext.launch_target(logits.device)
     with context:
@@ -168,10 +210,10 @@ def launch_backward(inputs, res, alpha, gamma, grad, needs=(True, True)):
             None if dlogits is None else dlogits.data_ptr(),
             None if dmask is None else dmask.data_ptr(), b, c, k,
             block_threads(b, k), int(vector_rows(c, logits.data_ptr())),
-            float(alpha), float(gamma), stream,
+            float(alpha), float(gamma), *extra, stream,
         )
     _ext.check(status, entry)
-    _ext.count(__name__, "backward_launches")
+    _ext.count(__name__, counter)
     return dlogits, dmask
 
 
@@ -224,16 +266,54 @@ def reference_focal_backward(inputs, alpha, gamma, grad, needs=(True, True)):
     return dlogits, dmask
 
 
+def reference_fold_focal(logits, labels, mask, alpha: float = 1.0,
+                         gamma: float = 2.0):
+    """The plain version of the fold-axis forward: (F*B, C) logits of F
+    folds, labels and mask (F*B,), F the mask's leading size when it is
+    given as (F, B); returns the (F,) losses, a loop over folds of
+    `reference_focal`."""
+    f = mask.shape[0]
+    rows = logits.reshape(f, -1, logits.shape[-1])
+    lab = labels.reshape(f, -1)
+    m = mask.reshape(f, -1)
+    return torch.stack([reference_focal(rows[i], lab[i], m[i], alpha, gamma)
+                        for i in range(f)])
+
+
+def reference_fold_focal_backward(inputs, alpha, gamma, grad,
+                                  needs=(True, True)):
+    """The plain version of the fold-axis backward: (dlogits, dmask) of F
+    folds for the (F,) cotangent `grad`, a loop over folds of
+    `reference_focal_backward`."""
+    logits, labels, mask = inputs
+    f = grad.shape[0]
+    rows = logits.reshape(f, -1, logits.shape[-1])
+    lab, m = labels.reshape(f, -1), mask.reshape(f, -1)
+    parts = [reference_focal_backward((rows[i], lab[i], m[i]), alpha, gamma,
+                                      grad[i], needs) for i in range(f)]
+    return tuple(None if not need else torch.cat([p[j] for p in parts])
+                 for j, need in enumerate(needs))
+
+
 class _FusedFocalLoss(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, logits, labels, mask, alpha, gamma):
-        out, res = _launch(logits, labels, mask, alpha, gamma)
-        ctx.save_for_backward(logits, labels, mask, res)
-        ctx.alpha, ctx.gamma = alpha, gamma
-        return out
+    """The kernels on one (B, C) batch: (loss, residual), the residual
+    not differentiable. Under `vmap` the fold axis (`_FoldFocalLoss`)."""
 
     @staticmethod
-    def backward(ctx, grad):
+    def forward(logits, labels, mask, alpha, gamma):
+        return _launch(logits, labels, mask, alpha, gamma)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, mask, alpha, gamma = inputs
+        ctx.save_for_backward(logits, labels, mask, output[1])
+        ctx.mark_non_differentiable(output[1])
+        # the residual's cotangent stays None: no kernel fills zeros for it
+        ctx.set_materialize_grads(False)
+        ctx.alpha, ctx.gamma = alpha, gamma
+
+    @staticmethod
+    def backward(ctx, grad, _):
         logits, labels, mask, res = ctx.saved_tensors
         needs = ctx.needs_input_grad
         dlogits, dmask = launch_backward(
@@ -241,15 +321,54 @@ class _FusedFocalLoss(torch.autograd.Function):
             (needs[0], needs[2]))
         return dlogits, None, dmask, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, logits, labels, mask, alpha, gamma):
+        n = info.batch_size
+        lg, lb, mk = (_ext.batch_first(t, d, n) for t, d in
+                      zip((logits, labels, mask), in_dims[:3]))
+        out, res = _FoldFocalLoss.apply(
+            lg.reshape(-1, lg.shape[-1]).contiguous(),
+            lb.reshape(-1).contiguous(), mk.reshape(-1).contiguous(),
+            n, alpha, gamma)
+        return (out, res), (0, 0)
+
+
+class _FoldFocalLoss(torch.autograd.Function):
+    """The fold-axis kernels: (F*B, C) logits of F folds, their labels
+    and mask, give the (F,) losses and the (F, 2) residual in one launch,
+    and the backward for an (F,) cotangent in one more."""
+
+    @staticmethod
+    def forward(logits, labels, mask, folds, alpha, gamma):
+        return _launch(logits, labels, mask, alpha, gamma, folds=folds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, mask, folds, alpha, gamma = inputs
+        ctx.save_for_backward(logits, labels, mask, output[1])
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+        ctx.folds, ctx.alpha, ctx.gamma = folds, alpha, gamma
+
+    @staticmethod
+    def backward(ctx, grad, _):
+        logits, labels, mask, res = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        dlogits, dmask = launch_backward(
+            (logits, labels, mask), res, ctx.alpha, ctx.gamma, grad,
+            (needs[0], needs[2]), folds=ctx.folds)
+        return dlogits, None, dmask, None, None, None
+
 
 def fused_focal_loss(logits, labels, mask, alpha: float = 1.0,
                      gamma: float = 2.0):
     """Focal loss: the CUDA kernels (forward and backward) for CUDA
-    tensors, `reference_focal` for CPU tensors."""
+    tensors, `reference_focal` for CPU tensors. Under `torch.func.vmap`
+    on CUDA tensors, one launch of the fold-axis kernel for all folds."""
     if logits.device.type == "cpu":
         return reference_focal(logits, labels, mask, alpha, gamma)
     if logits.device.type != "cuda":
         raise ValueError(f"fused_focal_loss: unsupported device "
                          f"{logits.device}")
     return _FusedFocalLoss.apply(logits, labels, mask, float(alpha),
-                                 float(gamma))
+                                 float(gamma))[0]

@@ -14,6 +14,16 @@ calls through the kernels.
 `reference_backward` (autograd of `reference_se`) and
 `reference_se_backward` (the closed form the kernels compute) are the
 plain versions of the backward.
+
+Under `torch.func.vmap` (the CV fold program, `train/cv_parallel.py`)
+the op takes a fold axis. With the weights shared by every fold (a
+frozen encoder) the folds fold into the batch: one launch of the kernels
+above. With per-fold weights, w1 (F, R, C) and so on, `_FoldSE` launches
+the fold-axis kernels: all F folds in one launch, forward and backward,
+the weight gradients summed per fold. `fold_launches` and
+`fold_backward_launches` count those; `reference_fold_se` and
+`reference_fold_se_backward` (loops over folds) are their plain
+versions.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ from ecgmm_torch.ops import _ext
 
 launches = 0
 backward_launches = 0
+fold_launches = 0
+fold_backward_launches = 0
 
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
@@ -36,6 +48,14 @@ _FORWARD = {
 _BACKWARD = {
     torch.float32: "ecgmm_se_backward_f32",
     torch.bfloat16: "ecgmm_se_backward_bf16",
+}
+_FOLD_FORWARD = {
+    torch.float32: "ecgmm_se_fold_forward_f32",
+    torch.bfloat16: "ecgmm_se_fold_forward_bf16",
+}
+_FOLD_BACKWARD = {
+    torch.float32: "ecgmm_se_fold_backward_f32",
+    torch.bfloat16: "ecgmm_se_fold_backward_bf16",
 }
 
 
@@ -91,17 +111,24 @@ def vector_loads(c: int, t: int, k: int, esize: int, *ptrs: int) -> bool:
     return (c // k) * t * esize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
-def _launch(x, w1, b1, w2, b2):
+def _launch(x, w1, b1, w2, b2, folds=None):
     """The forward kernel: returns out and the saved state (2, B, C) f32,
-    the channel means and the gate."""
+    the channel means and the gate. With `folds` = F, x holds F folds of
+    B/F samples and each weight has a leading fold axis (the fold entry
+    point: one launch)."""
     if x.dim() != 3:
         raise ValueError(f"fused_se: x must be (B, C, T), got {tuple(x.shape)}")
     b, c, t = x.shape
-    r = w1.shape[0]
+    lead = () if folds is None else (folds,)
+    r = w1.shape[-2]
     if x.dtype not in _FORWARD:
         raise TypeError(f"fused_se: unsupported dtype {x.dtype}")
-    for name, w, shape in (("w1", w1, (r, c)), ("b1", b1, (r,)),
-                           ("w2", w2, (c, r)), ("b2", b2, (c,))):
+    if folds is not None and (folds < 1 or b % folds):
+        raise ValueError(f"fused_se: {b} samples do not split into {folds} "
+                         "folds")
+    for name, w, shape in (("w1", w1, lead + (r, c)), ("b1", b1, lead + (r,)),
+                           ("w2", w2, lead + (c, r)),
+                           ("b2", b2, lead + (c,))):
         if tuple(w.shape) != shape or w.dtype != x.dtype \
                 or w.device != x.device:
             raise ValueError(
@@ -118,29 +145,37 @@ def _launch(x, w1, b1, w2, b2):
     k = cluster_size(b, c, t, r, esize)
     w1, b1, w2, b2 = (w.contiguous() for w in (w1, b1, w2, b2))
     lib = _ext.library()
-    entry = _FORWARD[x.dtype]
+    if folds is None:
+        entry, bf, extra, counter = _FORWARD[x.dtype], b, (), "launches"
+    else:
+        entry, bf, extra = _FOLD_FORWARD[x.dtype], b // folds, (folds,)
+        counter = "fold_launches"
     context, stream = _ext.launch_target(x.device)
     with context:
         status = getattr(lib, entry)(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), state[0].data_ptr(), state[1].data_ptr(),
-            out.data_ptr(), b, c, t, r, k,
-            int(vector_loads(c, t, k, esize, x.data_ptr())), stream,
+            out.data_ptr(), bf, c, t, r, k,
+            int(vector_loads(c, t, k, esize, x.data_ptr())), *extra, stream,
         )
     _ext.check(status, entry)
-    _ext.count(__name__, "launches")
+    _ext.count(__name__, counter)
     return out, state
 
 
-def launch_backward(x, w1, b1, w2, state, grad, needs=(True,) * 5):
+def launch_backward(x, w1, b1, w2, state, grad, needs=(True,) * 5,
+                    folds=None):
     """The backward kernels for the saved x, w1, b1, w2 and forward state
     and the cotangent `grad`: gradients w.r.t. (x, w1, b1, w2, b2), None
-    where `needs` is False."""
+    where `needs` is False. With `folds` = F (the fold entry point) the
+    weights and their gradients have a leading fold axis, each fold's
+    summed over its own B/F samples."""
     b, c, t = x.shape
-    r = w1.shape[0]
+    r = w1.shape[-2]
+    lead = () if folds is None else (folds,)
     grad, w1, b1, w2 = (a.contiguous() for a in (grad, w1, b1, w2))
     dx = torch.empty_like(x) if needs[0] else None
-    dws = [torch.empty(shape, dtype=x.dtype, device=x.device) if need
+    dws = [torch.empty(lead + shape, dtype=x.dtype, device=x.device) if need
            else None
            for shape, need in zip(((r, c), (r,), (c, r), (c,)), needs[1:])]
     scratch = None
@@ -157,18 +192,23 @@ def launch_backward(x, w1, b1, w2, state, grad, needs=(True,) * 5):
         return None if a is None else a.data_ptr()
 
     lib = _ext.library()
-    entry = _BACKWARD[x.dtype]
+    if folds is None:
+        entry, bf, extra = _BACKWARD[x.dtype], b, ()
+        counter = "backward_launches"
+    else:
+        entry, bf, extra = _FOLD_BACKWARD[x.dtype], b // folds, (folds,)
+        counter = "fold_backward_launches"
     context, stream = _ext.launch_target(x.device)
     with context:
         status = getattr(lib, entry)(
             x.data_ptr(), grad.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), state[0].data_ptr(), state[1].data_ptr(), ptr(dx),
-            *map(ptr, dws), ptr(scratch), b, c, t, r, k,
+            *map(ptr, dws), ptr(scratch), bf, c, t, r, k,
             int(vector_loads(c, t, k, esize, x.data_ptr(), grad.data_ptr())),
-            stream,
+            *extra, stream,
         )
     _ext.check(status, entry)
-    _ext.count(__name__, "backward_launches")
+    _ext.count(__name__, counter)
     return (dx, *dws)
 
 
@@ -199,26 +239,99 @@ def reference_se_backward(inputs, grad):
     return tuple(d.to(a.dtype) for d, a in zip(grads, inputs))
 
 
+def reference_fold_se(x, w1, b1, w2, b2):
+    """The plain version of the fold-axis forward: x (F*B, C, T), the
+    weights with a leading fold axis F; a loop over folds of
+    `reference_se`."""
+    f = w1.shape[0]
+    xs = x.reshape(f, -1, *x.shape[1:])
+    return torch.cat([reference_se(xs[i], w1[i], b1[i], w2[i], b2[i])
+                      for i in range(f)])
+
+
+def reference_fold_se_backward(inputs, grad):
+    """The plain version of the fold-axis backward: gradients w.r.t. (x,
+    w1, b1, w2, b2) of F folds, each weight's summed over its fold; a loop
+    over folds of `reference_se_backward`."""
+    x, w1, b1, w2, b2 = inputs
+    f = w1.shape[0]
+    xs, gs = x.reshape(f, -1, *x.shape[1:]), grad.reshape(f, -1,
+                                                         *x.shape[1:])
+    parts = [reference_se_backward((xs[i], w1[i], b1[i], w2[i], b2[i]),
+                                   gs[i]) for i in range(f)]
+    return (torch.cat([p[0] for p in parts]),
+            *(torch.stack([p[j] for p in parts]) for j in range(1, 5)))
+
+
 class _FusedSE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        out, state = _launch(x, w1, b1, w2, b2)
-        ctx.save_for_backward(x, w1, b1, w2, state)
-        return out
+    """The kernels on one (B, C, T) batch: (out, state), the saved
+    (2, B, C) f32 means and gate not differentiable. Under `vmap` the fold
+    axis: shared weights fold into the batch, per-fold ones take
+    `_FoldSE`."""
 
     @staticmethod
-    def backward(ctx, grad):
+    def forward(x, w1, b1, w2, b2):
+        return _launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w1, b1, w2, _ = inputs
+        ctx.save_for_backward(x, w1, b1, w2, output[1])
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, grad, _):
         return launch_backward(*ctx.saved_tensors, grad,
                                ctx.needs_input_grad)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w1, b1, w2, b2):
+        n = info.batch_size
+        x = _ext.batch_first(x, in_dims[0], n)
+        shape = x.shape
+        rows = x.reshape(-1, *shape[2:]).contiguous()
+        if all(d is None for d in in_dims[1:]):
+            out, state = _FusedSE.apply(rows, w1, b1, w2, b2)
+        else:
+            ws = [_ext.batch_first(w, d, n)
+                  for w, d in zip((w1, b1, w2, b2), in_dims[1:])]
+            out, state = _FoldSE.apply(rows, *ws)
+        return ((out.view(shape), state.view(2, n, shape[1], shape[2])),
+                (0, 1))
+
+
+class _FoldSE(torch.autograd.Function):
+    """The fold-axis kernels: x (F*B, C, T) of F folds and per-fold
+    weights (F, ...) give (out, state) in one launch; the backward is one
+    launch plus, where a weight needs a gradient, one per-fold reduction."""
+
+    @staticmethod
+    def forward(x, w1, b1, w2, b2):
+        return _launch(x, w1, b1, w2, b2, folds=w1.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w1, b1, w2, _ = inputs
+        ctx.save_for_backward(x, w1, b1, w2, output[1])
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, grad, _):
+        x, w1, b1, w2, state = ctx.saved_tensors
+        return launch_backward(x, w1, b1, w2, state, grad,
+                               ctx.needs_input_grad, folds=w1.shape[0])
 
 
 def fused_se(x, w1, b1, w2, b2):
     """SE gate: the CUDA kernels (forward and backward) for CUDA tensors,
     `reference_se` for CPU tensors. The kernels reduce and run both dense
     layers in f32 (the weights read as f32 from x's dtype) and store in
-    x's dtype."""
+    x's dtype. Under `torch.func.vmap` on CUDA tensors, one launch for all
+    folds (`_FusedSE.vmap`)."""
     if x.device.type == "cpu":
         return reference_se(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_se: unsupported device {x.device}")
-    return _FusedSE.apply(x, w1, b1, w2, b2)
+    return _FusedSE.apply(x, w1, b1, w2, b2)[0]

@@ -13,11 +13,15 @@ in the model, so the checkpoints and serving see what the head was trained
 on. A host-resident split (a `HostArrays`, over the device-memory
 budget) streams through both, batch by batch (`pipeline.prefetch_batches`),
 with the resident path's batches and results; the embeddings come back on
-the device. The CV encoders wait for their slice (ROADMAP.md).
+the device. The CV harnesses encode per fold: `encode_image_cohort` runs
+the image encoder once over a whole cohort, `encode_sigcli_rows` the
+signal and clinical encoders over per-fold transformed rows
+(`train/cv_parallel.prepare_folds`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Dict, Optional, Tuple
@@ -148,6 +152,67 @@ def precompute_fusion_embeddings(model: ECGMultimodalModel, arrays: Arrays,
     img, sig, clin = (torch.cat(o)[:n] for o in zip(*outs))
     return Arrays(images=img, signals=sig, clinical=clin, labels=labels,
                   indices=np.asarray(arrays.indices))
+
+
+@contextlib.contextmanager
+def _eval_encoders(model: ECGMultimodalModel):
+    """The three encoders in eval mode (running statistics, no dropout)
+    for the block, as `encode_raw` runs them; their modes are restored
+    afterwards."""
+    encoders = (model.image_encoder, model.signal_encoder,
+                model.clinical_encoder)
+    modes = [m.training for m in encoders]
+    try:
+        for m in encoders:
+            m.eval()
+        yield
+    finally:
+        for m, mode in zip(encoders, modes):
+            m.train(mode)
+
+
+def _encode_rows(encode, n: int, batch_size: int, device):
+    """`encode` (a function of a batch's row indices on `device`) over
+    rows 0..n-1 in unshuffled batches of `batch_size`, the last one padded
+    with row 0; the outputs' pad rows stripped and the batches
+    concatenated (a tuple of outputs, each concatenated)."""
+    idx, _ = epoch_indices(n, batch_size, shuffle=False, seed=0, epoch=0)
+    idx_d = torch.from_numpy(idx.astype(np.int64)).to(device)
+    with torch.no_grad():
+        outs = [encode(rows) for rows in idx_d]
+    return tuple(torch.cat(o)[:n] for o in zip(*outs))
+
+
+def encode_image_cohort(model: ECGMultimodalModel, images: torch.Tensor,
+                        batch_size: int) -> torch.Tensor:
+    """The raw image embeddings (N, image_dim) float32 of a whole cohort
+    (N, 3, H, W) uint8 on the model's device: the image encoder in eval
+    mode, as `encode_raw` runs it, in unshuffled batches of `batch_size`.
+    Each row's embedding depends on that row alone, so gathering a fold's
+    rows from it equals encoding the fold."""
+    def encode(rows):
+        return (model.encode_image(images.index_select(0, rows))[0],)
+
+    with _eval_encoders(model):
+        (img,) = _encode_rows(encode, images.shape[0], batch_size,
+                              images.device)
+    return img
+
+
+def encode_sigcli_rows(model: ECGMultimodalModel, signals: torch.Tensor,
+                       clinical: torch.Tensor, batch_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw signal and clinical embeddings of (rows, T) signals and
+    (rows, C) clinical features on the model's device: both encoders in
+    eval mode, as `encode_raw` runs them, in unshuffled batches of
+    `batch_size`. The fold-parallel harness passes every fold's
+    transformed cohort at once, flattened to (F*N, ...)."""
+    with _eval_encoders(model):
+        return _encode_rows(
+            lambda rows: (
+                model.encode_signal(signals.index_select(0, rows)),
+                model._encode_clinical_raw(clinical.index_select(0, rows))[0]),
+            signals.shape[0], batch_size, signals.device)
 
 
 def maybe_cache_fusion_embeddings(

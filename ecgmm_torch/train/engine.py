@@ -28,16 +28,20 @@ reference's (train.py:55-167), as the JAX engine keeps them:
     resident run's losses and parameters; `evaluate_streamed` is the test
     protocol over such a split;
   * `debug_nans` makes a non-finite loss or gradient raise
-    FloatingPointError for the length of one fit.
-The mesh and `keep_best` are not ported yet (ROADMAP.md).
+    FloatingPointError for the length of one fit;
+  * `keep_best` returns a copy of the state at the best validation epoch
+    (`FitResult.best_state`), for callers that score the best model
+    without a checkpoint manager (the CV harnesses, `train/cv.py`).
+The mesh is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import signal
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -252,6 +256,20 @@ def evaluate_streamed(task: Task, state: TrainState, arrays: HostArrays,
     return _eval_batches(task, state, batches, mask.reshape(-1) > 0)
 
 
+class Preempted(RuntimeError):
+    """Raised by multi-fit callers (the CV harnesses) when a fit reports
+    `FitResult.preempted`: the process received SIGTERM, and launching
+    further fits would race the SIGKILL that follows."""
+
+
+def snapshot(state: TrainState) -> Dict[str, Any]:
+    """`state.state_dict()` with every tensor copied: parameters,
+    buffers, the optimizer's moments, the generator and the counters, none
+    of them aliasing what later steps update in place. `load_state_dict`
+    restores it."""
+    return copy.deepcopy(state.state_dict())
+
+
 @dataclasses.dataclass
 class FitResult:
     state: TrainState
@@ -260,6 +278,9 @@ class FitResult:
     stopped_early: bool
     # SIGTERM arrived mid-fit: the epoch finished, `last` was written
     preempted: bool = False
+    # with fit(keep_best=True): `snapshot` of the state at the best
+    # validation epoch; None when no epoch improved
+    best_state: Optional[Dict[str, Any]] = None
 
 
 def fit(
@@ -273,10 +294,14 @@ def fit(
     log_prefix: str = "",
     verbose: bool = True,
     train_sample_weights: Optional[np.ndarray] = None,
+    keep_best: bool = False,
 ) -> FitResult:
     """The reference's epoch loop (train.py:55-167) from `state.epoch` to
-    `cfg.num_epochs`. On SIGTERM (main thread only) the current epoch
-    completes, `last` is saved and the loop stops. With `cfg.debug_nans`
+    `cfg.num_epochs`. With `keep_best`, `FitResult.best_state` is a
+    `snapshot` of the state at the best validation epoch, taken after its
+    counters update (None when no epoch improved). On SIGTERM (main
+    thread only) the current epoch completes, `last` is saved and the loop
+    stops. With `cfg.debug_nans`
     a non-finite loss or gradient raises FloatingPointError, and torch's
     anomaly detection is on for the fit (naming the backward that made a
     NaN); its previous setting is restored when fit returns or raises."""
@@ -295,7 +320,7 @@ def fit(
     try:
         return _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt,
                          writer, log_prefix, verbose, train_sample_weights,
-                         preempted)
+                         preempted, keep_best)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -304,12 +329,13 @@ def fit(
 
 def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
               log_prefix, verbose, train_sample_weights,
-              preempted) -> FitResult:
+              preempted, keep_best=False) -> FitResult:
     device = _model_device(state)
     streamed = isinstance(train_arrays, HostArrays)
     chunked = streamed and cfg.stream_chunk_batches > 1
     history: List[Dict[str, float]] = []
     best_epoch = -1
+    best_state = None
     stopped_early = False
 
     for epoch in range(state.epoch, cfg.num_epochs):
@@ -402,6 +428,8 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
             state.early_stop_counter = 0
             state.lr_reduce_counter = 0
             best_epoch = epoch
+            if keep_best:
+                best_state = snapshot(state)
         elif val_informative:
             state.early_stop_counter += 1
             state.lr_reduce_counter += 1
@@ -426,4 +454,4 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
 
     return FitResult(state=state, history=history, best_epoch=best_epoch,
                      stopped_early=stopped_early,
-                     preempted=preempted["flag"])
+                     preempted=preempted["flag"], best_state=best_state)

@@ -1,10 +1,11 @@
 """The port stands alone: `ecgmm_torch` and `chip_smoke.py` import neither
 JAX (nor flax/optax/orbax) nor anything of `ecgmm_tpu`, nor Pillow,
-pandas, matplotlib, openpyxl or wfdb (the card's machine has none),
-import without nvcc or a GPU, and their entry points do not fall back to
-the CPU. The scan and the blocked import walk every module of the
-package, the explainers of `ecgmm_torch/explain/` and the XAI CLI, and
-the record readers and writers of the real-data path among them."""
+pandas, matplotlib, openpyxl, wfdb or scikit-learn (the card's machine
+has none), import without nvcc or a GPU, and their entry points do not
+fall back to the CPU. The scan and the blocked import walk every module
+of the package, the explainers of `ecgmm_torch/explain/` and the XAI CLI,
+the record readers and writers of the real-data path and the CV
+harnesses (`train/cv.py`, `train/cv_parallel.py`) among them."""
 
 import ast
 import os
@@ -19,11 +20,12 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL",
-             "pandas", "matplotlib", "openpyxl", "wfdb")
+             "pandas", "matplotlib", "openpyxl", "wfdb", "sklearn")
 XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
                "shap_fusion", "tabnet_masks")
 REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
-                     "data.preprocess", "tools.records", "train.report")
+                     "data.preprocess", "tools.records", "train.report",
+                     "train.cv", "train.cv_parallel", "data.splits")
 
 
 def _port_files():
@@ -147,6 +149,21 @@ def test_train_cli_defaults_to_the_card():
     with pytest.raises(FileNotFoundError,
                        match="ptbxl_database.csv not found"):
         run.main(argv + ["--data-dir", "/nonexistent", "--device", "cpu"])
+
+
+def test_cv_cli_defaults_to_the_card():
+    """Without --device the CV CLI trains on CUDA: where there is no card
+    it raises instead of quietly using the CPU, in every mode."""
+    from ecgmm_torch.train import cv
+    from ecgmm_torch.workloads import run
+
+    for argv in (["nested", "--n-synth", "48", "--epochs", "1"],
+                 ["exhaustive", "--fold-parallel", "--n-synth", "48"]):
+        if torch.cuda.is_available():
+            assert run._device("cuda").type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cv.main(argv)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -191,8 +191,8 @@ def test_focal_autograd_function_with_plain_launches(rng, monkeypatch,
     monkeypatch.setattr(ops_losses, "launch_backward", launch_backward)
     lg = torch.from_numpy(logits).requires_grad_(True)
     mk = torch.from_numpy(mask).requires_grad_(mask_grad)
-    out = ops_losses._FusedFocalLoss.apply(lg, torch.from_numpy(labels), mk,
-                                           alpha, gamma)
+    out, _ = ops_losses._FusedFocalLoss.apply(lg, torch.from_numpy(labels),
+                                              mk, alpha, gamma)
     wrt = [lg, mk] if mask_grad else [lg]
     got = torch.autograd.grad(out, wrt, torch.tensor(-1.3))
     assert calls["needs"] == (True, mask_grad)

@@ -88,8 +88,8 @@ def _small(cfg, t=None, **train):
 def test_preset_equals_jax(name):
     """Every JAX preset exists in the port with the same values in every
     field the port has, the data paths, `known_missing`, `signal_fs`,
-    `weight_decay`, `debug_nans` and `stream_chunk_batches` among them,
-    and the same `image_dir`."""
+    `weight_decay`, `debug_nans`, `stream_chunk_batches` and the CV
+    folds `k_outer` and `k_inner` among them, and the same `image_dir`."""
     got, want = get_preset(name), jax_get_preset(name)
     assert got.name == want.name == name
     for part in ("data", "model", "train"):
@@ -98,8 +98,8 @@ def test_preset_equals_jax(name):
         assert {k: g[k] for k in g} == {k: w[k] for k in g}, part
     assert set(dataclasses.asdict(got.data)) == set(
         dataclasses.asdict(want.data))
-    assert {"weight_decay", "debug_nans", "stream_chunk_batches"} <= set(
-        dataclasses.asdict(got.train))
+    assert {"weight_decay", "debug_nans", "stream_chunk_batches",
+            "k_outer", "k_inner"} <= set(dataclasses.asdict(got.train))
     assert got.data.image_dir == want.data.image_dir
     assert sorted(PRESETS) == sorted(JAX_PRESETS)
 
