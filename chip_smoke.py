@@ -211,6 +211,11 @@ from ecgmm_torch.train import (  # noqa: E402
     cv, cv_parallel, embed, engine)
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ecgmm_torch.train.optim import Optimizer  # noqa: E402
+from ecgmm_torch.config import MeshConfig  # noqa: E402
+from ecgmm_torch.parallel import collectives as par_collectives  # noqa: E402
+from ecgmm_torch.parallel import launch as par_launch  # noqa: E402
+from ecgmm_torch.parallel import mesh as par_mesh  # noqa: E402
+from ecgmm_torch.parallel import tp as par_tp  # noqa: E402
 from ecgmm_torch.train.state import create_state  # noqa: E402
 from ecgmm_torch.workloads import pretrain  # noqa: E402
 from ecgmm_torch.workloads import run as train_run  # noqa: E402
@@ -4089,6 +4094,411 @@ def run_cv_phase(smi, peaks):
     return rows, paths, cli, cap
 
 
+# ---------------------------------------------------------------------------
+# 13. parallel: torchrun at one rank, data and tensor parallelism over
+# gloo on one card, mesh serving, fold-parallel CV over the data axis
+
+PAR_B = 16  # the global batch of the data-parallel steps
+PAR_PAD = 5  # its padded tail rows (mask 0)
+PAR_PLANS = {  # kernel launches of one train step on every rank
+    "ptbxl_af": dict(NO_LAUNCHES, fused_se=3, fused_se_backward=3,
+                     fused_focal_loss=1, fused_focal_loss_backward=1),
+    "fusion": dict(NO_LAUNCHES, fused_se=3, fused_attention_fusion=1,
+                   fused_attention_fusion_backward=1),
+}
+PAR_WARM = 3  # steps after the compared one, their median timed
+PAR_CV_N = 64  # records of the fold-parallel check
+PAR_CV_EPOCHS = 3
+
+
+def _par_setup(name: str, device):
+    """The full-width `name` model from its preset's seed, float32, with
+    SGD(1.0) on its trainable parameters (tests/test_parallel.py: the
+    update is the gradient), its task and one global batch of PAR_B rows
+    from a numpy seed, the last PAR_PAD of them padding."""
+    cfg = get_preset(name)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
+        train=dataclasses.replace(cfg.train, batch_size=PAR_B,
+                                  schedule="constant", lr=1.0))
+    model, task, freeze = train_run.build_model_and_task(cfg, device)
+    state = create_state(model, cfg.train, 4, freeze=freeze)
+    state.optimizer.adam = torch.optim.SGD(
+        [p for p in model.parameters() if p.requires_grad], lr=1.0)
+    rng = np.random.default_rng(13)
+    mask = np.ones(PAR_B, np.float32)
+    mask[-PAR_PAD:] = 0.0
+    fields = {
+        "signals": rng.normal(size=(PAR_B, cfg.data.signal_len)),
+        "labels": rng.integers(0, cfg.model.num_classes, PAR_B),
+        "mask": mask}
+    if name == "fusion":
+        fields["images"] = rng.integers(0, 256, (PAR_B, 3) + CV_IMG,
+                                        dtype=np.uint8)
+        fields["clinical"] = rng.normal(size=(PAR_B, 2))
+    batch = pipeline.Batch(**{
+        f: None if f not in fields else torch.from_numpy(
+            fields[f].astype(np.float32) if f in ("signals", "clinical")
+            else fields[f]).to(device)
+        for f in pipeline.Batch._fields})
+    return state, task, batch
+
+
+def _par_step(state, task, batch, mesh=None):
+    """One train step with the counters set to 0 just before it and read
+    just after; returns the loss, the unsharded model state on the host,
+    the launches and the collectives of that step, then the median wall
+    ms of PAR_WARM further steps (synchronised; a correctness run's
+    figure, not a scaling one)."""
+    with no_tf32():
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        par_collectives.reset_counts()
+        mets = engine.train_step(task, state, batch, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        coll = par_collectives.counts()
+        sd = {k: v.detach().cpu().clone()
+              for k, v in state.state_dict()["model"].items()}
+        times = []
+        for _ in range(PAR_WARM):
+            t0 = time.perf_counter()
+            engine.train_step(task, state, batch, mesh=mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": float(mets["loss"]), "sd": sd, "launches": launches,
+            "collectives": coll, "ms": statistics.median(times)}
+
+
+def _par_rank_step(name: str, n_model: int) -> dict:
+    """(b) and (c) on a rank: the mesh of the spawned world, its rows of
+    the global batch, one step."""
+    dev = torch.device("cuda", 0)
+    mesh = par_mesh.make_mesh(MeshConfig(n_model=n_model), dev)
+    state, task, batch = _par_setup(name, dev)
+    par_tp.place_state(state, mesh)
+    local = pipeline.Batch(*(None if x is None else
+                             par_mesh.local_rows(x, mesh) for x in batch))
+    out = _par_step(state, task, local, mesh)
+    out["rows"] = int(local.labels.shape[0])
+    return out
+
+
+def par_rank(rank: int, jobs) -> dict:
+    """A rank of phase 13 on cuda:0: each job in turn, ("step", preset,
+    n_model) or ("cv",); one spawn serves every job of a world size."""
+    torch.cuda.set_device(0)
+    return {job: _par_rank_step(*job[1:]) if job[0] == "step"
+            else _par_rank_cv() for job in jobs}
+
+
+def _par_agree(where, got, want):
+    """tests/test_parallel.py's bars: loss 1e-5, parameters 5e-5, the
+    BatchNorm buffers 1e-5 (their step counts equal)."""
+    if abs(got["loss"] - want["loss"]) > 1e-5:
+        raise AssertionError(f"{where}: loss {got['loss']} vs "
+                             f"{want['loss']}")
+    worst = {"param": 0.0, "bn": 0.0}
+    for k, w in want["sd"].items():
+        g = got["sd"][k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{where}: {k} {g.shape} vs {w.shape}")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{where}: {k} {g} vs {w}")
+            continue
+        kind = "bn" if "running_" in k else "param"
+        err = (g - w).abs().max().item() if w.numel() else 0.0
+        worst[kind] = max(worst[kind], err)
+        if err > (1e-5 if kind == "bn" else 5e-5):
+            raise AssertionError(f"{where}: {k} differs by {err}")
+    return worst
+
+
+def par_cli_one_rank(smi, tmp):
+    """(a) `torchrun --nproc-per-node 1` (NCCL, one rank: every collective
+    is the identity) against the plain CLI on `ptbxl_af` for one epoch,
+    the same seed: their metrics.jsonl equal bit for bit but for the wall
+    times. Both run the CLI's module through a launcher script that turns
+    on PyTorch's deterministic algorithms (cuDNN's weight gradients
+    otherwise differ in their last bits from run to run)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "deterministic_run.py")
+    with open(script, "w") as f:
+        f.write("import runpy, sys, torch\n"
+                f"sys.path.insert(0, {repo!r})\n"
+                "torch.backends.cudnn.deterministic = True\n"
+                "torch.backends.cudnn.benchmark = False\n"
+                "torch.use_deterministic_algorithms(True)\n"
+                "runpy.run_module('ecgmm_torch.workloads.run', "
+                "run_name='__main__')\n")
+    common = [script, "--preset", "ptbxl_af", "--epochs", "1", "--n-synth",
+              "128", "--run-dir", "ck"]
+    runs = {"plain": [sys.executable] + common,
+            "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc-per-node", "1"] + common}
+    done = {}
+
+    def run(key):
+        cwd = os.path.join(tmp, key)
+        os.makedirs(cwd)
+        env = dict(os.environ, PYTHONPATH=repo,
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        t0 = time.perf_counter()
+        done[key] = (subprocess.run(runs[key], capture_output=True,
+                                    text=True, cwd=cwd, env=env,
+                                    timeout=600),
+                     time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    logs = {}
+    for key, (out, wall) in done.items():
+        if out.returncode != 0:
+            raise RuntimeError(f"phase 13 (a) {key} failed:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+        with open(os.path.join(tmp, key, "runs", "ck", "metrics.jsonl")) as f:
+            logs[key] = [{k: v for k, v in json.loads(line).items()
+                          if k != "time" and not k.startswith("Time/")}
+                         for line in f]
+        print(f"phase 13 (a) {key} CLI: {wall:.1f} s (both at once; {smi})",
+              flush=True)
+    if logs["plain"] != logs["torchrun"] or not logs["plain"]:
+        raise AssertionError(f"phase 13 (a): torchrun {logs['torchrun']} "
+                             f"vs plain {logs['plain']}")
+    print(f"phase 13 (a) metrics.jsonl equal: {json.dumps(logs['plain'])}",
+          flush=True)
+
+
+PAR_JOBS = {2: (("step", "fusion", 1), ("step", "ptbxl_af", 1), ("cv",)),
+            4: (("step", "fusion", 2),)}
+PAR_PATHS = {("step", "fusion", 1): "train_dp2_fusion",
+             ("step", "ptbxl_af", 1): "train_dp2_ptbxl_af",
+             ("step", "fusion", 2): "train_dp2tp2_fusion"}
+
+
+def par_train(smi):
+    """(b) two ranks over gloo on cuda:0, each with its 8 rows, the
+    `fusion` and the `ptbxl_af` step against the one-process step on the
+    card; (c) four ranks as 2 x 2 (data x tensor) for `fusion`. Every
+    rank's launches must be the plan of one step on its rows. One spawn a
+    world size runs every job of it ((e)'s too). Returns the launches of
+    the main paths by path (rank 0's) and the 2-rank world's results."""
+    wants = {}
+    for name in ("fusion", "ptbxl_af"):
+        state, task, batch = _par_setup(name, torch.device("cuda"))
+        wants[name] = _par_step(state, task, batch)
+        del state
+    launches, worlds = {}, {}
+    for n, jobs in PAR_JOBS.items():
+        t0 = time.perf_counter()
+        worlds[n] = par_launch.spawn(par_rank, n, args=(jobs,), threads=0)
+        wall = time.perf_counter() - t0
+        for job in jobs:
+            if job[0] != "step":
+                continue
+            name, path = job[1], PAR_PATHS[job]
+            want = wants[name]
+            outs = [w[job] for w in worlds[n]]
+            for r, got in enumerate(outs):
+                where = f"phase 13 {path} rank {r}"
+                if got["launches"] != PAR_PLANS[name] or \
+                        want["launches"] != PAR_PLANS[name]:
+                    raise AssertionError(
+                        f"{where}: launches {got['launches']} (one process "
+                        f"{want['launches']}), the plan {PAR_PLANS[name]}")
+                worst = _par_agree(where, got, want)
+            launches[path] = outs[0]["launches"]
+            row = {"ranks": n, "n_model": job[2],
+                   "rows_per_rank": outs[0]["rows"],
+                   "loss": outs[0]["loss"],
+                   "one_process_loss": want["loss"], "worst": worst,
+                   "launches_per_rank": outs[0]["launches"],
+                   "collectives_rank0": outs[0]["collectives"],
+                   "warm_step_ms_per_rank": [o["ms"] for o in outs],
+                   "one_process_warm_step_ms": want["ms"],
+                   "world_spawn_and_jobs_s": wall}
+            print(f"phase 13 {path}: {json.dumps(row)} (a correctness run: "
+                  f"{n} ranks share one card over gloo, not a scaling "
+                  f"figure; {smi})", flush=True)
+    return launches, worlds[2]
+
+
+def par_serve(smi):
+    """(d) mesh serving: `visible_devices` patched to (cuda:0, cuda:0),
+    `enable_batching(n_data=2)` served over HTTP, four concurrent uploads
+    against the unbatched single-replica answers (tests/test_serve_mesh.py
+    bars); every dispatch runs the serving plan once on each replica.
+    Returns the launches."""
+    real = par_mesh.visible_devices
+    par_mesh.visible_devices = lambda device="cuda": [
+        torch.device("cuda", 0)] * 2
+    ref = ServingPipeline.demo(device="cuda", seed=0)
+    pipe = ServingPipeline.demo(device="cuda", seed=0)
+    httpd = None
+    try:
+        pipe.enable_batching(150.0, max_batch=4, buckets=(2, 4), n_data=2)
+        pipe.warmup_batched()
+        httpd = serve_http.serve(pipe, port=0, background=True)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        qs = [{"age": 50 + 7 * i, "weight": 60 + 5 * i} for i in range(4)]
+        bodies = [serve_hammer.request_body("cam", questionnaire=q)
+                  for q in qs]
+        got = [None] * 4
+        barrier = threading.Barrier(4)
+
+        def post(i):
+            barrier.wait()
+            got[i] = json.loads(serve_hammer._post(base + ENDPOINT,
+                                                   *bodies[i]))
+
+        before = pipe.stats()["batching"]["dispatches"]
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        stats = json.load(urllib.request.urlopen(base + "/stats",
+                                                 timeout=60))
+    finally:
+        par_mesh.visible_devices = real
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        pipe.close_batching()
+    dispatches = stats["batching"]["dispatches"] - before
+    if stats["batching"]["n_data"] != 2:
+        raise AssertionError(f"phase 13 (d): /stats {stats['batching']}")
+    want = {k: 2 * n * dispatches for k, n in SERVE_PLAN.items()}
+    if launches != want:
+        raise AssertionError(f"phase 13 (d): launches {launches}, the plan "
+                             f"{want} ({dispatches} dispatches)")
+    with open(serve_hammer.STRIP_JPEG, "rb") as f:
+        image = decode_upload(f.read())
+    for i, b in enumerate(got):
+        check_response(b, "cam")
+        a = ref.predict(image, qs[i], "cam")
+        if a["label"] != b["label"] or a["ecg_signal"] != b["ecg_signal"] \
+                or not np.isclose(a["probability"], b["probability"],
+                                  rtol=1e-3, atol=1e-4) \
+                or not all(np.isclose(a["feature_importance"][k],
+                                      b["feature_importance"][k],
+                                      rtol=5e-2, atol=0.5)
+                           for k in ("image", "signal", "age", "wt")):
+            raise AssertionError(f"phase 13 (d) request {i}: {b} vs {a}")
+    print(f"phase 13 serve_http_n_data2: 4 requests in {dispatches} "
+          f"dispatches, launches {launches}, /stats batching "
+          f"{stats['batching']} (two replicas share one card: a "
+          f"correctness run, not a scaling figure; {smi})", flush=True)
+    return launches
+
+
+def _par_cv_inputs():
+    cfg = _cv_signal_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=PAR_CV_EPOCHS))
+    cohort = synthetic.make_cohort(n=PAR_CV_N, signal_len=CV_SIGNAL_LEN,
+                                   img_hw=None)
+    folds = [s for _, _, inner in splits.nested_kfold(
+        cohort.labels, 2, 2, cfg.train.seed) for s in inner]
+    return cfg, cohort, folds
+
+
+def _par_rank_cv() -> dict:
+    """(e) on a rank: the fold program over its block of the folds; every
+    rank returns every fold's results."""
+    dev = torch.device("cuda", 0)
+    mesh = par_mesh.make_mesh(MeshConfig(), dev)
+    cfg, cohort, folds = _par_cv_inputs()
+    with no_tf32():
+        task, state0, pack = cv_parallel.prepare_folds(
+            train_run.build_model_and_task, cohort, folds, cfg,
+            apply_filter=False, device=dev)
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        par = cv_parallel.run_fold_parallel(task, state0, pack, cfg.train,
+                                            verbose=False, mesh=mesh)
+        torch.cuda.synchronize()
+    return {"res": par, "s": time.perf_counter() - t0,
+            "launches": {**_launch_counts(), **_fold_counts()}}
+
+
+def par_cv(smi, world):
+    """(e) the fold program on two ranks (gloo, cuda:0), its 4 folds over
+    the data axis, against each fold's sequential fit on the card, with
+    phase 12's bars; each rank's launches are its program's plan.
+    Returns rank 0's launches."""
+    cfg, cohort, folds = _par_cv_inputs()
+    outs = [w[("cv",)] for w in world]
+    for r, o in enumerate(outs):
+        steps, evals = o["res"].train_steps, o["res"].eval_batches
+        want = {k: 0 for k in o["launches"]}
+        want.update(fused_se_fold=3 * (steps + evals),
+                    fused_se_fold_backward=3 * steps,
+                    fused_focal_loss_fold=steps + evals,
+                    fused_focal_loss_fold_backward=steps, fused_se=3)
+        if o["launches"] != want:
+            raise AssertionError(f"phase 13 (e) rank {r}: launches "
+                                 f"{o['launches']}, the plan {want}")
+    par = outs[0]["res"]
+    if outs[1]["res"].aucs != par.aucs:
+        raise AssertionError("phase 13 (e): the ranks' results differ")
+    t0 = time.perf_counter()
+    with no_tf32():
+        pack = cv_parallel.prepare_folds(
+            train_run.build_model_and_task, cohort, folds, cfg,
+            apply_filter=False, device="cuda")[2]
+        for f in range(len(folds)):
+            res, ev, auc = _cv_sequential(cfg, pack.fold_arrays(f, "cuda"))
+            seq = np.asarray([h["Loss/Val"] for h in res.history])
+            stop = len(res.history) if res.stopped_early else -1
+            where = f"phase 13 (e) fold {f}"
+            if not np.allclose(par.val_history[f][:len(seq)], seq,
+                               rtol=1e-3, atol=1e-3) \
+                    or (par.best_epochs[f], par.stopped_at[f]) != (
+                        res.best_epoch, stop) \
+                    or not np.allclose(par.logits[f], ev.logits, rtol=5e-3,
+                                       atol=5e-3) \
+                    or abs(par.aucs[f] - auc) > 1e-3:
+                raise AssertionError(
+                    f"{where}: val {par.val_history[f]} vs {seq}, best/stop "
+                    f"{par.best_epochs[f]}/{par.stopped_at[f]} vs "
+                    f"{res.best_epoch}/{stop}, AUC {par.aucs[f]} vs {auc}")
+    row = {"folds": len(folds), "aucs": par.aucs,
+           "best_epochs": par.best_epochs, "stopped_at": par.stopped_at,
+           "launches_rank0": outs[0]["launches"],
+           "launches_rank1": outs[1]["launches"],
+           "program_s_per_rank": [o["s"] for o in outs],
+           "sequential_s": time.perf_counter() - t0}
+    print(f"phase 13 cv_fold_parallel_dp2: {json.dumps(row)} (two ranks "
+          f"share one card: a correctness run; {smi})", flush=True)
+    return outs[0]["launches"]
+
+
+def run_parallel_phase(smi):
+    """Phase 13: (a) torchrun at one rank against the plain CLI, (b) and
+    (c) the data- and tensor-parallel steps against one process, (d) mesh
+    serving, (e) the fold program over the data axis. Returns the
+    launches of the main paths by path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        par_cli_one_rank(smi, tmp)
+    launches, world2 = par_train(smi)
+    launches["serve_http_n_data2"] = par_serve(smi)
+    launches["cv_fold_parallel_dp2"] = par_cv(smi, world2)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4217,6 +4627,10 @@ def main() -> int:
     # sequential fits, the CLI, the rows cap
     fold_rows, cv_paths, _, _ = run_cv_phase(smi, peaks)
 
+    # 13. parallel: torchrun, data and tensor parallelism, mesh serving,
+    # the fold program over the data axis
+    par_launches = run_parallel_phase(smi)
+
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
                           ("fusion_cached", cached_run)):
@@ -4252,6 +4666,7 @@ def main() -> int:
         **real_launches,
         **{f"train_{name}": n for name, n in new_launches.items()},
         **{p: out["launches"] for p, out in cv_paths.items()},
+        **par_launches,
     }
 
     def by_path(kernel):

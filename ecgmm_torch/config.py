@@ -2,8 +2,9 @@
 
 There is no `use_pallas` switch: an op runs its CUDA kernel when its
 tensors lie on a CUDA device and its plain PyTorch version when they lie
-on the CPU (see `ecgmm_torch/ops`). There is no mesh either: the port
-trains on one card. The presets are the JAX package's thirteen: the
+on the CPU (see `ecgmm_torch/ops`). `MeshConfig` lays the ranks of a
+`torch.distributed` run out as JAX lays its devices out (`parallel/mesh.py`).
+The presets are the JAX package's thirteen: the
 trimodal fusion trainers (`fusion`, `fusion_modal_balance`,
 `fusion_cached`), the pretraining stages (`image_only`, `signal_only`),
 the signal-only ResNet1D-SE trainers (`ptbxl_af`, `physionet`,
@@ -48,6 +49,19 @@ class DataConfig:
     @property
     def image_dir(self) -> str:
         return os.path.join(self.data_dir, self.image_dirname)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) layout of the ranks of a `torch.distributed` run
+    (`parallel/mesh.make_mesh`), with the JAX package's fields and
+    defaults: n_data -1 takes every rank (divided by n_model); n_model > 1
+    trains tensor-parallel (`parallel/tp.py`)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    n_data: int = -1  # -1 = all ranks
+    n_model: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +165,7 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     data: DataConfig = DataConfig()
+    mesh: MeshConfig = MeshConfig()
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
     name: str = "fusion"

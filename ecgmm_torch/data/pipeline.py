@@ -29,7 +29,8 @@ import os
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -536,23 +537,26 @@ def prefetch_batches(
     device="cuda",
     sample_weights: Optional[np.ndarray] = None,
     prefetch: int = 2,
+    part: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Batch]:
     """Per-batch streaming of a host split: the batches of `epoch_order`,
     each padded to `batch_size` with its last row (mask 0, as the JAX
     package's streamed batches are; the resident plan pads with row 0, so
     the two agree exactly where the batch size divides the split), copied
     `prefetch` batches ahead of the one yielded, through a ring of
-    `prefetch + 2` pinned buffers."""
+    `prefetch + 2` pinned buffers. `part` (lo, hi) stages only those rows
+    of every padded batch (a data-parallel rank's block)."""
     device = torch.device(device)
     order = epoch_order(arrays.n, shuffle=shuffle, seed=seed, epoch=epoch,
                         sample_weights=sample_weights)
     starts = list(range(0, arrays.n, batch_size))
     depth = prefetch + 2
-    stager = _Stager(arrays, batch_size, depth, device)
+    lo, hi = part if part is not None else (0, batch_size)
+    stager = _Stager(arrays, hi - lo, depth, device)
     plans = []
     for s in starts:
         idx, mask = _pad_indices(order[s:s + batch_size], batch_size)
-        plans.append((idx, mask))
+        plans.append((idx[lo:hi], mask[lo:hi]))
 
     def stage(i):
         stager.acquire(i % depth)

@@ -23,6 +23,13 @@ running statistics once per chunk (momentum 0.02, folding the biased
 variance, flax's convention: PARITY.md's TabNet row). A batch of at most
 `virtual_batch_size` rows is one chunk. The input BatchNorm `initial_bn`
 is plain (momentum 0.01).
+
+Under a data-parallel step (`parallel/collectives.data_parallel`) the
+chunks are those of the global batch, as JAX cuts its global array: a
+chunk may lie inside one rank or across ranks, its statistics are taken
+over all its rows (`layers.global_batch_norm`), and every rank lerps the
+running statistics chunk by chunk in global order; m_loss is the mean
+over the global batch's rows.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import math
 import torch
 from torch import nn
 
-from ecgmm_torch.models.layers import BatchNorm1d, Dropout
+from ecgmm_torch.models.layers import BatchNorm1d, Dropout, global_batch_norm
+from ecgmm_torch.parallel import collectives
 
 
 def sparsemax(z, dim: int = -1):
@@ -64,10 +72,25 @@ class _GBN(nn.Module):
 
     def forward(self, x):
         b = x.shape[0]
+        ctx = collectives.active()
+        if self.training and ctx is not None:
+            rows, _ = ctx.global_rows(b)
+            if rows <= self.virtual_batch_size:
+                return self.bn(x)
+            return global_batch_norm(self.bn, x, ctx, ghost_chunks(
+                rows, self.virtual_batch_size))
         if not self.training or b <= self.virtual_batch_size:
             return self.bn(x)
         n_chunks = -(-b // self.virtual_batch_size)
         return torch.cat([self.bn(c) for c in x.chunk(n_chunks, 0)], 0)
+
+
+def ghost_chunks(rows: int, virtual_batch_size: int):
+    """The (lo, hi) rows of torch.chunk's greedy cut of `rows` rows into
+    ceil(rows / virtual_batch_size) chunks."""
+    n_chunks = -(-rows // virtual_batch_size)
+    step = -(-rows // n_chunks)
+    return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
 
 
 class _GLULayer(nn.Module):
@@ -190,9 +213,8 @@ class TabNetEncoder(nn.Module):
         for step in range(self.n_steps):
             mask = enc.att_transformers[step](prior, att)
             masks.append(mask)
-            m_loss = m_loss + torch.mean(
-                torch.sum(-mask * torch.log(mask + self.epsilon), dim=-1)
-            )
+            m_loss = m_loss + torch.mean(collectives.gather_rows_if_active(
+                torch.sum(-mask * torch.log(mask + self.epsilon), dim=-1)))
             prior = prior * (self.gamma - mask)
             out = enc.feat_transformers[step](mask * x)
             step_d = torch.relu(out[..., :d])

@@ -24,6 +24,7 @@ from ecgmm_torch.models.layers import Dropout
 from ecgmm_torch.models.resnet18 import ResNet18
 from ecgmm_torch.models.resnet1d_se import ResNet1DSE
 from ecgmm_torch.ops.fusion import fused_attention_fusion
+from ecgmm_torch.parallel import collectives
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,10 +68,12 @@ def _chunk_variance_loss(img, sig, clin, mask=None):
     are 0 where the mask is)."""
 
     def v(x):
-        rows = x.float().var(dim=1, unbiased=True)
+        # under a data-parallel step, the global batch's rows
+        rows = collectives.gather_rows_if_active(
+            x.float().var(dim=1, unbiased=True))
         if mask is None:
             return rows.mean()
-        m = mask.float()
+        m = collectives.gather_rows_if_active(mask.float())
         s = m.sum()
         return (rows * m).sum() / torch.maximum(s, s.new_ones(()))
 

@@ -11,6 +11,14 @@ with a fold axis on the buffers, as the CV fold program runs them
 (`train/cv_parallel.py`).
 `MultiHeadSelfAttention` is flax's attention, broadcast dropout
 included. `flax_init_` initialises like flax's defaults.
+
+Under a data-parallel step (`parallel/collectives.data_parallel`, more
+than one rank on the data axis) each rank holds a block of the global
+batch, and both layers keep the one-process semantics: BatchNorm takes the
+global batch's moments (`global_batch_norm`), and Dropout draws the
+global batch's keep mask from the shared generator and keeps its own rows,
+so a data-parallel run draws the masks of the one-process run of the same
+seed.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ecgmm_torch.parallel import collectives
 
 # flax's truncated-normal initialisers divide the standard deviation by
 # the std of a unit normal truncated to [-2, 2]
@@ -48,6 +58,9 @@ class _FlaxBatchStats:
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        ctx = collectives.active()
+        if ctx is not None:
+            return global_batch_norm(self, x, ctx, [(0, x.shape[0] * ctx.n)])
         dims = (0,) + tuple(range(2, x.dim()))
         stats_dtype = torch.promote_types(x.dtype, torch.float32)
         with torch.no_grad():
@@ -58,6 +71,52 @@ class _FlaxBatchStats:
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+def global_batch_norm(bn, x, ctx: collectives.RowShard, bounds):
+    """The train-mode forward of `bn` over a data-parallel rank's rows x
+    of a global batch cut into the chunks `bounds` ((lo, hi) global rows,
+    in order; one chunk for a plain BatchNorm, the ghost chunks for
+    TabNet's): each chunk is normalised with the biased moments of its
+    rows on every rank, taken in float32 over two all-reduces of the
+    chunks' stacked sums (the sums, then the squared deviations from the
+    global means), through autograd, so the backward takes the global
+    terms; the running buffers take each chunk's lerp in chunk order on
+    every rank."""
+    b = x.shape[0]
+    _, off = ctx.global_rows(b)
+    dims = (0,) + tuple(range(2, x.dim()))
+    per_row = x[0].numel() // x.shape[1] if b else 1
+    stats_dtype = torch.promote_types(x.dtype, torch.float32)
+    xs = x.to(stats_dtype)
+    segs = [(max(lo, off) - off, min(hi, off + b) - off) for lo, hi in bounds]
+    zero = xs.new_zeros(x.shape[1])
+    counts = torch.tensor([float((hi - lo) * per_row) for lo, hi in bounds],
+                          dtype=stats_dtype, device=x.device)[:, None]
+    sums = torch.stack([xs[lo:hi].sum(dim=dims) if hi > lo else zero
+                        for lo, hi in segs])
+    mean = collectives.all_reduce_sum(sums, ctx.group) / counts
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    sq = torch.stack([((xs[lo:hi] - mean[k].view(shape)) ** 2).sum(dim=dims)
+                      if hi > lo else zero
+                      for k, (lo, hi) in enumerate(segs)])
+    var = collectives.all_reduce_sum(sq, ctx.group) / counts
+    with torch.no_grad():
+        for k in range(len(bounds)):
+            _lerp_(bn.running_mean, mean[k].detach(), bn.momentum)
+            _lerp_(bn.running_var, var[k].detach(), bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    outs = []
+    for k, (lo, hi) in enumerate(segs):
+        if hi <= lo:
+            continue
+        y = (xs[lo:hi] - mean[k].view(shape)) * torch.rsqrt(
+            var[k].view(shape) + bn.eps)
+        if bn.weight is not None:
+            y = y * bn.weight.view(shape) + bn.bias.view(shape)
+        outs.append(y)
+    y = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+    return y.to(x.dtype)
 
 
 class BatchNorm1d(_FlaxBatchStats, nn.BatchNorm1d):
@@ -97,8 +156,16 @@ class Dropout(nn.Module):
             return x
         keep = self.keep
         if keep is None:
-            keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                                  generator=self.generator)
+            ctx = collectives.active()
+            if ctx is None:
+                keep = torch.empty_like(x).bernoulli_(
+                    1.0 - self.p, generator=self.generator)
+            else:
+                # the global batch's mask, this rank's rows
+                rows, off = ctx.global_rows(x.shape[0])
+                keep = self.draw_keep((rows,) + tuple(x.shape[1:]), x.dtype,
+                                      x.device, self.generator)
+                keep = keep[off:off + x.shape[0]]
         return x * keep / (1.0 - self.p)
 
 

@@ -22,7 +22,8 @@ import torch
 
 from ecgmm_torch.serve import digitize as digitize_mod
 from ecgmm_torch.serve.imdecode import decode_upload
-from ecgmm_torch.serve.pipeline import PARALLEL_ITEM, ServingPipeline
+from ecgmm_torch.parallel import mesh as meshlib
+from ecgmm_torch.serve.pipeline import ServingPipeline
 from ecgmm_torch.serve.wire import ENDPOINT, BadRequest, parse_multipart
 
 # Upper bound on accepted request bodies (the app uploads one phone photo
@@ -198,10 +199,12 @@ def serve(pipeline: ServingPipeline, port: int = 8080,
     return httpd
 
 
-def batch_buckets(max_batch: int):
-    """The buckets of a batched server: the powers of two up to 16 that do
-    not exceed max_batch (`ecgmm_tpu/serve/http.py:287-300`)."""
-    return tuple(b for b in (1, 2, 4, 8, 16) if b <= max_batch)
+def batch_buckets(max_batch: int, n_data: int = 1):
+    """The buckets of a batched server: n_data times the powers of two up
+    to 16, those that do not exceed max_batch
+    (`ecgmm_tpu/serve/http.py:287-300`)."""
+    return tuple(n_data * b for b in (1, 2, 4, 8, 16)
+                 if n_data * b <= max_batch)
 
 
 def main(argv=None):
@@ -227,7 +230,8 @@ def main(argv=None):
                         "many predictions (worker recycling; 0 = never)")
     p.add_argument("--n-data", type=int, default=1,
                    help="devices each batched dispatch is split over "
-                        "(only 1: mesh serving is not ported yet)")
+                        "(mesh serving: a model replica on each of the "
+                        "first n visible devices)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
@@ -238,22 +242,26 @@ def main(argv=None):
     if args.n_data > 1 and args.batch_window_ms <= 0:
         p.error("--n-data > 1 needs --batch-window-ms > 0 (mesh serving "
                 "splits the batched dispatches)")
-    if args.n_data > 1:
-        raise NotImplementedError(f"--n-data {args.n_data}: {PARALLEL_ITEM}")
-    buckets = batch_buckets(args.max_batch)
+    buckets = batch_buckets(args.max_batch, args.n_data)
     if args.batch_window_ms > 0 and not buckets:
         p.error(f"--max-batch {args.max_batch} admits none of the batch "
-                "buckets (1, 2, 4, 8, 16)")
+                f"buckets {batch_buckets(1 << 30, args.n_data)}")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but no CUDA device is available; pass "
             "--device cpu to serve on the CPU"
         )
+    visible = len(meshlib.visible_devices(args.device))
+    if args.n_data > visible:
+        # before the pipeline is built: enable_batching's check
+        raise ValueError(f"n_data={args.n_data} exceeds the {visible} "
+                         "visible device(s)")
     pipeline = ServingPipeline.demo(device=args.device)
     if args.batch_window_ms > 0:
         pipeline.enable_batching(args.batch_window_ms,
-                                 max_batch=max(buckets), buckets=buckets)
+                                 max_batch=max(buckets), buckets=buckets,
+                                 n_data=args.n_data)
     if not args.no_warmup:
         print("warming up (one request through the whole path)")
         pipeline.warmup()

@@ -1,5 +1,5 @@
-"""The upload decoder: JPEG and PNG bytes -> an (H, W, 3) uint8 RGB array,
-turned upright by the EXIF orientation.
+"""The upload decoder: JPEG, PNG and BMP bytes -> an (H, W, 3) uint8 RGB
+array, turned upright by the EXIF orientation.
 
 It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 (`ecgmm_tpu/serve/http.py:101-112`),
@@ -21,6 +21,8 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   Pillow converts them (gray of 1, 2 and 4 bits scaled to 0-255, 16-bit
   gray clipped at 255, 16-bit colour by its high byte); the alpha channel
   is dropped as `.convert("RGB")` drops it;
+- uncompressed BMP: 24 and 32 bits, and the 1-, 4- and 8-bit palettes,
+  bottom-up and top-down (`_decode_bmp`, numpy);
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf` or ImageMagick's "Raw profile type exif" text), else of the XMP
   packet, applied as `ImageOps.exif_transpose` applies its 8 cases.
@@ -119,11 +121,80 @@ def _decode(data: bytes):
         return _decode_jpeg(data)
     if data[:8] == PNG_SIGNATURE:
         return _decode_png(data)
-    raise _bad("not a JPEG or PNG file")
+    if data[:2] == b"BM":
+        return _decode_bmp(data), None, None
+    raise _bad("not a JPEG, PNG or BMP file")
+
+
+# ---------------------------------------------------------------- BMP
+
+# the sizes of the Windows and OS/2 DIB headers Pillow's BmpImagePlugin
+# reads: BITMAPCOREHEADER (12 bytes, 16-bit sizes, 3-byte palette
+# entries) and BITMAPINFOHEADER and its extensions
+_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    """Uncompressed (BI_RGB) BMP at 24 and 32 bits (B, G, R and an unused
+    byte) or with a 1-, 4- or 8-bit palette, rows bottom-up or, with a
+    negative height, top-down, each padded to 4 bytes: (H, W, 3) uint8 RGB
+    as Pillow's `.convert("RGB")` gives it (an index beyond the palette
+    is black). The pixel-count guard runs before anything is read; a
+    palette that runs into the pixel data is refused."""
+    if len(data) < 26:
+        raise _bad("truncated BMP header")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    if hsize not in _BMP_HEADERS:
+        raise _unsupported(f"BMP with a {hsize}-byte header")
+    if len(data) < 14 + hsize:
+        raise _bad("truncated BMP header")
+    if hsize == 12:
+        width, height, _, bpp = struct.unpack_from("<HHHH", data, 18)
+        compression, colors, entry = 0, 0, 3
+    else:
+        width, height, _, bpp, compression = struct.unpack_from(
+            "<iiHHI", data, 18)
+        colors = struct.unpack_from("<I", data, 46)[0] if hsize >= 40 \
+            else 0
+        entry = 4
+    top_down = height < 0
+    height = abs(height)
+    if compression != 0:
+        raise _unsupported(f"BMP with compression {compression}")
+    if bpp not in (1, 4, 8, 24, 32):
+        raise _unsupported(f"{bpp}-bit BMP")
+    if width <= 0 or height <= 0:
+        raise _bad("BMP of no pixels")
+    _check_pixels(width, height)
+    stride = (width * bpp + 31) // 32 * 4
+    if offset + stride * height > len(data):
+        raise _bad("truncated BMP pixel data")
+    rows = np.frombuffer(data, np.uint8, stride * height,
+                         offset).reshape(height, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp >= 24:
+        k = bpp // 8
+        return rows[:, :k * width].reshape(height, width, k)[..., 2::-1]
+    n = colors or (1 << bpp)
+    start = 14 + hsize
+    if n > 256 or start + n * entry > offset:
+        raise _bad(f"BMP palette of {n} colours")
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:n] = np.frombuffer(data, np.uint8, n * entry,
+                                start).reshape(n, entry)[:, 2::-1]
+    if bpp == 8:
+        index = rows
+    elif bpp == 4:  # the high nibble is the left pixel
+        index = np.stack([rows >> 4, rows & 15], axis=2).reshape(height, -1)
+    else:  # the high bit is the left pixel
+        index = np.unpackbits(rows, axis=1)
+    return palette[index[:, :width]]
 
 
 def decode_upload(data: bytes) -> np.ndarray:
-    """An uploaded JPEG or PNG as an upright (H, W, 3) uint8 RGB array."""
+    """An uploaded JPEG, PNG or BMP as an upright (H, W, 3) uint8 RGB
+    array."""
     rgb, exif, xmp = _decode(data)
     orientation = _orientation(exif, xmp)
     if orientation in _TRANSPOSE:

@@ -28,6 +28,8 @@ assembly recipes are in `serve/loaders.py`.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -38,6 +40,7 @@ import torch
 from ecgmm_torch.explain.gradcam import cam_from_image_map
 from ecgmm_torch.explain.shap_fusion import draw_shap_samples, gradient_shap
 from ecgmm_torch.models import ECGMultimodalModel
+from ecgmm_torch.parallel import mesh as meshlib
 from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.serve import batching
 from ecgmm_torch.serve import request as request_host
@@ -48,8 +51,6 @@ IG_STEPS = 8
 # package's series)
 LATENCY_BUCKETS = (0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4,
                    float("inf"))
-PARALLEL_ITEM = ("ROADMAP.md section 1, item 'Parallel': serving over "
-                 "several devices is not ported yet")
 
 
 def _rss_bytes() -> int:
@@ -61,6 +62,18 @@ def _rss_bytes() -> int:
             return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
     except (OSError, ValueError, IndexError):
         return 0
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether a and b name one device (a CUDA device without an index is
+    the current one)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a.index == b.index
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
 
 
 class ServingPipeline:
@@ -146,6 +159,8 @@ class ServingPipeline:
         self._latency_hist = [0] * len(LATENCY_BUCKETS)
         self._batcher: Optional[batching.MicroBatcher] = None
         self._serve_n_data = 1
+        # mesh serving's batch functions (and their replicas) by n_data
+        self._mesh_fns: Dict[int, object] = {}
         # called after every served prediction (the --max-requests recycle
         # of serve/http.py)
         self.on_request_done = None
@@ -261,6 +276,68 @@ class ServingPipeline:
 
     # -- micro-batching ----------------------------------------------------
 
+    def _replica(self, device: torch.device) -> "ServingPipeline":
+        """A copy of this pipeline whose model and device tensors lie on
+        `device`, with a lock of its own (the counters stay this
+        pipeline's)."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = copy.deepcopy(self.model).to(device)
+        for name in ("background", "shap_bidx", "shap_alphas", "ig_alphas"):
+            setattr(rep, name, getattr(self, name).to(device))
+        rep._device_lock = threading.RLock()
+        return rep
+
+    def _mesh_batch_fn(self, n_data: int):
+        """The micro-batcher's device function of mesh serving over the
+        first n_data visible devices, built once per n_data: each bucketed
+        dispatch splits into n_data equal row slices, one per replica, run
+        concurrently (a thread each, on its device's current stream) and
+        concatenated; a row's device ms is its dispatch's slowest slice.
+        This pipeline is the replica on its own device; the others are
+        copies."""
+        fn = self._mesh_fns.get(n_data)
+        if fn is not None:
+            return fn
+        devices = meshlib.visible_devices(self.device)[:n_data]
+        own = _same_device(devices[0], self.device)
+        replicas = [self if i == 0 and own else self._replica(d)
+                    for i, d in enumerate(devices)]
+
+        def run_slices(img, sig, clin):
+            k = img.shape[0] // n_data
+            out: list = [None] * n_data
+
+            def work(i):
+                rep = replicas[i]
+                rows = slice(i * k, (i + 1) * k)
+                ctx = (torch.cuda.device(rep.device)
+                       if rep.device.type == "cuda"
+                       else contextlib.nullcontext())
+                try:
+                    with ctx:
+                        out[i] = rep._dispatch(img[rows], sig[rows],
+                                               clin[rows])
+                except BaseException as e:  # raised on the batcher thread
+                    out[i] = e
+
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(n_data)]
+            with no_tf32():
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            for o in out:
+                if isinstance(o, BaseException):
+                    raise o
+            rows = np.concatenate([o[0] for o in out])
+            return rows, np.full(rows.shape[0], max(o[1] for o in out))
+
+        run_slices.replicas = replicas
+        self._mesh_fns[n_data] = run_slices
+        return run_slices
+
     def enable_batching(
         self,
         window_ms: float = 4.0,
@@ -269,26 +346,39 @@ class ServingPipeline:
         n_data: int = 1,
     ) -> None:
         """Coalesce concurrent predict() calls into bucketed dispatches of
-        `_predict_many` (serve/batching.py). n_data > 1 (JAX's mesh
-        serving) raises: beyond the visible devices as in JAX, otherwise
-        because it waits for ROADMAP's parallel item."""
+        `_predict_many` (serve/batching.py). n_data > 1 is JAX's mesh
+        serving: n_data replicas of the model on the first n_data visible
+        devices (`parallel/mesh.visible_devices`) answer each bucketed
+        dispatch together, an equal row slice each (`_mesh_batch_fn`);
+        the buckets must divide by n_data and default to n_data * (1, 2,
+        4, 8), and a re-enable reuses the replicas. Requests are
+        independent row by row, so the responses are the single-device
+        ones."""
         if n_data < 1:
             raise ValueError(f"n_data must be >= 1, got {n_data}")
         if n_data > 1:
-            visible = (torch.cuda.device_count()
-                       if self.device.type == "cuda" else 1)
+            visible = len(meshlib.visible_devices(self.device))
             if n_data > visible:
                 raise ValueError(
                     f"n_data={n_data} exceeds the {visible} visible "
                     "device(s)"
                 )
-            raise NotImplementedError(f"n_data={n_data}: {PARALLEL_ITEM}")
-        buckets = tuple(buckets) if buckets is not None else (1, 2, 4, 8)
+        if buckets is None:
+            buckets = tuple(max(n_data, 1) * b for b in (1, 2, 4, 8))
+        buckets = tuple(buckets)
+        if n_data > 1:
+            bad = tuple(b for b in buckets if b % n_data)
+            if bad:
+                raise ValueError(
+                    f"batch buckets {bad} not divisible by n_data={n_data} "
+                    "— each device must take an equal slice of every "
+                    "bucketed dispatch")
         if max_batch is None:
             max_batch = max(buckets)
+        fn = self._batch_fn if n_data == 1 else self._mesh_batch_fn(n_data)
         # construct (and validate) the new batcher before tearing down a
         # live one, so a bad re-enable never leaves batching silently off
-        new = batching.MicroBatcher(self._batch_fn, window_ms=window_ms,
+        new = batching.MicroBatcher(fn, window_ms=window_ms,
                                     max_batch=max_batch, buckets=buckets)
         self.close_batching()
         self._batcher = new
@@ -312,7 +402,7 @@ class ServingPipeline:
         if self._batcher is None:
             return
         for b in self._batcher._buckets:
-            self._dispatch(*self._zeros(b))
+            self._batcher._batch_fn(*self._zeros(b))
 
     def warmup(self, strip_hw: Tuple[int, int] = (250, 2500)) -> None:
         """One request through the whole path at startup, so the first

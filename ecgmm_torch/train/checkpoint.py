@@ -8,6 +8,11 @@ same directory and moves it into place with `os.replace`, so a reader
 never sees half a file. Saves are synchronous. Loads read tensors only
 (`weights_only=True`) onto the CPU; `TrainState.load_state_dict` copies
 them to the state's device.
+
+In a run over several ranks every rank calls `save` (a tensor-parallel
+state gathers its shards there), the manager made with `writer=True`
+(rank 0) alone writes, and every rank waits for the file before it goes
+on, so a rank that restores next reads what was written.
 """
 
 from __future__ import annotations
@@ -16,12 +21,15 @@ import os
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
 
 from ecgmm_torch.train.state import TrainState
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_epochs: int = 3):
+    def __init__(self, directory: str, keep_epochs: int = 3,
+                 writer: bool = True):
+        self.writer = writer
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.keep_epochs = keep_epochs
@@ -42,10 +50,13 @@ class CheckpointManager:
         numbers, under `name`."""
         payload = state.state_dict() if isinstance(state, TrainState) \
             else state
-        path = self._path(name)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if self.writer:
+            path = self._path(name)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def save_epoch(self, epoch: int, state: TrainState) -> None:
         name = f"epoch{epoch}"
@@ -53,7 +64,7 @@ class CheckpointManager:
         self._epoch_names.append(name)
         while len(self._epoch_names) > self.keep_epochs:
             old = self._path(self._epoch_names.pop(0))
-            if os.path.exists(old):
+            if self.writer and os.path.exists(old):
                 os.remove(old)
 
     def load(self, name: str) -> Dict[str, Any]:

@@ -18,10 +18,15 @@ SIGTERM raises `engine.Preempted` and ends the harness: the AUCs of the
 folds already finished are lost with it, as in the JAX package.
 
     python -m ecgmm_torch.train.cv nested --preset fusion [--device cpu]
+
+Under torchrun every harness takes the ranks' mesh (`--n-model` as in
+`workloads/run.py`): a sequential fit trains over all of them, and the
+fold program spreads its folds over the data axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +37,8 @@ from ecgmm_torch.data import preprocess, splits
 from ecgmm_torch.data.pipeline import (Arrays, HostArrays, num_batches,
                                        promote)
 from ecgmm_torch.data.synthetic import SyntheticCohort
+from ecgmm_torch.parallel import tp
+from ecgmm_torch.parallel.mesh import init_distributed, make_mesh
 from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.train import embed, engine
 from ecgmm_torch.train import metrics as M
@@ -65,34 +72,38 @@ def _softmax_auc(logits: np.ndarray, labels: np.ndarray) -> float:
 
 
 def fit_fold(make_model_task: Callable, arrays: Dict[str, Arrays],
-             cfg: Config, device="cuda"
+             cfg: Config, device="cuda", mesh=None
              ) -> Tuple[engine.FitResult, engine.EvalResult]:
     """One fold's fit on its (train, val, test) `arrays` and its test
     evaluation: a fresh model from `make_model_task`; where the cached
     path applies, the frozen encoders' BatchNorm statistics calibrated on
     this fold's train split and each split encoded once; `fit(keep_best=
     True)`; the test split scored on the best state, or the final one
-    where no epoch improved. Returns (the fit, the test evaluation)."""
+    where no epoch improved; with `mesh`, over its ranks (JAX's
+    `cv.py:59-140`). Returns (the fit, the test evaluation)."""
     t = cfg.train
     model, task, freeze = make_model_task(cfg, device)
     state = create_state(model, t, num_batches(arrays["train"].n,
                                                t.batch_size),
                          freeze=freeze)
     frozen = freeze is not None
-    embed.maybe_calibrate_bn_stats(state, arrays["train"], t, frozen=frozen)
+    tp.place_state(state, mesh)
+    embed.maybe_calibrate_bn_stats(state, arrays["train"], t, frozen=frozen,
+                                   mesh=mesh)
     arrays, head_task = embed.maybe_cache_fusion_embeddings(
-        state, arrays, t, frozen=frozen)
+        state, arrays, t, frozen=frozen, mesh=mesh)
     task = head_task or task
     result = engine.fit(task, state, arrays["train"], arrays["val"], t,
-                        verbose=False, keep_best=True)
+                        verbose=False, keep_best=True, mesh=mesh)
     if result.best_state is not None:
         state.load_state_dict(result.best_state)
-    return result, engine.evaluate(task, state, arrays["test"], t.eval_bs)
+    return result, engine.evaluate(task, state, arrays["test"], t.eval_bs,
+                                   mesh=mesh)
 
 
 def _fold_auc(make_model_task: Callable, cohort: SyntheticCohort,
               split: splits.Split, cfg: Config, apply_filter: bool,
-              device="cuda") -> float:
+              device="cuda", mesh=None) -> float:
     """Train on (train, val), return the AUC of the best state on test:
     the reference's train_inner + test_outer (train_kfold.py:20-133). The
     scalers are refit on the fold's train rows; the clinical width
@@ -104,7 +115,7 @@ def _fold_auc(make_model_task: Callable, cohort: SyntheticCohort,
     arrays = {name: _build_arrays(cohort, idx, ecg_scaler, clin_scaler,
                                   apply_filter, n_clin, device)
               for name, idx in zip(("train", "val", "test"), split)}
-    result, ev = fit_fold(make_model_task, arrays, cfg, device)
+    result, ev = fit_fold(make_model_task, arrays, cfg, device, mesh)
     if result.preempted:
         # the fold trained short and the process is going down: neither
         # score it nor start the next fold
@@ -136,7 +147,7 @@ def _check_fold_parallel_schedule(tcfg) -> None:
 
 
 def _run_folds(make_model_task, cohort, fold_splits, cfg, apply_filter,
-               verbose, device) -> List[float]:
+               verbose, device, mesh=None) -> List[float]:
     """Every fold's AUC through the fold program, in order."""
     from ecgmm_torch.train import cv_parallel
 
@@ -145,19 +156,21 @@ def _run_folds(make_model_task, cohort, fold_splits, cfg, apply_filter,
         make_model_task, cohort, fold_splits, cfg,
         apply_filter=apply_filter, device=device)
     return cv_parallel.run_fold_parallel(task, state0, pack, cfg.train,
-                                         verbose=verbose).aucs
+                                         verbose=verbose, mesh=mesh).aucs
 
 
 def nested_cv(make_model_task: Callable, cohort: SyntheticCohort,
               cfg: Config, apply_filter: bool = True, verbose: bool = True,
-              fold_parallel: bool = False, device="cuda"
+              fold_parallel: bool = False, device="cuda", mesh=None
               ) -> Dict[str, object]:
     """Outer k_outer x inner k_inner nested CV: each inner fold trains to
     early stop, its best-val state is scored on the outer test fold, and
     the outer AUC is the mean over the inner folds (the reference scores
     the last inner fold's checkpoint only; the mean is the JAX package's
     choice). `fold_parallel` trains all k_outer x k_inner folds in one
-    fold program (`train/cv_parallel.py`)."""
+    fold program (`train/cv_parallel.py`), its folds spread over the data
+    axis of `mesh`; without fold_parallel every fit runs over the mesh's
+    ranks."""
     t = cfg.train
     groups = list(splits.nested_kfold(cohort.labels, t.k_outer, t.k_inner,
                                       t.seed))
@@ -165,14 +178,15 @@ def nested_cv(make_model_task: Callable, cohort: SyntheticCohort,
         if fold_parallel:
             flat = [s for _, _, inner in groups for s in inner]
             aucs = iter(_run_folds(make_model_task, cohort, flat, cfg,
-                                   apply_filter, verbose, device))
+                                   apply_filter, verbose, device, mesh))
             per_outer = [[next(aucs) for _ in inner]
                          for _, _, inner in groups]
         else:
             _hint_fold_parallel(t, sum(len(i) for _, _, i in groups),
                                 verbose)
             per_outer = [[_fold_auc(make_model_task, cohort, s, cfg,
-                                    apply_filter, device) for s in inner]
+                                    apply_filter, device, mesh)
+                          for s in inner]
                          for _, _, inner in groups]
     outer_aucs = []
     for (fold_id, _, _), fold_aucs in zip(groups, per_outer):
@@ -189,11 +203,12 @@ def nested_cv(make_model_task: Callable, cohort: SyntheticCohort,
 def exhaustive_cv(make_model_task: Callable, cohort: SyntheticCohort,
                   cfg: Config, k: int = 10, apply_filter: bool = True,
                   max_pairs: Optional[int] = None, verbose: bool = True,
-                  fold_parallel: bool = False, device="cuda"
+                  fold_parallel: bool = False, device="cuda", mesh=None
                   ) -> Dict[str, object]:
     """Every ordered (test, val) pair of one k-fold partition
     (train_exhausted.py:165-217); `max_pairs` keeps the first pairs only.
-    `fold_parallel` trains every pair in one fold program."""
+    `fold_parallel` trains every pair in one fold program; `mesh` as in
+    `nested_cv`."""
     pairs = []
     for n, (ti, vi, s) in enumerate(
             splits.exhaustive_fold_pairs(cohort.labels, k, cfg.train.seed)):
@@ -205,7 +220,7 @@ def exhaustive_cv(make_model_task: Callable, cohort: SyntheticCohort,
         if fold_parallel:
             fold_aucs = _run_folds(make_model_task, cohort,
                                    [s for _, _, s in pairs], cfg,
-                                   apply_filter, verbose, device)
+                                   apply_filter, verbose, device, mesh)
             for (ti, vi, _), auc in zip(pairs, fold_aucs):
                 aucs.append((ti, vi, auc))
                 if verbose:
@@ -214,7 +229,7 @@ def exhaustive_cv(make_model_task: Callable, cohort: SyntheticCohort,
             _hint_fold_parallel(cfg.train, len(pairs), verbose)
             for ti, vi, s in pairs:
                 auc = _fold_auc(make_model_task, cohort, s, cfg,
-                                apply_filter, device)
+                                apply_filter, device, mesh)
                 aucs.append((ti, vi, auc))
                 if verbose:
                     print(f"[test={ti} val={vi}] auc={auc:.4f}")
@@ -358,6 +373,9 @@ def main(argv=None):
                         "evaluation_signal.py:36-38)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--n-model", type=int, default=None,
+                   help="model-axis size of the torchrun ranks' mesh "
+                        "(sequential fits only)")
     args = p.parse_args(argv)
 
     if args.mode == "cross":
@@ -372,22 +390,30 @@ def main(argv=None):
         p.error("--max-pairs must be >= 1")
 
     device = _device(args.device)
+    device = init_distributed(device=args.device) or device
     cfg = apply_train_overrides(get_preset(args.preset), epochs=args.epochs,
                                 cache_embeddings=args.cache_embeddings,
                                 seed=args.seed)
+    if args.n_model is not None:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, n_model=args.n_model))
+    mesh = make_mesh(cfg.mesh, device)
     cohort = synthetic.make_cohort(
         n=args.n_synth, signal_len=cfg.data.signal_len,
         img_hw=(cfg.data.img_height, cfg.data.img_width),
         n_clinical=cfg.model.clinical_in_features)
     if args.mode == "nested":
         out = nested_cv(build_model_and_task, cohort, cfg,
-                        fold_parallel=args.fold_parallel, device=device)
+                        fold_parallel=args.fold_parallel, device=device,
+                        mesh=mesh, verbose=mesh.is_writer)
     else:
         out = exhaustive_cv(build_model_and_task, cohort, cfg, k=args.k,
                             max_pairs=args.max_pairs,
-                            fold_parallel=args.fold_parallel, device=device)
+                            fold_parallel=args.fold_parallel, device=device,
+                            mesh=mesh, verbose=mesh.is_writer)
     summary = {k: _clean(v) for k, v in out.items() if k != "pairs"}
-    print(json.dumps(summary, indent=1))
+    if mesh.is_writer:
+        print(json.dumps(summary, indent=1))
 
 
 if __name__ == "__main__":

@@ -40,8 +40,12 @@ Per fold, the semantics are the sequential `engine.fit(keep_best=True)`'s:
     fit's, which draws its keep masks outside `vmap` on its active steps
     only and hands them in (`models/layers.Dropout.keep`);
   * only the constant schedule (with plateau decay) is supported.
-There is no mesh: folds do not shard over devices (ROADMAP.md,
-"Parallel").
+With a mesh (`run_fold_parallel(mesh=)`) the folds spread over its data
+axis: they pad to a multiple of n_data with copies of fold 0, each rank
+runs its contiguous block of F / n_data folds through this program, with
+no collective in a step, and the ranks gather their results at the end;
+the waves and the rows cap count a rank's folds. A mesh with a model axis
+is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from ecgmm_torch.data.pipeline import (Arrays, Batch, num_batches,
 from ecgmm_torch.models.fusion import ECGMultimodalModel
 from ecgmm_torch.models.layers import Dropout
 from ecgmm_torch.models.resnet18 import ResNet18
+from ecgmm_torch.parallel import collectives
+from ecgmm_torch.parallel.mesh import pad_to_multiple
 from ecgmm_torch.train import embed, engine
 from ecgmm_torch.train.engine import Task, epoch_indices
 from ecgmm_torch.train.state import TrainState, create_state
@@ -661,12 +667,14 @@ def _act_rows_cap(pack: FoldPack, budget: int) -> int:
 
 
 def _wave_size(pack: FoldPack, state0: TrainState, plans_nbytes: int,
-               budget: int, batch_size: int) -> int:
-    """Folds per wave: all of them where the footprint fits the budget and
-    the wave's rows fit the rows cap (`_act_rows_cap`), else the most that
+               budget: int, batch_size: int,
+               n_folds: Optional[int] = None) -> int:
+    """Folds per wave of a rank's `n_folds` (all of the pack's by
+    default): all of them where the footprint fits the budget and the
+    wave's rows fit the rows cap (`_act_rows_cap`), else the most that
     do. Raises with the numbers where even one fold does not fit. budget
     0: unlimited (the rows cap still applies where it is set)."""
-    F = pack.n_folds
+    F = pack.n_folds if n_folds is None else n_folds
     w = F
     cap = _act_rows_cap(pack, budget)
     if cap:
@@ -713,12 +721,34 @@ def _wave_data(pack: FoldPack, wave: List[int], device) -> dict:
     }
 
 
+def _fold_block(n: int, mesh) -> List[int]:
+    """This rank's folds: its contiguous block of the folds padded to a
+    multiple of the data axis with copies of fold 0 (a pure data mesh
+    only, with JAX's message otherwise)."""
+    if mesh is None:
+        return list(range(n))
+    extra = [a for a in mesh.axis_names
+             if a != mesh.data_axis and mesh.shape[a] > 1]
+    if extra:
+        raise ValueError(
+            "fold-parallel CV requires a pure data-parallel mesh (folds "
+            f"shard over the {mesh.data_axis!r} axis); mesh has non-data "
+            f"axes with size > 1: {extra}. Use a data-only mesh, or the "
+            "sequential harness for tensor-parallel training.")
+    ids = list(range(n)) + [0] * (pad_to_multiple(n, mesh.n_data) - n)
+    k = len(ids) // mesh.n_data
+    return ids[mesh.data_index * k:(mesh.data_index + 1) * k]
+
+
 def run_fold_parallel(task: Task, state0: TrainState, pack: FoldPack,
-                      cfg: TrainConfig, verbose: bool = True) -> FoldResults:
+                      cfg: TrainConfig, verbose: bool = True,
+                      mesh=None) -> FoldResults:
     """Train and score every (train, val, test) fold of `pack`, in waves
     of folds that fit the device's budget (`_wave_size`). Every fold
     starts from `state0`. Returns per-fold best-on-test logits and AUCs in
-    input order."""
+    input order. With `mesh`, every rank calls it on the same pack, runs
+    its block of the folds (`_fold_block`) and returns every fold's
+    results; `train_steps` and `eval_batches` count this rank's program."""
     from ecgmm_torch.train.cv import _softmax_auc
 
     if cfg.schedule != "constant":
@@ -741,13 +771,16 @@ def run_fold_parallel(task: Task, state0: TrainState, pack: FoldPack,
     test = _stack_eval_plans([r[2] for r in pack.rows], cfg.eval_bs)[:2]
     device = next(state0.model.parameters()).device
     budget = resolve_hbm_budget(device)
-    plans_nbytes = sum(a.nbytes for p in (train, val, test) for a in p)
-    w = _wave_size(pack, state0, plans_nbytes, budget, cfg.batch_size)
-    waves = [list(range(i, min(n, i + w))) for i in range(0, n, w)]
+    mine = _fold_block(n, mesh)
+    plans_nbytes = sum(a[mine].nbytes for p in (train, val, test)
+                       for a in p)
+    w = _wave_size(pack, state0, plans_nbytes, budget, cfg.batch_size,
+                   n_folds=len(mine))
+    waves = [mine[i:i + w] for i in range(0, len(mine), w)]
     if verbose and len(waves) > 1:
-        print(f"[fold-parallel] {n} folds exceed one wave's budget (device "
-              f"bytes / concurrent rows): running {len(waves)} waves of "
-              f"up to {w}")
+        print(f"[fold-parallel] {len(mine)} folds exceed one wave's budget "
+              f"(device bytes / concurrent rows): running {len(waves)} "
+              f"waves of up to {w}")
     program = make_fold_program(task, state0, cfg)
     logits_w, best_w, stop_w, vhist_w = [], [], [], []
     for wave in waves:
@@ -757,6 +790,18 @@ def run_fold_parallel(task: Task, state0: TrainState, pack: FoldPack,
                                 for p in (train, val, test)))
         for got, acc in zip(out, (logits_w, best_w, stop_w, vhist_w)):
             acc.extend(got)
+    if mesh is not None and mesh.n_data > 1:
+        # every rank's folds, then the first copy of each fold in order
+        blocks = collectives.all_gather_objects(
+            (mine, [np.asarray(x) for x in logits_w], list(best_w),
+             list(stop_w), [np.asarray(v) for v in vhist_w]),
+            mesh.data_group)
+        first = {}
+        for ids, *fields in blocks:
+            for j, f in enumerate(ids):
+                first.setdefault(f, [x[j] for x in fields])
+        logits_w, best_w, stop_w, vhist_w = (
+            [first[f][i] for f in range(n)] for i in range(4))
     res = FoldResults([], [], [], [], [], np.stack(vhist_w),
                       program.train_steps, program.eval_batches)
     smask = test[1]

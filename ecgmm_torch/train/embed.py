@@ -34,13 +34,18 @@ from ecgmm_torch.data.pipeline import (Arrays, HostArrays, MaterializedData,
                                        prefetch_batches)
 from ecgmm_torch.models.fusion import ECGMultimodalModel
 from ecgmm_torch.models.layers import set_dropout_generator
-from ecgmm_torch.train.engine import Task, epoch_indices
+from ecgmm_torch.parallel import collectives, tp
+from ecgmm_torch.parallel.mesh import Mesh
+from ecgmm_torch.train.engine import (Task, check_divides, gather_outputs,
+                                      local_plan, batch_part, row_shard,
+                                      epoch_indices)
 from ecgmm_torch.train.state import TrainState
 from ecgmm_torch.workloads.tasks import make_fusion_head_task
 
 
 def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
-                       passes: int = 3) -> TrainState:
+                       passes: int = 3, mesh: Optional[Mesh] = None
+                       ) -> TrainState:
     """`passes` train-mode forwards of the whole model over the split's
     full batches in order, without gradients: every BatchNorm folds each
     batch's statistics into its running buffers, and nothing else changes.
@@ -48,7 +53,10 @@ def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
     its pad row); a split smaller than `batch_size` is one batch of all its
     rows. Dropout draws from a generator of its own seeded 0, as JAX draws
     calibration dropout from a fixed key, so `state.generator` does not
-    move. Returns `state`, its model holding the calibrated buffers."""
+    move. Returns `state`, its model holding the calibrated buffers. With
+    `mesh` each rank runs its rows of every batch under the data-parallel
+    context (global moments and masks), so every rank's buffers are the
+    one-process run's."""
     n = arrays.n
     model = state.model
     if n == 0:
@@ -62,9 +70,10 @@ def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
     set_dropout_generator(model, generator)
     try:
         model.train()
-        with torch.no_grad():
+        with torch.no_grad(), tp.gathered(model), \
+                collectives.data_parallel(row_shard(mesh)):
             for _ in range(passes):
-                for b in _full_batches(arrays, bs, n_full, device):
+                for b in _full_batches(arrays, bs, n_full, device, mesh):
                     model(*b)
     finally:
         set_dropout_generator(model, state.generator)
@@ -72,26 +81,30 @@ def calibrate_bn_stats(state: TrainState, arrays: Arrays, batch_size: int,
     return state
 
 
-def _full_batches(arrays, bs: int, n_full: int, device):
+def _full_batches(arrays, bs: int, n_full: int, device, mesh=None):
     """The split's first `n_full` batches of `bs` rows in order, as
     (images, signals, clinical): slices of a device split, or copies of a
-    host split's rows."""
+    host split's rows; with `mesh`, this rank's rows of each."""
+    check_divides(bs, mesh, "calibration batch size")
+    part = batch_part(bs, mesh)
     if isinstance(arrays, HostArrays):
         for j, b in enumerate(prefetch_batches(arrays, bs, shuffle=False,
-                                               seed=0, device=device)):
+                                               seed=0, device=device,
+                                               part=part)):
             if j >= n_full:
                 break
             yield b.images, b.signals, b.clinical
         return
+    lo, hi = part or (0, bs)
     for j in range(n_full):
-        rows = slice(j * bs, (j + 1) * bs)
+        rows = slice(j * bs + lo, j * bs + hi)
         yield (arrays.images[rows], arrays.signals[rows],
                arrays.clinical[rows])
 
 
 def maybe_calibrate_bn_stats(state: TrainState, train_arrays: Arrays,
-                             cfg: TrainConfig,
-                             frozen: bool = True) -> TrainState:
+                             cfg: TrainConfig, frozen: bool = True,
+                             mesh: Optional[Mesh] = None) -> TrainState:
     """`calibrate_bn_stats` over the train split at `cfg.eval_bs` where the
     cached path applies and `cfg.cache_bn_calibrate` is set; else `state`
     as it is, quietly (`maybe_cache_fusion_embeddings`, called next, warns
@@ -99,7 +112,7 @@ def maybe_calibrate_bn_stats(state: TrainState, train_arrays: Arrays,
     if not (cfg.cache_bn_calibrate and cfg.cache_embeddings
             and isinstance(state.model, ECGMultimodalModel) and frozen):
         return state
-    return calibrate_bn_stats(state, train_arrays, cfg.eval_bs)
+    return calibrate_bn_stats(state, train_arrays, cfg.eval_bs, mesh=mesh)
 
 
 def cache_applies(model, cfg: TrainConfig, frozen: bool) -> bool:
@@ -120,12 +133,16 @@ def cache_applies(model, cfg: TrainConfig, frozen: bool) -> bool:
 
 
 def precompute_fusion_embeddings(model: ECGMultimodalModel, arrays: Arrays,
-                                 batch_size: int) -> Arrays:
+                                 batch_size: int,
+                                 mesh: Optional[Mesh] = None) -> Arrays:
     """`model.encode_raw` over a split in batches of `batch_size` in order
     (the last one padded with row 0, its pad rows dropped), without
     gradients. Returns an Arrays whose image, signal and clinical slots
     hold the raw (N, D) float32 embeddings, for `make_fusion_head_task`.
-    An empty split keeps the branch widths: (0, D) each."""
+    An empty split keeps the branch widths: (0, D) each. With `mesh` each
+    rank encodes its rows of every batch and gathers the batch's
+    embeddings over the data group, so every rank holds the whole split
+    (`ecgmm_tpu/train/embed.py:315-380`)."""
     n = arrays.n
     device = next(model.parameters()).device
     labels = arrays.labels
@@ -137,18 +154,24 @@ def precompute_fusion_embeddings(model: ECGMultimodalModel, arrays: Arrays,
             f: torch.zeros((0, d), dtype=torch.float32, device=device)
             for f, d in (("images", c.image_dim), ("signals", c.signal_dim),
                          ("clinical", c.clinical_dim))})
+    check_divides(batch_size, mesh, "eval batch size")
     if isinstance(arrays, HostArrays):
         batches = ((b.images, b.signals, b.clinical) for b in
                    prefetch_batches(arrays, batch_size, shuffle=False,
-                                    seed=0, device=device))
+                                    seed=0, device=device,
+                                    part=batch_part(batch_size, mesh)))
     else:
-        idx, _ = epoch_indices(n, batch_size, shuffle=False, seed=0, epoch=0)
+        idx, mask = epoch_indices(n, batch_size, shuffle=False, seed=0,
+                                  epoch=0)
+        idx, _ = local_plan(idx, mask, mesh)
         idx_d = torch.from_numpy(idx.astype(np.int64)).to(device)
         batches = (tuple(a.index_select(0, rows) for a in
                          (arrays.images, arrays.signals, arrays.clinical))
                    for rows in idx_d)
-    with torch.no_grad():
-        outs = [model.encode_raw(*b) for b in batches]
+    shard = row_shard(mesh)
+    with torch.no_grad(), tp.gathered(model):
+        outs = [gather_outputs(model.encode_raw(*b), shard)
+                for b in batches]
     img, sig, clin = (torch.cat(o)[:n] for o in zip(*outs))
     return Arrays(images=img, signals=sig, clinical=clin, labels=labels,
                   indices=np.asarray(arrays.indices))
@@ -217,7 +240,7 @@ def encode_sigcli_rows(model: ECGMultimodalModel, signals: torch.Tensor,
 
 def maybe_cache_fusion_embeddings(
     state: TrainState, splits: Dict[str, Arrays], cfg: TrainConfig,
-    frozen: bool = True,
+    frozen: bool = True, mesh: Optional[Mesh] = None,
 ) -> Tuple[Dict[str, Arrays], Optional[Task]]:
     """The wiring point of the cached path: where it applies
     (`cache_applies`), each split encoded at `cfg.eval_bs` and the fusion
@@ -225,23 +248,25 @@ def maybe_cache_fusion_embeddings(
     if not cache_applies(state.model, cfg, frozen):
         return splits, None
     cached = {name: precompute_fusion_embeddings(state.model, arrays,
-                                                 cfg.eval_bs)
+                                                 cfg.eval_bs, mesh)
               for name, arrays in splits.items()}
     return cached, make_fusion_head_task(cfg)
 
 
 def cache_run_splits(state: TrainState, data: MaterializedData,
-                     cfg: TrainConfig, frozen: bool = True
+                     cfg: TrainConfig, frozen: bool = True,
+                     mesh: Optional[Mesh] = None
                      ) -> Tuple[MaterializedData, Optional[Task]]:
     """The cached path of a run (`run()`, the pipeline's fusion stage), as
     JAX's run.py:349-369 wires it: `maybe_calibrate_bn_stats` on the
     train split, then `maybe_cache_fusion_embeddings` over the three
     splits. Returns (the data to train and test on, the head task) where
     the path applies, else (`data`, None)."""
-    maybe_calibrate_bn_stats(state, data.train, cfg, frozen=frozen)
+    maybe_calibrate_bn_stats(state, data.train, cfg, frozen=frozen,
+                             mesh=mesh)
     splits, task = maybe_cache_fusion_embeddings(
         state, {"train": data.train, "val": data.val, "test": data.test},
-        cfg, frozen=frozen)
+        cfg, frozen=frozen, mesh=mesh)
     if task is not None:
         data = dataclasses.replace(data, **splits)
     return data, task

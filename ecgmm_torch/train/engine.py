@@ -32,7 +32,26 @@ reference's (train.py:55-167), as the JAX engine keeps them:
   * `keep_best` returns a copy of the state at the best validation epoch
     (`FitResult.best_state`), for callers that score the best model
     without a checkpoint manager (the CV harnesses, `train/cv.py`).
-The mesh is not ported yet (ROADMAP.md).
+
+`fit`, `evaluate`, `evaluate_streamed` and `train_step` take `mesh`
+(`parallel/mesh.make_mesh`), as the JAX engine does, and then compute what
+one process computes on the same global batch:
+  * every rank builds the same global plan and takes its block of each
+    batch (`local_rows`), resident or streamed; a batch size the data axis
+    does not divide raises;
+  * the forward runs under the data-parallel context: BatchNorm takes the
+    global moments, Dropout the global mask (`models/layers.py`);
+  * the loss and the metrics run on every rank over the gathered rows
+    (`collectives.gather_rows`: the logits, the labels and the mask), so
+    the focal loss divides by the global sum of the mask and the eval
+    metrics are JAX's; the backward keeps each rank's rows, so the
+    parameter gradients are partial sums, which one flat, bucketed
+    all-reduce over the data group completes (a sum, not DDP's mean);
+  * with a model axis the state is column-sharded (`parallel/tp.py`);
+  * SIGTERM on any rank stops every rank after the same epoch (the flag
+    is all-reduced), and the early stop reads the gathered val loss, the
+    same on every rank; the checkpoint manager and the writer the caller
+    gives write on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -50,6 +69,8 @@ from ecgmm_torch.config import TrainConfig
 from ecgmm_torch.data.pipeline import (Arrays, Batch, HostArrays,
                                        epoch_order, prefetch_batches,
                                        prefetch_chunks)
+from ecgmm_torch.parallel import collectives, tp
+from ecgmm_torch.parallel.mesh import Mesh
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.state import TrainState
@@ -130,16 +151,102 @@ def _check_finite(what: str, tensors) -> None:
             f"debug_nans: non-finite {what}: {', '.join(bad[:8])}")
 
 
+def row_shard(mesh: Optional[Mesh]):
+    """The data-parallel context of `mesh` (None for one data rank)."""
+    return None if mesh is None or mesh.n_data == 1 else mesh.row_shard()
+
+
+def check_divides(batch_size: int, mesh: Optional[Mesh], what: str):
+    if mesh is not None and batch_size % mesh.n_data:
+        raise ValueError(
+            f"{what} {batch_size} does not divide over the data axis of "
+            f"size {mesh.n_data}")
+
+
+def local_plan(idx: np.ndarray, mask: np.ndarray, mesh: Optional[Mesh]):
+    """This rank's columns of an (n_batches, bs) plan."""
+    if mesh is None or mesh.n_data == 1:
+        return idx, mask
+    k = idx.shape[1] // mesh.n_data
+    cols = slice(mesh.data_index * k, (mesh.data_index + 1) * k)
+    return idx[:, cols], mask[:, cols]
+
+
+def gather_outputs(outputs, shard):
+    """The task's outputs with every tensor of rank >= 2 (the logits)
+    gathered over the data group; scalars and the (3,) soft weights are
+    global already."""
+    if shard is None:
+        return outputs
+
+    def g(t):
+        if isinstance(t, torch.Tensor) and t.dim() >= 2:
+            return collectives.gather_rows(t, shard.group)
+        return t
+
+    if isinstance(outputs, torch.Tensor):
+        return g(outputs)
+    items = [g(t) for t in outputs]
+    return type(outputs)(*items) if hasattr(outputs, "_fields") \
+        else type(outputs)(items)
+
+
+def _global_batch(batch: Batch, shard) -> Batch:
+    """The gathered labels and mask (what the losses read)."""
+    if shard is None:
+        return batch
+    return Batch(images=None, signals=None, clinical=None,
+                 labels=collectives.gather_rows(batch.labels, shard.group),
+                 mask=collectives.gather_rows(batch.mask, shard.group))
+
+
+GRAD_BUCKET_ELEMS = 1 << 22
+
+
+def reduce_gradients(model: torch.nn.Module, mesh: Optional[Mesh]) -> None:
+    """Sum every gradient over the data group, in flat buckets of at most
+    GRAD_BUCKET_ELEMS elements per dtype (one all-reduce a bucket)."""
+    if mesh is None or mesh.n_data == 1:
+        return
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        bucket: List[torch.Tensor] = []
+        size = 0
+        for g in same + [None]:
+            if g is not None and (size + g.numel() <= GRAD_BUCKET_ELEMS
+                                  or not bucket):
+                bucket.append(g)
+                size += g.numel()
+                continue
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            collectives.all_reduce_(flat, mesh.data_group)
+            off = 0
+            for b in bucket:
+                b.copy_(flat[off:off + b.numel()].view_as(b))
+                off += b.numel()
+            if g is not None:
+                bucket, size = [g], g.numel()
+
+
 def train_step(task: Task, state: TrainState, batch: Batch,
-               debug_nans: bool = False) -> Dict[str, torch.Tensor]:
+               debug_nans: bool = False, mesh: Optional[Mesh] = None
+               ) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update; returns the step's
     metrics as device tensors, detached (no host synchronisation). With
     `debug_nans` the step reads its loss and gradients back and raises
     FloatingPointError on a NaN or an Inf, as JAX's `jax_debug_nans`
-    stops a step."""
+    stops a step. With `mesh`, `batch` holds this rank's rows of the
+    global batch, and the loss, the metrics and the reduced gradients are
+    the global batch's (the module's docstring)."""
     model = state.model
     model.train()
-    outputs = task.apply(model, batch)
+    shard = row_shard(mesh)
+    with collectives.data_parallel(shard), tp.gathered(model):
+        outputs = gather_outputs(task.apply(model, batch), shard)
+    batch = _global_batch(batch, shard)
     loss, mets = task.loss(outputs, batch)
     if debug_nans:
         _check_finite("loss", [("loss", loss)])
@@ -154,6 +261,7 @@ def train_step(task: Task, state: TrainState, batch: Batch,
             raise FloatingPointError(f"debug_nans: {e}") from e
     else:
         loss.backward()
+    reduce_gradients(model, mesh)
     if debug_nans:
         _check_finite("gradient", [(n, p.grad) for n, p
                                    in model.named_parameters()])
@@ -179,17 +287,22 @@ def _assemble_eval(losses, logits, labels, extra) -> EvalResult:
     )
 
 
-def _eval_batches(task: Task, state: TrainState, batches, keep: np.ndarray
-                  ) -> EvalResult:
+def _eval_batches(task: Task, state: TrainState, batches, keep: np.ndarray,
+                  mesh: Optional[Mesh] = None) -> EvalResult:
     """Eval mode, no autograd, over `batches`; `keep` marks the real rows
-    of their concatenation. The host reads the device once."""
+    of their concatenation (of the global batches, with `mesh`: each rank
+    evaluates its rows and gathers the logits and labels). The host reads
+    the device once."""
     model = state.model
     model.eval()
+    shard = row_shard(mesh)
     losses, logits, labels = [], [], []
     extra: Dict[str, List[torch.Tensor]] = {}
-    with torch.no_grad():
+    with torch.no_grad(), tp.gathered(model):
         for batch in batches:
-            outputs = task.apply(model, batch)
+            with collectives.data_parallel(shard):
+                outputs = gather_outputs(task.apply(model, batch), shard)
+            batch = _global_batch(batch, shard)
             loss, mets = task.loss(outputs, batch)
             losses.append(loss)
             logits.append(task.logits(outputs).float())
@@ -206,23 +319,28 @@ def _eval_batches(task: Task, state: TrainState, batches, keep: np.ndarray
 
 
 def evaluate(task: Task, state: TrainState, arrays, batch_size: int,
-             stream_chunk_batches: int = 0) -> EvalResult:
+             stream_chunk_batches: int = 0, mesh: Optional[Mesh] = None
+             ) -> EvalResult:
     """Full-split eval in eval mode without autograd: the JAX
     `evaluate_scan` semantics, read back to the host once. A HostArrays
     split streams (`evaluate_streamed`, in chunks of
-    `stream_chunk_batches` batches where that is above 1)."""
+    `stream_chunk_batches` batches where that is above 1). With `mesh`
+    each rank evaluates its rows of every batch, and every rank returns
+    the whole split's result."""
     if isinstance(arrays, HostArrays):
         return evaluate_streamed(task, state, arrays, batch_size,
-                                 stream_chunk_batches)
+                                 stream_chunk_batches, mesh=mesh)
     if arrays.n == 0:
         return _empty_eval()
+    check_divides(batch_size, mesh, "eval batch size")
     idx, mask = epoch_indices(arrays.n, batch_size, shuffle=False, seed=0,
                               epoch=0)
-    idx_d, mask_d = _plan_on_device(idx, mask, arrays.labels.device)
+    idx_d, mask_d = _plan_on_device(*local_plan(idx, mask, mesh),
+                                    arrays.labels.device)
     return _eval_batches(
         task, state, (gather_batch(arrays, idx_d[i], mask_d[i])
                       for i in range(idx.shape[0])),
-        mask.reshape(-1) > 0)
+        mask.reshape(-1) > 0, mesh)
 
 
 def _model_device(state: TrainState) -> torch.device:
@@ -235,25 +353,37 @@ def _chunk_batches(chunks):
             yield gather_batch(chunk, idx_c[i], mask_c[i])
 
 
+def batch_part(batch_size: int, mesh: Optional[Mesh]):
+    """This rank's (first, last + 1) columns of a batch."""
+    if mesh is None or mesh.n_data == 1:
+        return None
+    k = batch_size // mesh.n_data
+    return (mesh.data_index * k, (mesh.data_index + 1) * k)
+
+
 def evaluate_streamed(task: Task, state: TrainState, arrays: HostArrays,
-                      batch_size: int, stream_chunk_batches: int = 0
-                      ) -> EvalResult:
+                      batch_size: int, stream_chunk_batches: int = 0,
+                      mesh: Optional[Mesh] = None) -> EvalResult:
     """`evaluate` over a HostArrays split without a whole copy of it on the
     device: per batch (`prefetch_batches`; the last batch padded with its
     last row), or with `stream_chunk_batches` > 1 in chunks of the
-    resident plan (`prefetch_chunks`)."""
+    resident plan (`prefetch_chunks`); with `mesh` each rank stages its
+    rows alone."""
     if arrays.n == 0:
         return _empty_eval()
+    check_divides(batch_size, mesh, "eval batch size")
     device = _model_device(state)
     idx, mask = epoch_indices(arrays.n, batch_size, shuffle=False, seed=0,
                               epoch=0)
     if stream_chunk_batches > 1:
         batches = _chunk_batches(prefetch_chunks(
-            arrays, idx, mask, stream_chunk_batches, device=device))
+            arrays, *local_plan(idx, mask, mesh), stream_chunk_batches,
+            device=device))
     else:
         batches = prefetch_batches(arrays, batch_size, shuffle=False,
-                                   seed=0, epoch=0, device=device)
-    return _eval_batches(task, state, batches, mask.reshape(-1) > 0)
+                                   seed=0, epoch=0, device=device,
+                                   part=batch_part(batch_size, mesh))
+    return _eval_batches(task, state, batches, mask.reshape(-1) > 0, mesh)
 
 
 class Preempted(RuntimeError):
@@ -295,6 +425,7 @@ def fit(
     verbose: bool = True,
     train_sample_weights: Optional[np.ndarray] = None,
     keep_best: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> FitResult:
     """The reference's epoch loop (train.py:55-167) from `state.epoch` to
     `cfg.num_epochs`. With `keep_best`, `FitResult.best_state` is a
@@ -304,7 +435,13 @@ def fit(
     stops. With `cfg.debug_nans`
     a non-finite loss or gradient raises FloatingPointError, and torch's
     anomaly detection is on for the fit (naming the backward that made a
-    NaN); its previous setting is restored when fit returns or raises."""
+    NaN); its previous setting is restored when fit returns or raises.
+    With `mesh` every rank calls fit on the same arguments (the module's
+    docstring); the state is placed on the mesh's model axis first
+    (`tp.place_state`)."""
+    check_divides(cfg.batch_size, mesh, "batch size")
+    check_divides(cfg.eval_bs, mesh, "eval batch size")
+    tp.place_state(state, mesh)
     prev_anomaly = torch.is_anomaly_enabled()
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -320,17 +457,29 @@ def fit(
     try:
         return _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt,
                          writer, log_prefix, verbose, train_sample_weights,
-                         preempted, keep_best)
+                         preempted, keep_best, mesh)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
         torch.autograd.set_detect_anomaly(prev_anomaly)
 
 
+def _stop_everywhere(flag: bool, mesh: Optional[Mesh], device) -> bool:
+    """True when any rank of the run saw SIGTERM (one all-reduce)."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([1.0 if flag else 0.0], device=device)
+    return bool(collectives.all_reduce_(t, dist.group.WORLD).item() > 0)
+
+
 def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
               log_prefix, verbose, train_sample_weights,
-              preempted, keep_best=False) -> FitResult:
+              preempted, keep_best=False, mesh=None) -> FitResult:
     device = _model_device(state)
+    verbose = verbose and (mesh is None or mesh.is_writer)
+    part = batch_part(cfg.batch_size, mesh)
     streamed = isinstance(train_arrays, HostArrays)
     chunked = streamed and cfg.stream_chunk_batches > 1
     history: List[Dict[str, float]] = []
@@ -345,6 +494,7 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
             epoch=epoch, sample_weights=train_sample_weights,
         )
         n_batches = idx.shape[0]
+        idx, mask = local_plan(idx, mask, mesh)
         stream_stats: Dict[str, float] = {}
         if chunked:
             batches = _chunk_batches(prefetch_chunks(
@@ -354,12 +504,12 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
             batches = prefetch_batches(
                 train_arrays, cfg.batch_size, shuffle=True, seed=cfg.seed,
                 epoch=epoch, device=device,
-                sample_weights=train_sample_weights)
+                sample_weights=train_sample_weights, part=part)
         else:
             idx_d, mask_d = _plan_on_device(idx, mask, device)
             batches = (gather_batch(train_arrays, idx_d[i], mask_d[i])
                        for i in range(n_batches))
-        step_mets = [train_step(task, state, batch, cfg.debug_nans)
+        step_mets = [train_step(task, state, batch, cfg.debug_nans, mesh)
                      for batch in batches]
         # one read of the device per epoch: the three sums, then the last
         # step's soft weights where the task has them
@@ -379,11 +529,13 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
         avg_train_loss = float(sums[0]) / max(n_batches, 1)
         train_acc = float(sums[1]) / max(float(sums[2]), 1.0)
 
+        # one process calls them as it did before meshes
+        on_mesh = {} if mesh is None else {"mesh": mesh}
         if isinstance(val_arrays, HostArrays):
             val = evaluate_streamed(task, state, val_arrays, cfg.eval_bs,
-                                    cfg.stream_chunk_batches)
+                                    cfg.stream_chunk_batches, **on_mesh)
         else:
-            val = evaluate(task, state, val_arrays, cfg.eval_bs)
+            val = evaluate(task, state, val_arrays, cfg.eval_bs, **on_mesh)
         epoch_time = time.perf_counter() - t0
 
         scalars = {
@@ -449,7 +601,8 @@ def _fit_loop(task, state, train_arrays, val_arrays, cfg, ckpt, writer,
                 and state.early_stop_counter >= cfg.patience):
             stopped_early = True
             break
-        if preempted["flag"]:
+        if _stop_everywhere(preempted["flag"], mesh, device):
+            preempted["flag"] = True
             break
 
     return FitResult(state=state, history=history, best_epoch=best_epoch,

@@ -21,6 +21,7 @@ from torch import nn
 
 from ecgmm_torch.config import TrainConfig
 from ecgmm_torch.models.layers import set_dropout_generator
+from ecgmm_torch.parallel import tp
 from ecgmm_torch.train.optim import Optimizer
 
 
@@ -36,9 +37,16 @@ class TrainState:
     lr_reduce_counter: int = 0
 
     def state_dict(self) -> Dict[str, Any]:
+        """Everything an exact resume needs; a tensor-parallel state
+        (`parallel/tp.place_state`) gathers its shards, a collective every
+        rank calls, so the format is the one-rank format."""
+        if tp.placement(self.model) is not None:
+            weights = tp.full_state_dict(self)
+        else:
+            weights = {"model": self.model.state_dict(),
+                       "optimizer": self.optimizer.state_dict()}
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            **weights,
             "generator": self.generator.get_state(),
             "step": self.step,
             "epoch": self.epoch,
@@ -48,8 +56,11 @@ class TrainState:
         }
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        self.model.load_state_dict(sd["model"], strict=True)
-        self.optimizer.load_state_dict(sd["optimizer"])
+        if tp.placement(self.model) is not None:
+            tp.load_full_state_dict(self, sd)
+        else:
+            self.model.load_state_dict(sd["model"], strict=True)
+            self.optimizer.load_state_dict(sd["optimizer"])
         self.generator.set_state(sd["generator"])
         for k in ("step", "epoch", "early_stop_counter",
                   "lr_reduce_counter"):

@@ -42,6 +42,7 @@ from ecgmm_torch.data import pipeline
 from ecgmm_torch.models import ECGMultimodalModel, ResNet18, ResNet1DSE
 from ecgmm_torch.models.clinical import ClinicalMLPEncoder, TabNetEncoder
 from ecgmm_torch.models.layers import flax_init_
+from ecgmm_torch.parallel.mesh import init_distributed, make_mesh
 from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.tools.weights import load_partial
 from ecgmm_torch.train import embed, engine
@@ -61,19 +62,23 @@ WARM_START_FILTERS = {
 
 
 def _fit_stage(model, task, data, tcfg, ckpt_dir, device,
-               verbose=True) -> Dict[str, torch.Tensor]:
+               verbose=True, mesh=None) -> Dict[str, torch.Tensor]:
     """Train `model` (initialised like flax from `tcfg.seed`) on `data`
     and return the state dict of its best checkpoint (its last state where
-    no epoch improved)."""
+    no epoch improved), unsharded."""
     flax_init_(model, torch.Generator().manual_seed(tcfg.seed))
     state = create_state(model.to(device), tcfg,
                          pipeline.num_batches(data.train.n, tcfg.batch_size))
-    ckpt = CheckpointManager(ckpt_dir)
+    ckpt = CheckpointManager(ckpt_dir, writer=_writes(mesh))
     result = engine.fit(task, state, data.train, data.val, tcfg, ckpt=ckpt,
-                        verbose=verbose)
+                        verbose=verbose, mesh=mesh)
     if ckpt.exists("best"):
         ckpt.restore("best", result.state)
-    return result.state.model.state_dict()
+    return result.state.state_dict()["model"]
+
+
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.is_writer
 
 
 def warm_start_fusion(
@@ -101,17 +106,19 @@ def warm_start_fusion(
 
 def run_pipeline(cfg: Config, data: pipeline.MaterializedData, run_dir: str,
                  stage_epochs: Optional[int] = None, verbose: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """image -> signal -> clinical -> warm-started frozen-encoder fusion,
     on `device` (where `data` lies), with TF32 off. Each stage
     checkpoints under `run_dir/<stage>`; returns (the fusion stage's
-    FitResult, its EvalResult on the test split)."""
+    FitResult, its EvalResult on the test split). With `mesh` every stage
+    trains over its ranks (`engine.fit(mesh=)`)."""
     with no_tf32():
         return _pipeline(cfg, data, run_dir, stage_epochs, verbose,
-                         run_lib._device(device))
+                         run_lib._device(device), mesh)
 
 
-def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device):
+def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device, mesh=None):
+    verbose = verbose and _writes(mesh)
     t = cfg.train
     st = dataclasses.replace(t, num_epochs=stage_epochs or t.num_epochs,
                              freeze_encoders=False)
@@ -131,7 +138,8 @@ def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device):
     st_img = stage_cfg("image_only")
     image_sd = _fit_stage(
         ResNet18(num_classes=mcfg.num_classes), make_image_task(st_img),
-        data, st_img, os.path.join(run_dir, "image_only"), device, verbose)
+        data, st_img, os.path.join(run_dir, "image_only"), device, verbose,
+        mesh)
 
     # 2. signal-only ResNet1D-SE (train_signal_only.py)
     st_sig = stage_cfg("signal_only")
@@ -140,7 +148,7 @@ def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device):
                    input_channels=mcfg.signal_input_channels,
                    base_filters=mcfg.signal_base_filters),
         make_signal_task(st_sig), data, st_sig,
-        os.path.join(run_dir, "signal_only"), device, verbose)
+        os.path.join(run_dir, "signal_only"), device, verbose, mesh)
 
     # 3. the clinical encoder under a linear probe
     n_clin = data.train.clinical.shape[-1]
@@ -150,7 +158,8 @@ def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device):
         enc = ClinicalMLPEncoder(n_clin, out_dim=mcfg.clinical_dim)
     clin_task, probe = make_clinical_task(enc, st, mcfg.num_classes)
     probe_sd = _fit_stage(probe, clin_task, data, st,
-                          os.path.join(run_dir, "clinical"), device, verbose)
+                          os.path.join(run_dir, "clinical"), device, verbose,
+                          mesh)
     clinical_sd = {k[len("encoder."):]: v for k, v in probe_sd.items()
                    if k.startswith("encoder.")}
 
@@ -162,14 +171,19 @@ def _pipeline(cfg, data, run_dir, stage_epochs, verbose, device):
     state = create_state(
         model.to(device), t, pipeline.num_batches(data.train.n, t.batch_size),
         freeze=encoder_freeze_predicate if t.freeze_encoders else None)
+    from ecgmm_torch.parallel import tp
+
+    tp.place_state(state, mesh)
     data, task = embed.cache_run_splits(state, data, t,
-                                        frozen=t.freeze_encoders)
+                                        frozen=t.freeze_encoders, mesh=mesh)
     task = task or make_fusion_task(t)
     result = engine.fit(task, state, data.train, data.val, t,
                         ckpt=CheckpointManager(os.path.join(run_dir,
-                                                            "fusion")),
-                        verbose=verbose)
-    return result, engine.evaluate(task, result.state, data.test, t.eval_bs)
+                                                            "fusion"),
+                                               writer=_writes(mesh)),
+                        verbose=verbose, mesh=mesh)
+    return result, engine.evaluate(task, result.state, data.test, t.eval_bs,
+                                   mesh=mesh)
 
 
 def main(argv=None):
@@ -183,15 +197,24 @@ def main(argv=None):
                         "the frozen encoders compute once per split")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--n-model", type=int, default=None,
+                   help="model-axis size of the torchrun ranks' mesh "
+                        "(>1: tensor-parallel)")
     args = p.parse_args(argv)
 
     cfg = run_lib.apply_train_overrides(
         get_preset("fusion"), epochs=args.epochs,
         cache_embeddings=args.cache_embeddings)
+    if args.n_model is not None:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, n_model=args.n_model))
     device = run_lib._device(args.device)
+    device = init_distributed(device=args.device) or device
+    mesh = make_mesh(cfg.mesh, device)
     data = run_lib.load_data(cfg, "synthetic", args.n_synth, device=device)
-    _, ev = run_pipeline(cfg, data, args.run_dir, device=device)
-    print(f"fusion test accuracy: {ev.accuracy:.4f}")
+    _, ev = run_pipeline(cfg, data, args.run_dir, device=device, mesh=mesh)
+    if _writes(mesh):
+        print(f"fusion test accuracy: {ev.accuracy:.4f}")
 
 
 if __name__ == "__main__":

@@ -42,6 +42,17 @@ Checkpoints go to `--run-dir` (default `./checkpoints/<stamp>`), the
 metric log to `./runs/<stamp>/metrics.jsonl` and the reports to
 `./output/<stamp>/`: `report_{best,last}.txt`, `confusion_{best,last}.png`
 and, for two classes, `roc_{best,last}.png`.
+
+Under torchrun the run spreads over the ranks, one card each, over NCCL
+(`parallel/mesh.init_distributed`): `n_data = world / n_model`, and
+`--n-model k` trains tensor-parallel over a (data, model) mesh:
+
+    torchrun --standalone --nproc-per-node 8 -m ecgmm_torch.workloads.run \
+        --preset fusion [--n-model 2]
+
+Every rank computes what one process computes on the same global batch
+(`train/engine.py`); rank 0 alone writes the checkpoints, the metric log
+and the reports. With `--device cpu` the ranks join over gloo.
 """
 
 from __future__ import annotations
@@ -62,6 +73,8 @@ from ecgmm_torch.models import (CRNN, ECGMultimodalModel, ECGTransformer1D,
                                 ResNet18, ResNet1DSE)
 from ecgmm_torch.models.crnn import lstm_bias_frozen
 from ecgmm_torch.models.layers import flax_init_
+from ecgmm_torch.parallel import collectives
+from ecgmm_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from ecgmm_torch.precision import no_tf32
 from ecgmm_torch.train import calibrate, embed, engine
 from ecgmm_torch.train.checkpoint import CheckpointManager
@@ -296,7 +309,7 @@ def ptbxl_sample_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:
 
 def run(cfg: Config, data: pipeline.MaterializedData,
         run_dir: Optional[str] = None, verbose: bool = True,
-        resume: bool = False, device="cuda"):
+        resume: bool = False, device="cuda", mesh: Optional[Mesh] = None):
     """Train the preset on `data` (materialised for `device`), then run the
     best/last test protocol, with TF32 off (`no_tf32`). Splits over the
     device-memory budget (`pipeline.resolve_hbm_budget`) stay on the host
@@ -306,10 +319,12 @@ def run(cfg: Config, data: pipeline.MaterializedData,
     `fusion_cached` preset) the frozen encoders' BatchNorm statistics are
     first calibrated on the train split, each split is encoded once, and
     training and the test protocol run the fusion head task over the
-    cached splits (`train/embed.py`). Returns (FitResult, {tag:
+    cached splits (`train/embed.py`). With `mesh` every rank of it calls
+    run on the same data; rank 0 writes. Returns (FitResult, {tag:
     metrics})."""
     with no_tf32():
-        return _run(cfg, data, run_dir, verbose, resume, _device(device))
+        return _run(cfg, data, run_dir, verbose, resume, _device(device),
+                    mesh)
 
 
 def _labels_np(arrays) -> np.ndarray:
@@ -318,7 +333,19 @@ def _labels_np(arrays) -> np.ndarray:
         else np.asarray(labels)
 
 
-def _run(cfg, data, run_dir, verbose, resume, device):
+def _shared_stamp(mesh: Optional[Mesh]) -> str:
+    """The run's time stamp, rank 0's on every rank."""
+    stamp = time.strftime("%m%d_%H%M%S")
+    if mesh is None or mesh.size == 1:
+        return stamp
+    import torch.distributed as dist
+
+    return collectives.all_gather_objects(stamp, dist.group.WORLD)[0]
+
+
+def _run(cfg, data, run_dir, verbose, resume, device, mesh=None):
+    writes = mesh is None or mesh.is_writer
+    verbose = verbose and writes
     for name in ("train", "val", "test"):
         labels = getattr(data, name).labels
         if isinstance(labels, torch.Tensor) and \
@@ -330,19 +357,24 @@ def _run(cfg, data, run_dir, verbose, resume, device):
         raise ValueError("resume=True requires run_dir (the directory "
                          "holding the checkpoints to continue from)")
     stamp = (os.path.basename(os.path.normpath(run_dir)) if run_dir
-             else time.strftime("%m%d_%H%M%S"))
+             else _shared_stamp(mesh))
     run_dir = run_dir or os.path.join(t.checkpoint_dir, stamp)
 
     model, task, freeze = build_model_and_task(cfg, device)
     state = create_state(model, t,
                          pipeline.num_batches(data.train.n, t.batch_size),
                          freeze=freeze)
-    ckpt = CheckpointManager(run_dir, keep_epochs=t.keep_checkpoints)
+    ckpt = CheckpointManager(run_dir, keep_epochs=t.keep_checkpoints,
+                             writer=writes)
+    from ecgmm_torch.parallel import tp
+
+    tp.place_state(state, mesh)
     if resume and ckpt.exists("last"):
         ckpt.restore("last", state)
         if verbose:
             print(f"resumed from {run_dir} at epoch {state.epoch}")
-    writer = MetricWriter(os.path.join(t.log_dir, stamp))
+    writer = MetricWriter(os.path.join(t.log_dir, stamp)) if writes \
+        else None
     try:
         budget = pipeline.resolve_hbm_budget(device)
         if budget:
@@ -359,7 +391,8 @@ def _run(cfg, data, run_dir, verbose, resume, device):
                     print(f"streaming in chunks of {t.stream_chunk_batches} "
                           "batches")
         data, head_task = embed.cache_run_splits(state, data, t,
-                                                 frozen=t.freeze_encoders)
+                                                 frozen=t.freeze_encoders,
+                                                 mesh=mesh)
         task = head_task or task
         weights = None
         if cfg.name == "ptbxl_af":
@@ -367,7 +400,7 @@ def _run(cfg, data, run_dir, verbose, resume, device):
                                            cfg.model.num_classes)
         result = engine.fit(task, state, data.train, data.val, t, ckpt=ckpt,
                             writer=writer, verbose=verbose,
-                            train_sample_weights=weights)
+                            train_sample_weights=weights, mesh=mesh)
 
         # Test protocol: best then last; the temperature is fit on the val
         # split of each restored state and only reported against test.
@@ -377,12 +410,13 @@ def _run(cfg, data, run_dir, verbose, resume, device):
             st = ckpt.restore(tag, result.state) if ckpt.exists(tag) \
                 else result.state
             ev = engine.evaluate(task, st, data.test, t.eval_bs,
-                                 t.stream_chunk_batches)
-            results[tag] = test_report(ev.logits, ev.labels, out_dir, tag,
+                                 t.stream_chunk_batches, mesh=mesh)
+            results[tag] = test_report(ev.logits, ev.labels,
+                                       out_dir if writes else None, tag,
                                        threshold_search=(t.loss == "focal"))
             if data.val.n > 0:
                 vev = engine.evaluate(task, st, data.val, t.eval_bs,
-                                      t.stream_chunk_batches)
+                                      t.stream_chunk_batches, mesh=mesh)
                 temp = calibrate.fit_temperature(vev.logits, vev.labels)
                 temperatures[tag] = temp
                 results[tag].update(temperature=round(temp, 4))
@@ -404,7 +438,8 @@ def _run(cfg, data, run_dir, verbose, resume, device):
                 "temperature_last": float(temperatures.get("last", 1.0)),
             })
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return result, results
 
 
@@ -420,6 +455,14 @@ def apply_train_overrides(cfg: Config, epochs=None, batch_size=None,
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **overrides))
     return cfg
+
+
+def _barrier() -> None:
+    """Wait for every rank of the run (none without a process group)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def split_fingerprint(args, cfg: Config) -> dict:
@@ -467,6 +510,10 @@ def main(argv=None):
                    help="continue from --run-dir's last checkpoint")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--n-model", type=int, default=None,
+                   help="model-axis size: >1 trains tensor-parallel "
+                        "(column-sharded weights, parallel/tp.py) over a "
+                        "(data, model) mesh of the torchrun ranks")
     args = p.parse_args(argv)
 
     cfg = apply_train_overrides(get_preset(args.preset), epochs=args.epochs,
@@ -480,24 +527,34 @@ def main(argv=None):
             physionet_dir=args.data_dir))
         if args.data == "synthetic":
             args.data = "hospital"  # an explicit --data-dir is real data
+    if args.n_model is not None:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, n_model=args.n_model))
     device = _device(args.device)
-    fingerprint = split_fingerprint(args, cfg)
-    if args.split_cache and pipeline.has_materialized(args.split_cache):
-        data = pipeline.load_materialized(args.split_cache, device=device,
-                                          expect_meta=fingerprint)
-        print(f"reopened materialized splits from {args.split_cache}")
+    device = init_distributed(device=args.device) or device
+    mesh = make_mesh(cfg.mesh, device)
+    if not args.split_cache:
+        data = load_data(cfg, args.data, args.n_synth, device=device)
     else:
-        # with a cache the splits stay on the host until saved, then
-        # reopen through the same memory-mapped path later runs take
-        data = load_data(cfg, args.data, args.n_synth,
-                         device=None if args.split_cache else device)
-        if args.split_cache:
-            pipeline.save_materialized(data, args.split_cache,
-                                       meta=fingerprint)
-            print(f"saved materialized splits to {args.split_cache}")
-            data = pipeline.load_materialized(args.split_cache,
-                                              device=device)
-    run(cfg, data, run_dir=args.run_dir, resume=args.resume, device=device)
+        fingerprint = split_fingerprint(args, cfg)
+        cached = pipeline.has_materialized(args.split_cache)
+        _barrier()  # every rank has looked before the writer writes
+        if not cached:
+            # the splits stay on the host until saved; then every rank
+            # reopens them through the memory-mapped path later runs take
+            if mesh.is_writer:
+                pipeline.save_materialized(
+                    load_data(cfg, args.data, args.n_synth, device=None),
+                    args.split_cache, meta=fingerprint)
+                print(f"saved materialized splits to {args.split_cache}")
+            _barrier()
+        data = pipeline.load_materialized(
+            args.split_cache, device=device,
+            expect_meta=fingerprint if cached else None)
+        if cached and mesh.is_writer:
+            print(f"reopened materialized splits from {args.split_cache}")
+    run(cfg, data, run_dir=args.run_dir, resume=args.resume, device=device,
+        mesh=mesh)
 
 
 if __name__ == "__main__":

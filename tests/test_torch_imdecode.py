@@ -344,7 +344,7 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
         (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC3), "lossless JPEG"),
         (b"not an image", "not a decodable image"),
         (_jpeg(img)[:300], "not a decodable image"),
-        (b"GIF89a" + b"\x00" * 20, "not a JPEG or PNG"),
+        (b"GIF89a" + b"\x00" * 20, "not a JPEG, PNG or BMP"),
     ]
     three = bytearray(write_png(img[:, :, :1], 0, 0))
     ihdr = three.index(b"IHDR")
@@ -558,3 +558,104 @@ def test_strip_fixture_is_the_cohort_strip():
     assert got.shape == strip.shape
     err = np.abs(got.astype(np.int64) - strip.astype(np.int64))
     assert err.mean() < 3.0
+
+
+def _bmp(rows, bpp, width, palette=None, top_down=False, core=False,
+         colors=None):
+    """A BMP file by hand: `rows` (height, bytes) of packed pixels top row
+    first, padded here to 4 bytes; a BITMAPCOREHEADER (3-byte palette
+    entries) with `core`, else a BITMAPINFOHEADER (4-byte entries)."""
+    height = len(rows)
+    stride = (width * bpp + 31) // 32 * 4
+    body = b"".join(bytes(r) + b"\x00" * (stride - len(r))
+                    for r in (rows if top_down else rows[::-1]))
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes(c[::-1]) + (b"" if core else b"\x00")
+                       for c in palette)
+    if core:
+        dib = struct.pack("<IHHHH", 12, width, height, 1, bpp)
+    else:
+        dib = struct.pack("<IiiHHIIiiII", 40, width,
+                          -height if top_down else height, 1, bpp, 0,
+                          len(body), 2835, 2835,
+                          colors if colors is not None else 0, 0)
+    offset = 14 + len(dib) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + dib + pal + body)
+
+
+def _packed(index, bpp):
+    """Rows of palette indices packed `bpp` bits a pixel, high bits
+    first."""
+    if bpp == 8:
+        return [bytes(r) for r in index]
+    per = 8 // bpp
+    out = []
+    for r in index:
+        r = list(r) + [0] * (-len(r) % per)
+        out.append(bytes(sum(v << (8 - bpp * (j + 1))
+                             for j, v in enumerate(r[i:i + per]))
+                         for i in range(0, len(r), per)))
+    return out
+
+
+@pytest.mark.parametrize("top_down", [False, True])
+@pytest.mark.parametrize("core", [False, True])
+@pytest.mark.parametrize("bpp", [1, 4, 8, 24, 32])
+def test_bmp_bit_equal_to_pillow(bpp, core, top_down):
+    """Uncompressed BMP at every bit depth the decoder reads, bottom-up
+    and top-down (a BITMAPCOREHEADER has no sign: bottom-up only), built
+    by hand and held bit for bit against Pillow's `.convert("RGB")`; a
+    palette index beyond the file's colours is black in both."""
+    if core and top_down:
+        top_down = False
+    rng = np.random.default_rng(bpp)
+    width, height = 13, 6
+    if bpp >= 24:
+        rgb = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+        k = bpp // 8
+        px = np.zeros((height, width, k), np.uint8)
+        px[..., :3] = rgb[..., ::-1]
+        if k == 4:
+            px[..., 3] = rng.integers(0, 256, (height, width))
+        data = _bmp([r.tobytes() for r in px.reshape(height, -1)], bpp,
+                    width, top_down=top_down, core=core)
+    else:
+        # a core header has no count: its palette holds 2 ** bpp colours
+        n = 1 << bpp if core else min(1 << bpp, 12)
+        palette = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+        index = rng.integers(0, min(1 << bpp, n + 2), (height, width))
+        data = _bmp(_packed(index, bpp), bpp, width, palette=palette,
+                    top_down=top_down, core=core,
+                    colors=None if core else n)
+    np.testing.assert_array_equal(decode_upload(data), pillow(data))
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.size == (width, height)
+
+
+def test_bmp_saved_by_pillow_and_refusals(photo):
+    """Pillow's own BMP files (RGB, RGBA, palette, gray, 1-bit) decode
+    bit-equal; a compressed or 16-bit BMP and a header over the pixel
+    limit are refused, the last before any pixel is read."""
+    img = photo[:21, :37]
+    for mode in ("RGB", "RGBA", "P", "L", "1"):
+        im = Image.fromarray(img)
+        im = im.convert(mode) if mode != "P" else im.convert(
+            "P", palette=Image.ADAPTIVE, colors=16)
+        buf = io.BytesIO()
+        im.save(buf, format="BMP")
+        np.testing.assert_array_equal(decode_upload(buf.getvalue()),
+                                      pillow(buf.getvalue()))
+    good = bytearray(_bmp([b"\x00" * 6] * 2, 24, 2))
+    rle = bytearray(good)
+    rle[30:34] = struct.pack("<I", 1)
+    sixteen = bytearray(good)
+    sixteen[28:30] = struct.pack("<H", 16)
+    bomb = bytearray(good)
+    bomb[18:26] = struct.pack("<ii", 100000, 100000)
+    for data, want in ((rle, "compression 1"), (sixteen, "16-bit BMP"),
+                       (bomb, "decompression bomb"),
+                       (bytes(good[:40]), "truncated")):
+        with pytest.raises(BadRequest, match=want):
+            decode_upload(bytes(data))

@@ -5,7 +5,9 @@ has none), import without nvcc or a GPU, and their entry points do not
 fall back to the CPU. The scan and the blocked import walk every module
 of the package, the explainers of `ecgmm_torch/explain/` and the XAI CLI,
 the record readers and writers of the real-data path and the CV
-harnesses (`train/cv.py`, `train/cv_parallel.py`) among them."""
+harnesses (`train/cv.py`, `train/cv_parallel.py`), the parallel package
+(`parallel/*`) and the collective report (`tools/tp_report.py`) among
+them."""
 
 import ast
 import os
@@ -26,6 +28,8 @@ XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
 REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
                      "data.preprocess", "tools.records", "train.report",
                      "train.cv", "train.cv_parallel", "data.splits")
+PARALLEL_MODULES = ("parallel.collectives", "parallel.mesh",
+                    "parallel.launch", "parallel.tp", "tools.tp_report")
 
 
 def _port_files():
@@ -40,7 +44,7 @@ def test_no_forbidden_import_in_source():
     for name in XAI_MODULES:
         assert os.path.join(REPO, "ecgmm_torch", "explain",
                             f"{name}.py") in files
-    for name in REAL_DATA_MODULES:
+    for name in REAL_DATA_MODULES + PARALLEL_MODULES:
         assert os.path.join(REPO, "ecgmm_torch",
                             *name.split(".")) + ".py" in files
     bad = []
@@ -75,7 +79,7 @@ def test_imports_with_jax_blocked():
         assert all(f"ecgmm_torch.explain.{{n}}" in mods
                    for n in {XAI_MODULES!r})
         assert all(f"ecgmm_torch.{{n}}" in mods
-                   for n in {REAL_DATA_MODULES!r})
+                   for n in {REAL_DATA_MODULES + PARALLEL_MODULES!r})
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         mod = importlib.util.module_from_spec(spec)
