@@ -127,10 +127,33 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      launches of each against its plan (each kernel once per vmapped op,
      never once per fold); `python -m ecgmm_torch.train.cv` nested,
      nested --fold-parallel --cache-embeddings, exhaustive --k 10
-     --fold-parallel --cache-embeddings and cross --pth in four
+     --max-pairs 30 --fold-parallel --cache-embeddings and cross --pth in four
      subprocesses at once (finite summaries, wall times); the peak memory
      of raw `fusion` and `signal_only` waves at two wave sizes and the
      rows cap it gives;
+  13. (run after phase 12) parallel (`run_parallel_phase`): torchrun,
+     data and tensor parallelism, mesh serving, the fold program over the
+     data axis, each rank's launches against its plan;
+  14. (run after phase 13) the AOT bundle and the tools
+     (`run_bundle_phase`): (a) the full-width demo pipeline exported with
+     `serve/export.export_bundle` for the card (b = 1 and bucket 8) and
+     the CPU (b = 1; trace, export and save seconds, bytes, each saved
+     program's `ecgmm.*` nodes against the serving plan); (b)
+     `ServingPipeline.from_exported(device="cuda")` answers 8 requests,
+     interleaved with the live pipeline, each answer within
+     tests/test_export.py's bars of the live one, the launch counters up
+     by the plan at every dispatch, the request split of both; (c) the
+     HTTP server on the bundle, 16 clients batched over bucket 8, the
+     launches equal to the dispatches times the plan, a response against
+     the unbatched bundle's, `--n-data 2 --bundle` refused; (d) the CPU
+     program against the live CPU pipeline; (e) `train/profiler.trace`
+     around a warm-up and 3 counted `ptbxl_af` steps at B=16,
+     `tools/trace_report`'s kernel launches of the counted steps equal
+     to the counters, `StepTimer`, the memory stats and
+     one step's FLOPs; (f) a checkpoint through `convert_pth --export`,
+     the import direction and the codec back to a bit-equal state dict,
+     `cv cross --ckpt x.msgpack`, `digitize_batch` over 8 strips and one
+     rows-cap probe trial of 256 rows in a child process;
   7. numbers: train-step times (CUDA events) of `ptbxl_af` at B=16,
      `fusion` and `fusion_cached` (head steps, after a timed calibration
      and encoding of the train split) at B=16 and 256, `image_only` at
@@ -175,6 +198,7 @@ from ecgmm_torch import native  # noqa: E402
 from ecgmm_torch.config import get_preset  # noqa: E402
 from ecgmm_torch.data import (  # noqa: E402
     pipeline, preprocess, splits, synthetic)
+from ecgmm_torch.data.sources import read_csv  # noqa: E402
 from ecgmm_torch.data.synthetic import _render_strip  # noqa: E402
 from ecgmm_torch.explain import run_xai  # noqa: E402
 from ecgmm_torch.explain.deep_shap import explain_fusion_deep  # noqa: E402
@@ -207,6 +231,11 @@ from ecgmm_torch.tools import fusion_rounding  # noqa: E402
 from ecgmm_torch.tools import grad_precision as gp  # noqa: E402
 from ecgmm_torch.tools import serve_hammer  # noqa: E402
 from ecgmm_torch.tools.kernel_times import device_us, host_us  # noqa: E402
+from ecgmm_torch.tools import convert_pth, digitize_batch  # noqa: E402
+from ecgmm_torch.tools import trace_report  # noqa: E402
+from ecgmm_torch.tools.weights import from_jax_resnet1d_se  # noqa: E402
+from ecgmm_torch.serve import export as bundle_export_mod  # noqa: E402
+from ecgmm_torch.train import profiler as train_profiler  # noqa: E402
 from ecgmm_torch.train import (  # noqa: E402
     cv, cv_parallel, embed, engine)
 from ecgmm_torch.train.checkpoint import CheckpointManager  # noqa: E402
@@ -3924,8 +3953,9 @@ def compare_fold_program(name, cfg, cohort, folds, smi, raw_arrays=None,
 def run_cv_cli(smi, tmp):
     """Phase 12.3: the CV CLI in four subprocesses at once on a synthetic
     cohort of CV_CLI_N records, 2 epochs: nested (sequential), nested
-    --fold-parallel --cache-embeddings, exhaustive --k 10 (90 pairs)
-    --fold-parallel --cache-embeddings, and cross --pth on a ResNet1D-SE
+    --fold-parallel --cache-embeddings, exhaustive --k 10 (30 of its 90
+    pairs, to keep the script's time) --fold-parallel
+    --cache-embeddings, and cross --pth on a ResNet1D-SE
     state dict written here by torch.save. Each summary must be finite
     JSON; prints each run's wall time."""
     pth = os.path.join(tmp, "resnet1d_se.pth")
@@ -3939,8 +3969,9 @@ def run_cv_cli(smi, tmp):
         "nested_fold_parallel": ["nested", "--preset", "fusion", *common,
                                  "--fold-parallel", "--cache-embeddings"],
         "exhaustive_fold_parallel": [
-            "exhaustive", "--preset", "fusion", "--k", "10", *common,
-            "--fold-parallel", "--cache-embeddings"],
+            "exhaustive", "--preset", "fusion", "--k", "10",
+            "--max-pairs", "30", *common, "--fold-parallel",
+            "--cache-embeddings"],
         "cross": ["cross", "--pth", pth, "--n-synth", "64", "--device",
                   CV_DEVICE],
     }
@@ -4499,6 +4530,321 @@ def run_parallel_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+BUNDLE_BUCKETS = (8,)  # the bundle's batched program; b = 1 always
+
+
+def _export_bars(where, a, b):
+    """`tests/test_export.py`'s bars: label equal; probability rtol 1e-4,
+    atol 1e-5; each feature importance rtol 1e-3, atol 1e-4;
+    `ecg_signal` equal; the same keys."""
+    ok = (a["label"] == b["label"] and set(a) == set(b)
+          and a["ecg_signal"] == b["ecg_signal"]
+          and np.isclose(a["probability"], b["probability"], rtol=1e-4,
+                         atol=1e-5)
+          and all(np.isclose(a["feature_importance"][k],
+                             b["feature_importance"][k], rtol=1e-3,
+                             atol=1e-4)
+                  for k in ("image", "signal", "age", "wt")))
+    if not ok:
+        raise AssertionError(
+            f"{where}: the bundle's answer misses the export bars: "
+            f"{a['label']}/{b['label']} p {a['probability']}/"
+            f"{b['probability']} importance {a['feature_importance']}/"
+            f"{b['feature_importance']}")
+
+
+def bundle_export(pipe, out, smi):
+    """(a) The full-width demo pipeline exported into one bundle for the
+    card and the CPU, each at b = 1 and bucket 8; each program's trace,
+    export and save seconds and bytes, and its `ecgmm.*` nodes against
+    the plan. The host's load and this process's children are printed
+    first: the export is host work."""
+    children = sum(1 for d in os.listdir("/proc") if d.isdigit()
+                   and _ppid(d) == os.getpid())
+    print(f"phase 14 host: load average {os.getloadavg()}, {children} "
+          f"child processes; torch {torch.__version__}", flush=True)
+    t0 = time.perf_counter()
+    bundle_export_mod.export_bundle(pipe, out, platforms=("cpu", "cuda"),
+                                    batch_buckets=BUNDLE_BUCKETS)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "meta.json")) as f:
+        meta = json.load(f)
+    if meta["platforms"] != ["cpu", "cuda"]:
+        raise AssertionError(f"the bundle's platforms {meta['platforms']}")
+    for name, prog in sorted(meta["programs"].items()):
+        graph = torch.export.load(os.path.join(out, name)).graph
+        nodes = bundle_export_mod.operator_counts(graph)
+        print(f"phase 14 export {name}: trace {prog['trace_s']:.3f} s, "
+              f"export {prog['export_s']:.3f} s, save {prog['save_s']:.3f} "
+              f"s, {prog['bytes']} bytes, nodes {nodes} ({smi})", flush=True)
+        if nodes != bundle_export_mod.SERVE_PLAN:
+            raise AssertionError(f"{name}: {nodes} != the serving plan")
+    print(f"phase 14 export wall {wall:.3f} s for "
+          f"{len(meta['programs'])} programs ({smi})", flush=True)
+
+
+def _ppid(pid: str) -> int:
+    """The parent of process `pid` (0 where it has gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return int(f.read().rsplit(")", 1)[1].split()[1])
+    except (OSError, IndexError, ValueError):
+        return 0
+
+
+def bundle_requests(bundle, live, smi):
+    """(b) The bundle on the card against the live pipeline: 8 requests,
+    interleaved (live, bundle) so that both see the same host; each answer
+    within the export bars, the launch counters up by the plan at every
+    bundle dispatch; the request split's medians of each."""
+    aot = ServingPipeline.from_exported(bundle, device="cuda")
+    if aot.model is not None:
+        raise AssertionError("from_exported rehydrated a model")
+    reqs = make_requests(8, seed=1)
+    live.predict(*reqs[0])
+    aot.predict(*reqs[0])
+    torch.cuda.synchronize()
+    times = {"bundle": [], "live": []}
+    launched = dict(NO_LAUNCHES)
+    for img, q, fmt in reqs:
+        want = live.predict(img, q, fmt)
+        times["live"].append(dict(live.last_timing))
+        _zero_launch_counts()
+        got = aot.predict(img, q, fmt)
+        counts = _launch_counts()
+        times["bundle"].append(dict(aot.last_timing))
+        plan = {k: n for k, n in SERVE_PLAN.items()}
+        if counts != plan:
+            raise AssertionError(f"a bundle dispatch launched {counts}, "
+                                 f"not the plan {plan}")
+        launched = {k: launched[k] + counts[k] for k in launched}
+        check_response(got, fmt)
+        _export_bars("bundle vs live on the card", got, want)
+    split = {}
+    for who, ts in times.items():
+        split[who] = {k: statistics.median(t[k] for t in ts)
+                      for k in ("total_ms", "host_before_ms", "device_ms",
+                                "host_after_ms")}
+        print(f"phase 14 request p50 {who}: {split[who]} (8 requests, "
+              f"interleaved; {smi})", flush=True)
+    print(f"phase 14 bundle launches over 8 requests: {launched}",
+          flush=True)
+    return aot, launched, split
+
+
+def bundle_http(bundle, smi):
+    """(c) `--bundle` over HTTP: 16 clients, batching on over the bundle's
+    bucket 8; a response against the unbatched bundle's answer to the
+    same upload, the launches equal to the dispatches times the plan; and
+    `--n-data 2 --bundle` refused with JAX's message."""
+    plain = ServingPipeline.from_exported(bundle, device="cuda")
+    served = ServingPipeline.from_exported(bundle, device="cuda")
+    served.enable_batching(HTTP_WINDOW_MS, max_batch=max(BUNDLE_BUCKETS))
+    served.warmup()
+    served.warmup_batched()
+    httpd = serve_http.serve(served, port=0, background=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        before = served.stats()["batching"]["dispatches"]
+        _zero_launch_counts()
+        res = hammer_window(base + ENDPOINT, 16, 3.0, served)
+        launches = _launch_counts()
+        dispatches = served.stats()["batching"]["dispatches"] - before
+        body, ctype = serve_hammer.request_body("png")
+        got = json.loads(serve_hammer._post(base + ENDPOINT, body, ctype))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        served.close_batching()
+    with open(serve_hammer.STRIP_JPEG, "rb") as f:
+        img = decode_upload(f.read())
+    _export_bars("bundle over HTTP, batched vs unbatched", got,
+                 plain.predict(img, {"age": 66, "weight": 72}))
+    print(f"phase 14 http --bundle 16 clients batched (bucket "
+          f"{BUNDLE_BUCKETS}): {res['req_per_sec']:.3f} req/s, p50 "
+          f"{res['latency_median_ms']:.3f} ms, {res['requests']} requests "
+          f"in {dispatches} dispatches, launches {launches} ({smi})",
+          flush=True)
+    if launches != {k: n * dispatches for k, n in SERVE_PLAN.items()}:
+        raise AssertionError("the bundle's batched server did not run "
+                             "through the kernels' plan per dispatch")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            serve_http.main(["--bundle", bundle, "--n-data", "2",
+                             "--batch-window-ms", "5"])
+        except SystemExit:
+            pass
+        else:
+            raise AssertionError("--n-data 2 --bundle was not refused")
+    if "an AOT bundle is a fixed single-device program" not in \
+            err.getvalue():
+        raise AssertionError(f"--n-data 2 --bundle: {err.getvalue()!r}")
+    return launches
+
+
+def bundle_cpu(bundle, live):
+    """(d) The bundle's CPU program: one request against the live
+    pipeline's weights on the CPU."""
+    aot = ServingPipeline.from_exported(bundle, device="cpu")
+    img, q, fmt = make_requests(1, seed=5)[0]
+    got = aot.predict(img, q, fmt)
+    _export_bars("the CPU program vs the live CPU pipeline", got,
+                 _cpu_twin(live).predict(img, q, fmt))
+    print(f"phase 14 cpu program: label {got['label']} probability "
+          f"{got['probability']:.6f}", flush=True)
+
+
+def traced_train_steps(tmp, smi):
+    """(e) `profiler.trace` around 3 `ptbxl_af` steps at B=16: the trace
+    report's kernel launches equal the counters (SE and focal loss,
+    forward and backward); `StepTimer`'s samples/s, the memory stats and
+    the FLOPs of one step. Returns the model, its state and the launches."""
+    cfg = get_preset("ptbxl_af")
+    t = dataclasses.replace(cfg.train, batch_size=TRAIN_B)
+    data = train_run.load_data(cfg, "synthetic", 64, device="cuda")
+    model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
+    state = create_state(model, t, data.train.n // TRAIN_B, freeze=freeze)
+    idx, _ = engine.epoch_indices(data.train.n, TRAIN_B, shuffle=True,
+                                  seed=t.seed, epoch=0)
+    idx_d = torch.from_numpy(idx.astype(np.int64)).cuda()
+    ones = torch.ones(TRAIN_B, device="cuda")
+
+    def step(i):
+        return engine.train_step(task, state, engine.gather_batch(
+            data.train, idx_d[i % idx.shape[0]], ones))
+
+    with no_tf32():
+        timer = train_profiler.StepTimer(warmup=1, device="cuda")
+        for i in range(4):
+            with timer:
+                step(i)
+        flops = train_profiler.compiled_flops(step, 0)
+        logdir = os.path.join(tmp, "trace")
+        torch.cuda.synchronize()
+        # a warm-up step inside the trace, its kernels finished before
+        # the annotation closes: the counted steps' kernels start after
+        # it (a trace may miss kernels right after it starts)
+        with train_profiler.trace(logdir):
+            with torch.profiler.record_function("phase14_warmup"):
+                step(0)
+                torch.cuda.synchronize()
+            _zero_launch_counts()
+            for i in range(1, 4):
+                step(i)
+        launches = _launch_counts()
+    device = trace_report.load_device_events(logdir)
+    rows = trace_report.op_rows(trace_report.load_device_events(
+        logdir, after="phase14_warmup"))
+    print(f"phase 14 trace: {len(device)} device events, "
+          f"{len(device) - len(rows)} of them the warm-up step's",
+          flush=True)
+    seen = trace_report.launch_counts(rows)
+    want = {"se_fwd": launches["fused_se"],
+            "se_bwd": launches["fused_se_backward"],
+            "focal_fwd": launches["fused_focal_loss"],
+            "focal_bwd": launches["fused_focal_loss_backward"]}
+    print(f"phase 14 traced ptbxl_af: 3 steps B={TRAIN_B} after a warm-up "
+          f"step, trace report kernels {seen}, counters {launches}; "
+          f"{len(rows)} device events", flush=True)
+    if {k: seen.get(k, 0) for k in want} != want or not all(want.values()):
+        raise AssertionError(f"the trace report's launches {seen} differ "
+                             f"from the counters {want}")
+    trace_report.print_report(logdir, steps=3, top=8, after="phase14_warmup")
+    stats = train_profiler.device_memory_stats()
+    print(f"phase 14 StepTimer ptbxl_af B={TRAIN_B}: "
+          f"{timer.samples_per_sec(TRAIN_B):.3f} samples/s, "
+          f"{timer.mean_step_ms:.3f} ms/step; FLOPs of one step "
+          f"{flops}; memory allocated "
+          f"{stats.get('allocated_bytes.all.current')} peak "
+          f"{stats.get('allocated_bytes.all.peak')} live "
+          f"{stats['live_buffer_bytes']} ({smi})", flush=True)
+    if flops is None or not flops > 0:
+        raise AssertionError(f"compiled_flops counted {flops}")
+    return model, state, launches
+
+
+def tools_on_the_card(tmp, model, state, smi):
+    """(f) The tools where neither flax, msgpack, pandas nor Pillow is
+    installed: a port checkpoint -> reference .pth -> .msgpack -> the
+    port's state dict, bit for bit; `cv cross --ckpt x.msgpack`; the batch
+    digitizer over 8 rendered strips; one rows-cap probe trial."""
+    run_dir = os.path.join(tmp, "run")
+    CheckpointManager(run_dir).save("best", state)
+    pth, tree = os.path.join(tmp, "best.pth"), os.path.join(tmp, "sig.msgpack")
+    convert_pth.main([run_dir, "--arch", "resnet1d_se", "--export", "--out",
+                      pth])
+    convert_pth.main([pth, "--arch", "resnet1d_se", "--out", tree])
+    back = from_jax_resnet1d_se(convert_pth.load_converted(tree))
+    sd = model.state_dict()
+    differ = [k for k, v in sd.items() if "num_batches_tracked" not in k
+              and not torch.equal(v.cpu(), back[k].to(v.dtype))]
+    if set(back) != set(sd) or differ:
+        raise AssertionError(f"checkpoint round trip differs: {differ[:5]} "
+                             f"{sorted(set(back) ^ set(sd))[:5]}")
+    print(f"phase 14 round trip best.pt -> .pth -> .msgpack -> state dict: "
+          f"{len(sd)} entries bit-equal ({os.path.getsize(tree)} bytes)",
+          flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cv.main(["cross", "--ckpt", tree, "--n-synth", "32"])
+    metrics = json.loads(out.getvalue()[out.getvalue().index("{"):])
+    print(f"phase 14 cv cross --ckpt .msgpack: {metrics}", flush=True)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cv cross gave {metrics}")
+    strips = os.path.join(tmp, "strips")
+    os.makedirs(strips)
+    for i, (img, _, _) in enumerate(make_requests(8, seed=7)):
+        with open(os.path.join(strips, f"{i + 1}.png"), "wb") as f:
+            f.write(native.png_encode(img))
+    csv_path = os.path.join(tmp, "ecg_signals.csv")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        digitize_batch.main([strips, "-o", csv_path])
+    table = read_csv(csv_path, index_col=0)
+    print(f"phase 14 digitize_batch: {len(table)} strips in "
+          f"{time.perf_counter() - t0:.3f} s (host; {smi})", flush=True)
+    if len(table) != 8 or len(table.columns) != 2476:
+        raise AssertionError("digitize_batch did not write 8 signals")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ecgmm_torch.tools.rows_cap_probe",
+         "--trial-rows", "256", "--batch-size", "64", "--preset",
+         "signal_only"],
+        env={**os.environ, "ECGMM_FOLD_PARALLEL_ROWS_CAP": "0"}, cwd=here,
+        capture_output=True, text=True, timeout=600)
+    line = [x for x in proc.stdout.splitlines() if "TRIAL_OK" in x]
+    print(f"phase 14 rows-cap probe trial 256 rows (4 folds of 64): rc "
+          f"{proc.returncode} "
+          f"{line} in {time.perf_counter() - t0:.3f} s", flush=True)
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"the probe's trial failed: "
+                             f"{proc.stderr[-2000:]}")
+
+
+def run_bundle_phase(smi):
+    """Phase 14: the AOT bundle and the tools on the card. Returns the
+    launches of the bundle's 8 requests, of its batched HTTP run and of
+    the traced `ptbxl_af` steps."""
+    t0 = time.perf_counter()
+    live = ServingPipeline.demo(device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "bundle")
+        bundle_export(live, bundle, smi)
+        _, serve_launches, _ = bundle_requests(bundle, live, smi)
+        http_launches = bundle_http(bundle, smi)
+        bundle_cpu(bundle, live)
+        model, state, traced = traced_train_steps(tmp, smi)
+        tools_on_the_card(tmp, model, state, smi)
+    print(f"phase 14 wall {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"serve_bundle": serve_launches,
+            "serve_http_bundle": http_launches,
+            "train_ptbxl_af_traced": traced}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4511,6 +4857,13 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"needs compute capability 9.0, found {cap}")
     peaks = peaks_for(name)
+    walls = {}
+    lap = [time.perf_counter()]
+
+    def phase_done(phase):
+        now = time.perf_counter()
+        walls[phase] = round(now - lap[0], 3)
+        lap[0] = now
 
     # 2. build: nvcc for the CUDA kernels, g++ for the host kernels beside
     # it
@@ -4531,6 +4884,7 @@ def main() -> int:
     host_thread.join()
     if "error" in host_build:
         raise host_build["error"]
+    phase_done("2 build")
 
     # 3. kernels vs plain versions; the floor is what a kernel that does
     # almost nothing measures with device_us
@@ -4568,15 +4922,18 @@ def main() -> int:
     se_serving_rows = check_se_serving(gen, peaks)
     se_xai_rows = check_se_xai(gen, peaks)
     fusion_lime_rows = check_fusion_lime(gen, peaks)
+    phase_done("3 kernels")
 
     # 4. the slice
     launches, timings = run_slice()
+    phase_done("4 serve")
 
     # 9. the request's host kernels against their plain versions, and the
     # host stages' times
     check_host_kernels()
     host_kernels = time_host_stages(smi)
     print(json.dumps({"host_kernels": host_kernels}), flush=True)
+    phase_done("9 host kernels")
 
     # 5. numbers
     for key in ("total_ms", "host_before_ms", "device_ms", "host_after_ms"):
@@ -4586,6 +4943,7 @@ def main() -> int:
 
     # 8. the front end: decoder, HTTP server, micro-batcher
     http_launches = run_front_end(smi)
+    phase_done("8 front end")
 
     # 6. the training slices: first the algorithm against the CPU in
     # float32 (TF32 off, as `run()` sets it), then the runs through the
@@ -4600,6 +4958,7 @@ def main() -> int:
         compare_signal_steps("physionet_crnn", 48, count_turned=False)
         compare_signal_steps("signal_12lead", 24, count_turned=False)
         lstm_tf32_check()
+    phase_done("6 train against the CPU")
     with tempfile.TemporaryDirectory() as tmp:
         ptbxl, ptbxl_launches = run_training(tmp, "ptbxl_af", 256, 2)
         _, multi_launches = run_training(tmp, "physionet_multi", 96, 1)
@@ -4616,20 +4975,30 @@ def main() -> int:
                                1)[1]
             for name in ("signal_af", "signal_arr", "signal_12lead",
                          "physionet_crnn", "physionet_transformer")}
+    phase_done("6 train runs")
 
     # 10. the XAI batch path
     xai_launches = run_xai_phase(smi)
+    phase_done("10 xai")
 
     # 11. the real-data path: record directories, the CLI, streaming
     real_launches = run_real_data_phase(smi)
+    phase_done("11 real data")
 
     # 12. the CV path: fold-axis kernels, the fold program against the
     # sequential fits, the CLI, the rows cap
     fold_rows, cv_paths, _, _ = run_cv_phase(smi, peaks)
+    phase_done("12 cv")
 
     # 13. parallel: torchrun, data and tensor parallelism, mesh serving,
     # the fold program over the data axis
     par_launches = run_parallel_phase(smi)
+    phase_done("13 parallel")
+
+    # 14. the AOT bundle (export, the card, HTTP, the CPU program), the
+    # profiler and trace report, the tools
+    bundle_launches = run_bundle_phase(smi)
+    phase_done("14 bundle")
 
     # 7. numbers
     for run_name, res in (("ptbxl_af", ptbxl), ("fusion", fusion_run),
@@ -4651,6 +5020,8 @@ def main() -> int:
         step = measure_train_step(run_name, b, tf32=tf32)
         print(f"{run_name} train step B={b} cudnn_tf32={tf32} ({smi}): "
               f"{json.dumps(step)}", flush=True)
+    phase_done("7 train steps")
+    print(f"phase walls, s: {json.dumps(walls)} ({smi})", flush=True)
     paths = {
         "serve": launches,
         "serve_http_batched": http_launches,
@@ -4667,6 +5038,7 @@ def main() -> int:
         **{f"train_{name}": n for name, n in new_launches.items()},
         **{p: out["launches"] for p, out in cv_paths.items()},
         **par_launches,
+        **bundle_launches,
     }
 
     def by_path(kernel):

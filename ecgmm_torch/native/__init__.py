@@ -18,9 +18,10 @@ The wrappers carry the JAX package's names and argument checks
 (`ecgmm_tpu/native/__init__.py`): the hospital filter (`remove_baseline`,
 `filtfilt`, `preprocess_hospital`), the digitizer (`darkness_map`,
 `colmax`, `trace_centroid`, `gridness`), the heatmap (`cam_overlay`,
-`png_encode`), and two the JAX package takes from Pillow:
-`resize_bilinear_u8` and `jpeg_encode`. ctypes releases the interpreter
-lock for each call, and the kernels thread their work over up to 8 cores.
+`png_encode`), and three the JAX package takes from Pillow:
+`resize_bilinear_u8`, `resize_bicubic_u8` and `jpeg_encode`. ctypes
+releases the interpreter lock for each call, and the kernels thread their
+work over up to 8 cores.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "ecgmm_jpeg_upsample": ([_P, _L, _L, _I, _I, _P], _I),
     "ecgmm_jpeg_ycc_rgb": ([_P, _P, _P, _L, _P], _I),
     "ecgmm_png_unfilter": ([_P, _L, _L, _I, _P], _I),
+    "ecgmm_gif_lzw": ([_P, _L, _I, _P, _L, _P], _I),
+    "ecgmm_bmp_rle": ([_P, _L, _L, _I, _L, _P, _L, _P], _I),
     "ecgmm_remove_baseline": ([_P, _P, _L, _L, _I], None),
     "ecgmm_filtfilt": ([_P, _P, _P, _I, _P, _P, _L, _L], None),
     "ecgmm_preprocess_hospital": ([_P, _P, _P, _I, _I, _P, _P, _L, _L], None),
@@ -68,6 +71,7 @@ _SIGNATURES = {
     "ecgmm_cam_overlay": ([_P, _L, _L, _P, _L, _L, _F, _F, _P, _P], None),
     "ecgmm_png_encode_sub": ([_P, _L, _L, _I, _P, _L, _P], _I),
     "ecgmm_resize_bilinear_u8": ([_P, _L, _L, _I, _L, _L, _P], _I),
+    "ecgmm_resize_bicubic_u8": ([_P, _L, _L, _I, _L, _L, _P], _I),
     "ecgmm_jpeg_encode": ([_P, _L, _L, _I, _P, _L, _P], _I),
     "ecgmm_jpeg_std_huffman": ([_I, _P, _P], _I),
 }
@@ -395,6 +399,18 @@ def jpeg_encode(rgb: np.ndarray, quality: int = 85) -> bytes:
 def resize_bilinear_u8(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     """`PIL.Image.fromarray(img).resize((w, h), BILINEAR)` for an
     (H, W, C) uint8 image, bit for bit (`native/resize.cpp`)."""
+    return _resize_u8(img, hw, "ecgmm_resize_bilinear_u8")
+
+
+def resize_bicubic_u8(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """`PIL.Image.fromarray(img).resize((w, h))` (Pillow's default filter,
+    BICUBIC) for an (H, W, C) uint8 image, bit for bit
+    (`native/resize.cpp`)."""
+    return _resize_u8(img, hw, "ecgmm_resize_bicubic_u8")
+
+
+def _resize_u8(img: np.ndarray, hw: Tuple[int, int], entry: str
+               ) -> np.ndarray:
     lib = library()
     src = np.ascontiguousarray(img, np.uint8)
     if src.ndim != 3 or src.shape[0] < 1 or src.shape[1] < 1:
@@ -403,6 +419,6 @@ def resize_bilinear_u8(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     if oh < 1 or ow < 1:
         raise ValueError(f"output size must be positive, got {hw}")
     out = np.empty((oh, ow, src.shape[2]), np.uint8)
-    lib.ecgmm_resize_bilinear_u8(_p(src), src.shape[0], src.shape[1],
-                                 src.shape[2], oh, ow, _p(out))
+    getattr(lib, entry)(_p(src), src.shape[0], src.shape[1], src.shape[2],
+                        oh, ow, _p(out))
     return out

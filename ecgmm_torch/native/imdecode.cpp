@@ -2,15 +2,18 @@
 // Huffman entropy decoding of a baseline JPEG scan, libjpeg's accurate
 // integer inverse DCT (jidctint.c, "ISLOW", with its post-IDCT range
 // limit), its fancy upsampling (jdsample.c) and YCbCr->RGB conversion
-// (jdcolor.c), and PNG's row unfiltering. Plain C interface, loaded with
+// (jdcolor.c), PNG's row unfiltering, GIF's LZW codes and BMP's RLE8 and
+// RLE4 runs (as Pillow's decoders read them). Plain C interface, loaded with
 // ctypes; the Python side parses the markers and chunks and checks every
 // size before it passes a pointer.
 //
 // Every entry point returns 0 on success and a negative code otherwise
 // (ERR_* below); imdecode.py maps the codes to messages.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -18,6 +21,9 @@ enum {
   ERR_BAD_HUFFMAN_TABLE = -1,
   ERR_BAD_HUFFMAN_CODE = -2,
   ERR_BAD_PNG_FILTER = -3,
+  ERR_BAD_LZW_CODE = -4,
+  ERR_TRUNCATED_LZW = -5,
+  ERR_TRUNCATED_RLE_DELTA = -6,
 };
 
 // zigzag position -> natural (row-major) position; the 16 extra entries
@@ -658,6 +664,158 @@ int ecgmm_png_unfilter(const uint8_t* data, int64_t rows, int64_t row_bytes,
     }
   }
   return 0;
+}
+
+// GIF's LZW image data, as Pillow's GifDecode.c reads it: `data` is the
+// concatenation of the data sub-blocks, `min_code` the LZW minimum code
+// size (1-8; a clear code is 1 << min_code, the end code one more). Codes
+// grow from min_code + 1 to 12 bits as the table fills; a full table of
+// 4096 entries takes no new ones until the next clear code; a code one
+// past the table's last entry repeats the previous string plus its first
+// byte. Writes up to n_out indices in the stream's order into out and
+// their count into *written; stops at the end code or when out is full.
+// Returns 0, ERR_BAD_LZW_CODE for a code beyond the table, or
+// ERR_TRUNCATED_LZW for data that ends before either.
+int ecgmm_gif_lzw(const uint8_t* data, int64_t n, int min_code, uint8_t* out,
+                  int64_t n_out, int64_t* written) {
+  constexpr int kTable = 4096;
+  std::vector<uint16_t> prefix(kTable);
+  std::vector<uint8_t> suffix(kTable), first(kTable), stack(kTable + 1);
+  const int clear = 1 << min_code, end = clear + 1;
+  int size = min_code + 1, next = clear + 2, prev = -1;
+  for (int i = 0; i < clear; ++i) {
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    prefix[i] = 0;
+  }
+  uint32_t acc = 0;
+  int nbits = 0;
+  int64_t pos = 0, o = 0;
+  *written = 0;
+  while (o < n_out) {
+    while (nbits < size) {
+      if (pos >= n) {
+        *written = o;
+        return ERR_TRUNCATED_LZW;
+      }
+      acc |= static_cast<uint32_t>(data[pos++]) << nbits;
+      nbits += 8;
+    }
+    const int code = static_cast<int>(acc & ((1u << size) - 1));
+    acc >>= size;
+    nbits -= size;
+    if (code == clear) {
+      size = min_code + 1;
+      next = clear + 2;
+      prev = -1;
+      continue;
+    }
+    if (code == end) break;
+    if (prev < 0) {
+      if (code >= clear) {
+        *written = o;
+        return ERR_BAD_LZW_CODE;
+      }
+      out[o++] = static_cast<uint8_t>(code);
+      prev = code;
+      continue;
+    }
+    if (code > next || (code == next && next >= kTable)) {
+      *written = o;
+      return ERR_BAD_LZW_CODE;
+    }
+    // the string of `code` (or, one past the table, prev's plus its first
+    // byte), written backwards on the stack
+    int sp = 0, c = code;
+    uint8_t head;
+    if (code == next) {
+      stack[sp++] = first[prev];
+      c = prev;
+    }
+    while (c >= clear) {
+      stack[sp++] = suffix[c];
+      c = prefix[c];
+    }
+    head = static_cast<uint8_t>(c);
+    stack[sp++] = head;
+    while (sp > 0 && o < n_out) out[o++] = stack[--sp];
+    if (next < kTable) {
+      prefix[next] = static_cast<uint16_t>(prev);
+      suffix[next] = head;
+      first[next] = first[prev];
+      if (next == (1 << size) - 1 && size < 12) ++size;
+      ++next;
+    }
+    prev = code;
+  }
+  *written = o;
+  return 0;
+}
+
+// RLE8 and RLE4 BMP pixel data, as Pillow's BmpRleDecoder reads it: the
+// indices in file order (bottom-up rows unless the header says otherwise)
+// into out, up to n_out (width * height; a row overrun runs into the next
+// row, as there); *written gets the count. `base` is the data's offset in
+// the file: an absolute run is padded to an even file offset. An end of
+// line pads the row with 0; a delta skips two bytes and reads (right, up)
+// from the next two, as Pillow does; data that ends early ends the image.
+// Returns 0, or ERR_TRUNCATED_RLE_DELTA where a delta's (right, up) is cut
+// off.
+int ecgmm_bmp_rle(const uint8_t* data, int64_t n, int64_t base, int rle4,
+                  int64_t width, uint8_t* out, int64_t n_out,
+                  int64_t* written) {
+  int64_t pos = 0, o = 0, x = 0;
+  auto put = [&](uint8_t v) {
+    if (o < n_out) out[o] = v;
+    ++o;
+  };
+  int status = 0;
+  while (o < n_out) {
+    if (pos + 2 > n) break;
+    const int count = data[pos], byte = data[pos + 1];
+    pos += 2;
+    if (count) {
+      int64_t k = count;
+      if (x + k > width) k = std::max<int64_t>(0, width - x);
+      for (int64_t i = 0; i < k; ++i)
+        put(rle4 ? static_cast<uint8_t>(i % 2 == 0 ? byte >> 4 : byte & 15)
+                 : static_cast<uint8_t>(byte));
+      x += k;
+    } else if (byte == 0) {
+      while (o % width != 0) put(0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      if (pos + 2 > n) break;
+      pos += 2;
+      if (pos + 2 > n) {
+        status = ERR_TRUNCATED_RLE_DELTA;
+        break;
+      }
+      const int64_t right = data[pos], up = data[pos + 1];
+      pos += 2;
+      for (int64_t i = 0; i < right + up * width; ++i) put(0);
+      x = o % width;
+    } else {
+      const int64_t want = rle4 ? byte / 2 : byte;
+      const int64_t got = std::min<int64_t>(want, n - pos);
+      for (int64_t i = 0; i < got; ++i) {
+        const uint8_t b = data[pos + i];
+        if (rle4) {
+          put(static_cast<uint8_t>(b >> 4));
+          put(static_cast<uint8_t>(b & 15));
+        } else {
+          put(b);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if ((base + pos) % 2 != 0) ++pos;
+    }
+  }
+  *written = std::min(o, n_out);
+  return status;
 }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
-// Pillow's bilinear resize of an 8-bit image, bit for bit
+// Pillow's bilinear and bicubic resizes of an 8-bit image, bit for bit
 // (`Image.fromarray(img).resize((ow, oh), Image.Resampling.BILINEAR)`, the
 // call the JAX serving request makes to bring the strip to the model's
-// 224x224). Pillow's Resample.c: per axis, `precompute_coeffs` gives each
-// output sample its source taps and triangle weights (in double, the
+// 224x224, and `resize((ow, oh))`, whose default filter is BICUBIC, the
+// digitizer envelope's downscale). Pillow's Resample.c: per axis,
+// `precompute_coeffs` gives each output sample its source taps and the
+// filter's weights (triangle of support 1, or the cubic of a = -0.5 and
+// support 2; in double, the
 // filter's support widened by the downscale factor, renormalized over
 // the taps inside the image), `normalize_coeffs_8bpc` turns them into
 // 22-bit fixed point, and the horizontal pass runs first (over only the
@@ -30,11 +33,25 @@ struct Coeffs {
   std::vector<int32_t> k;  // out_size x ksize, 22-bit fixed point
 };
 
-Coeffs precompute(int64_t in_size, int64_t out_size) {
+// Pillow's filters: bilinear (support 1) and bicubic (a = -0.5, support 2)
+double bilinear(double x) {
+  if (x < 0.0) x = -x;
+  return x < 1.0 ? 1.0 - x : 0.0;
+}
+
+double bicubic(double x) {
+  constexpr double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+Coeffs precompute(int64_t in_size, int64_t out_size, bool cubic) {
   Coeffs c;
   const double scale = static_cast<double>(in_size) / out_size;
   const double filterscale = std::max(scale, 1.0);
-  const double support = 1.0 * filterscale;
+  const double support = (cubic ? 2.0 : 1.0) * filterscale;
   c.ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   c.xmin.resize(out_size);
   c.n.resize(out_size);
@@ -50,9 +67,8 @@ Coeffs precompute(int64_t in_size, int64_t out_size) {
     xmax -= xmin;
     double ww = 0.0;
     for (int64_t x = 0; x < xmax; ++x) {
-      double arg = (x + xmin - center + 0.5) * ss;
-      if (arg < 0.0) arg = -arg;
-      const double w = arg < 1.0 ? 1.0 - arg : 0.0;
+      const double arg = (x + xmin - center + 0.5) * ss;
+      const double w = cubic ? bicubic(arg) : bilinear(arg);
       kk[x] = w;
       ww += w;
     }
@@ -93,26 +109,21 @@ void parallel_rows(int64_t n_rows, F&& fn) {
   for (auto& th : threads) th.join();
 }
 
-}  // namespace
-
-extern "C" {
-
-// img: [h, w, c] uint8 row-major; out: [oh, ow, c] uint8. Returns 0.
-int ecgmm_resize_bilinear_u8(const uint8_t* img, int64_t h, int64_t w,
-                             int c, int64_t oh, int64_t ow, uint8_t* out) {
+int resize_u8(const uint8_t* img, int64_t h, int64_t w, int c, int64_t oh,
+              int64_t ow, uint8_t* out, bool cubic) {
   const bool need_h = ow != w, need_v = oh != h;
   if (!need_h && !need_v) {
     std::memcpy(out, img, static_cast<size_t>(h * w * c));
     return 0;
   }
-  const Coeffs cv = precompute(h, oh);
+  const Coeffs cv = precompute(h, oh, cubic);
   // the rows the vertical pass reads (all of them when it does not run)
   const int64_t y_first = need_v ? cv.xmin[0] : 0;
   const int64_t y_last = need_v ? cv.xmin[oh - 1] + cv.n[oh - 1] : h;
   const uint8_t* src = img + y_first * w * c;
   std::vector<uint8_t> tmp;
   if (need_h) {
-    const Coeffs ch = precompute(w, ow);
+    const Coeffs ch = precompute(w, ow, cubic);
     uint8_t* dst = out;
     if (need_v) {
       tmp.resize(static_cast<size_t>((y_last - y_first) * ow * c));
@@ -152,6 +163,21 @@ int ecgmm_resize_bilinear_u8(const uint8_t* img, int64_t h, int64_t w,
     }
   });
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// img: [h, w, c] uint8 row-major; out: [oh, ow, c] uint8. Returns 0.
+int ecgmm_resize_bilinear_u8(const uint8_t* img, int64_t h, int64_t w,
+                             int c, int64_t oh, int64_t ow, uint8_t* out) {
+  return resize_u8(img, h, w, c, oh, ow, out, false);
+}
+
+int ecgmm_resize_bicubic_u8(const uint8_t* img, int64_t h, int64_t w, int c,
+                            int64_t oh, int64_t ow, uint8_t* out) {
+  return resize_u8(img, h, w, c, oh, ow, out, true);
 }
 
 }  // extern "C"

@@ -36,6 +36,9 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
+# whether the entry points of this thread take the torch.library
+# operators (`tracing_ops`)
+_route = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -192,3 +195,28 @@ def count(module: str, counter: str) -> None:
     with _count_lock:
         mod = sys.modules[module]
         setattr(mod, counter, getattr(mod, counter) + 1)
+
+
+def tracing() -> bool:
+    """Whether this thread is inside `tracing_ops()`: `fused_se` and
+    `fused_attention_fusion` then call the `ecgmm::*` operators, which a
+    traced program records as nodes of their own."""
+    return getattr(_route, "depth", 0) > 0
+
+
+def unneeded_grad(x: torch.Tensor) -> torch.Tensor:
+    """The (0,) placeholder a backward operator returns for a gradient
+    that is not needed (an operator's outputs are tensors, never None)."""
+    return x.new_empty((0,))
+
+
+@contextlib.contextmanager
+def tracing_ops():
+    """Route this thread's calls of `fused_se` and
+    `fused_attention_fusion` through the `ecgmm::*` operators while the
+    context lasts (`serve/export.py` traces the request program in it)."""
+    _route.depth = getattr(_route, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _route.depth -= 1

@@ -449,10 +449,99 @@ class _FoldAttentionFusion(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+# -- the torch.library operators (the traced serving program) -------------
+
+
+@torch.library.custom_op("ecgmm::attention_fusion", mutates_args=(),
+                         device_types="cpu")
+def fusion_op(img: torch.Tensor, sig: torch.Tensor, clin: torch.Tensor,
+              weights: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, eps: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ecgmm::attention_fusion` -> (out, weights_softmax, stats (B, 2)):
+    on the CPU the plain versions (`reference_attention_fusion`,
+    `reference_fusion_stats`), on CUDA the forward kernel, which keeps the
+    (mu, rstd) residual."""
+    out, sw = reference_attention_fusion(img, sig, clin, weights, scale,
+                                         bias, eps=eps)
+    return out, sw, reference_fusion_stats(img, sig, clin, weights, eps)
+
+
+@fusion_op.register_kernel("cuda")
+def _fusion_op_cuda(img, sig, clin, weights, scale, bias, eps):
+    inputs = _prepare(img, sig, clin, weights, scale, bias)
+    return _launch(*inputs, eps, keep_stats=True)
+
+
+@fusion_op.register_fake
+def _fusion_op_fake(img, sig, clin, weights, scale, bias, eps):
+    b = img.shape[0]
+    d = img.shape[1] + sig.shape[1] + clin.shape[1]
+    return (img.new_empty((b, d)), torch.empty_like(weights),
+            img.new_empty((b, 2)))
+
+
+@torch.library.custom_op("ecgmm::attention_fusion_backward", mutates_args=(),
+                         device_types="cpu")
+def fusion_backward_op(img: torch.Tensor, sig: torch.Tensor,
+                       clin: torch.Tensor, weights: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       stats: torch.Tensor, grad_out: torch.Tensor,
+                       grad_sw: torch.Tensor | None, eps: float,
+                       needs: list[bool]
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ecgmm::attention_fusion_backward` -> the six gradients, a (0,)
+    tensor where `needs` is False: on the CPU the closed form
+    (`reference_fusion_backward` on the saved stats), on CUDA the backward
+    kernels."""
+    grads = reference_fusion_backward(
+        (img, sig, clin, weights, scale, bias), eps, grad_out, grad_sw,
+        tuple(needs), stats=stats)
+    return tuple(_ext.unneeded_grad(img) if g is None else g for g in grads)
+
+
+@fusion_backward_op.register_kernel("cuda")
+def _fusion_backward_op_cuda(img, sig, clin, weights, scale, bias, stats,
+                             grad_out, grad_sw, eps, needs):
+    grads = launch_backward(_prepare(img, sig, clin, weights, scale, bias),
+                            stats.contiguous(), grad_out, grad_sw,
+                            tuple(needs))
+    return tuple(_ext.unneeded_grad(img) if g is None else g for g in grads)
+
+
+@fusion_backward_op.register_fake
+def _fusion_backward_op_fake(img, sig, clin, weights, scale, bias, stats,
+                             grad_out, grad_sw, eps, needs):
+    return tuple(torch.empty_like(a) if n else _ext.unneeded_grad(img)
+                 for a, n in zip((img, sig, clin, weights, scale, bias),
+                                 needs))
+
+
+def _fusion_op_setup(ctx, inputs, output):
+    ctx.eps = inputs[6]
+    ctx.save_for_backward(*inputs[:6], output[2])
+
+
+def _fusion_op_backward(ctx, grad_out, grad_sw, _):
+    needs = list(ctx.needs_input_grad[:6])
+    grads = fusion_backward_op(*ctx.saved_tensors, grad_out, grad_sw,
+                               ctx.eps, needs)
+    return (*(g if n else None for g, n in zip(grads, needs)), None)
+
+
+fusion_op.register_autograd(_fusion_op_backward,
+                            setup_context=_fusion_op_setup)
+
+
 def fused_attention_fusion(img, sig, clin, weights, scale, bias,
                            eps: float = 1e-6):
     """AttentionFusion: the CUDA kernels (forward and backward) for CUDA
-    tensors, `reference_attention_fusion` for CPU tensors."""
+    tensors, `reference_attention_fusion` for CPU tensors. Inside
+    `ecgmm_torch.ops.tracing_ops()` it calls the `ecgmm::attention_fusion`
+    operator instead, on either device."""
+    if _ext.tracing():
+        return fusion_op(img, sig, clin, weights, scale, bias, float(eps))[:2]
     if img.device.type == "cpu":
         return reference_attention_fusion(img, sig, clin, weights, scale,
                                           bias, eps=eps)

@@ -324,12 +324,89 @@ class _FoldSE(torch.autograd.Function):
                                ctx.needs_input_grad, folds=w1.shape[0])
 
 
+def reference_se_state(x, w1, b1, w2, b2):
+    """The plain version of the forward's saved state: (2, B, C) f32, the
+    channel means and the gate."""
+    x, w1, b1, w2, b2 = (a.float() for a in (x, w1, b1, w2, b2))
+    m = x.mean(dim=-1)
+    s = torch.sigmoid(torch.relu(m @ w1.t() + b1) @ w2.t() + b2)
+    return torch.stack([m, s])
+
+
+# -- the torch.library operators (the traced serving program) -------------
+
+@torch.library.custom_op("ecgmm::fused_se", mutates_args=(),
+                         device_types="cpu")
+def se_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+          w2: torch.Tensor, b2: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ecgmm::fused_se` -> (out, state): on the CPU the plain versions
+    (`reference_se`, `reference_se_state`), on CUDA the forward kernel."""
+    return (reference_se(x, w1, b1, w2, b2),
+            reference_se_state(x, w1, b1, w2, b2))
+
+
+@se_op.register_kernel("cuda")
+def _se_op_cuda(x, w1, b1, w2, b2):
+    return _launch(x.contiguous(), w1, b1, w2, b2)
+
+
+@se_op.register_fake
+def _se_op_fake(x, w1, b1, w2, b2):
+    return (torch.empty_like(x),
+            x.new_empty((2, x.shape[0], x.shape[1]), dtype=torch.float32))
+
+
+@torch.library.custom_op("ecgmm::fused_se_backward", mutates_args=(),
+                         device_types="cpu")
+def se_backward_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, state: torch.Tensor,
+                   grad: torch.Tensor, needs: list[bool]
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor, torch.Tensor]:
+    """`ecgmm::fused_se_backward` -> gradients w.r.t. (x, w1, b1, w2, b2),
+    a (0,) tensor where `needs` is False: on the CPU the closed form
+    (`reference_se_backward`), on CUDA the backward kernels."""
+    grads = reference_se_backward((x, w1, b1, w2, b2), grad)
+    return tuple(g if n else _ext.unneeded_grad(x)
+                 for g, n in zip(grads, needs))
+
+
+@se_backward_op.register_kernel("cuda")
+def _se_backward_op_cuda(x, w1, b1, w2, b2, state, grad, needs):
+    grads = launch_backward(x.contiguous(), w1, b1, w2, state, grad,
+                            tuple(needs))
+    return tuple(_ext.unneeded_grad(x) if g is None else g for g in grads)
+
+
+@se_backward_op.register_fake
+def _se_backward_op_fake(x, w1, b1, w2, b2, state, grad, needs):
+    return tuple(torch.empty_like(a) if n else _ext.unneeded_grad(x)
+                 for a, n in zip((x, w1, b1, w2, b2), needs))
+
+
+def _se_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[1])
+
+
+def _se_op_backward(ctx, grad, _):
+    needs = list(ctx.needs_input_grad[:5])
+    grads = se_backward_op(*ctx.saved_tensors, grad, needs)
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+se_op.register_autograd(_se_op_backward, setup_context=_se_op_setup)
+
+
 def fused_se(x, w1, b1, w2, b2):
     """SE gate: the CUDA kernels (forward and backward) for CUDA tensors,
     `reference_se` for CPU tensors. The kernels reduce and run both dense
     layers in f32 (the weights read as f32 from x's dtype) and store in
     x's dtype. Under `torch.func.vmap` on CUDA tensors, one launch for all
-    folds (`_FusedSE.vmap`)."""
+    folds (`_FusedSE.vmap`). Inside `ecgmm_torch.ops.tracing_ops()` it
+    calls the `ecgmm::fused_se` operator instead, on either device."""
+    if _ext.tracing():
+        return se_op(x, w1, b1, w2, b2)[0]
     if x.device.type == "cpu":
         return reference_se(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

@@ -30,8 +30,6 @@ from ecgmm_torch.serve.wire import ENDPOINT, BadRequest, parse_multipart
 # of a few MB), so a bogus Content-Length cannot make the server allocate
 # unbounded memory.
 MAX_REQUEST_BYTES = 32 * 1024 * 1024
-AOT_ITEM = ("ROADMAP.md section 1, 'The AOT bundle': the port has no AOT "
-            "deployment bundle yet")
 HEATMAP_FIELD_FORMATS = ("png", "jpeg", "cam")
 
 
@@ -217,7 +215,8 @@ def main(argv=None):
                    help="the demo pipeline (seeded random weights); the "
                         "server always serves it")
     p.add_argument("--bundle", default=None,
-                   help="an AOT deployment bundle: not ported yet")
+                   help="serve an AOT deployment bundle (serve/export.py) "
+                        "instead of building the pipeline from model code")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--batch-window-ms", type=float, default=0.0,
                    help="coalesce concurrent requests for this many ms "
@@ -237,13 +236,14 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     # flag errors fire before the pipeline is built
-    if args.bundle:
-        raise NotImplementedError(f"--bundle: {AOT_ITEM}")
     if args.n_data > 1 and args.batch_window_ms <= 0:
         p.error("--n-data > 1 needs --batch-window-ms > 0 (mesh serving "
                 "splits the batched dispatches)")
+    if args.n_data > 1 and args.bundle:
+        p.error("--n-data > 1 needs a live model — an AOT bundle is a "
+                "fixed single-device program")
     buckets = batch_buckets(args.max_batch, args.n_data)
-    if args.batch_window_ms > 0 and not buckets:
+    if args.batch_window_ms > 0 and not buckets and not args.bundle:
         p.error(f"--max-batch {args.max_batch} admits none of the batch "
                 f"buckets {batch_buckets(1 << 30, args.n_data)}")
     if torch.device(args.device).type == "cuda" \
@@ -257,7 +257,20 @@ def main(argv=None):
         # before the pipeline is built: enable_batching's check
         raise ValueError(f"n_data={args.n_data} exceeds the {visible} "
                          "visible device(s)")
-    pipeline = ServingPipeline.demo(device=args.device)
+    if args.bundle:
+        pipeline = ServingPipeline.from_exported(args.bundle,
+                                                 device=args.device)
+    else:
+        pipeline = ServingPipeline.demo(device=args.device)
+    if args.batch_window_ms > 0 and args.bundle:
+        available = pipeline._exported_buckets
+        if available is None:
+            p.error("bundle was exported without batch_buckets; re-export "
+                    "with --batch-buckets to serve batched")
+        buckets = tuple(b for b in available if b <= args.max_batch)
+        if not buckets:
+            p.error(f"--max-batch {args.max_batch} admits none of the "
+                    f"available batch buckets {available}")
     if args.batch_window_ms > 0:
         pipeline.enable_batching(args.batch_window_ms,
                                  max_batch=max(buckets), buckets=buckets,

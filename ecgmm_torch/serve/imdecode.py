@@ -1,5 +1,5 @@
-"""The upload decoder: JPEG, PNG and BMP bytes -> an (H, W, 3) uint8 RGB
-array, turned upright by the EXIF orientation.
+"""The upload decoder: JPEG, PNG, GIF and BMP bytes -> an (H, W, 3) uint8
+RGB array, turned upright by the EXIF orientation.
 
 It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 (`ecgmm_tpu/serve/http.py:101-112`),
@@ -21,19 +21,24 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   Pillow converts them (gray of 1, 2 and 4 bits scaled to 0-255, 16-bit
   gray clipped at 255, 16-bit colour by its high byte); the alpha channel
   is dropped as `.convert("RGB")` drops it;
-- uncompressed BMP: 24 and 32 bits, and the 1-, 4- and 8-bit palettes,
-  bottom-up and top-down (`_decode_bmp`, numpy);
+- BMP: uncompressed at 16 (5-5-5), 24 and 32 bits and with 1-, 4- and
+  8-bit palettes, BI_BITFIELDS at 16 and 32 bits with the masks Pillow
+  reads, and RLE8 and RLE4 with the quirks of Pillow's run decoder;
+  bottom-up and top-down (`_decode_bmp`);
+- GIF87a and GIF89a: the first frame, its LZW codes, the global and
+  local colour tables, interlacing, and the transparency index as the
+  fill around a frame smaller than the screen (`_decode_gif`);
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf` or ImageMagick's "Raw profile type exif" text), else of the XMP
   packet, applied as `ImageOps.exif_transpose` applies its 8 cases.
 
 The Huffman decoding, the inverse DCT, the upsampling, the colour
-conversion and the PNG row filters are C++
+conversion, the PNG row filters, GIF's LZW and BMP's run lengths are C++
 (`ecgmm_torch/native/imdecode.cpp`, built by g++ at first use); the
 markers and chunks are parsed here. Anything else (arithmetic-coded,
 lossless or hierarchical JPEG, 12-bit samples, a DNL marker, a
-progressive JPEG whose scans leave libjpeg to smooth its blocks, other
-formats) raises `BadRequest` naming what it met.
+progressive JPEG whose scans leave libjpeg to smooth its blocks, WebP,
+TIFF and the other formats) raises `BadRequest` naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -123,7 +128,121 @@ def _decode(data: bytes):
         return _decode_png(data)
     if data[:2] == b"BM":
         return _decode_bmp(data), None, None
-    raise _bad("not a JPEG, PNG or BMP file")
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return _decode_gif(data), None, None
+    raise _bad("not a JPEG, PNG, GIF or BMP file")
+
+
+# ---------------------------------------------------------------- GIF
+
+_NATIVE_ERRORS.update({-4: "bad GIF LZW code", -5: "truncated GIF image data",
+                       -6: "truncated BMP RLE delta"})
+# GIF interlacing: (first row, step) of the four passes
+_GIF_PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))
+
+
+def _gif_palette(raw: bytes):
+    """A colour table as Pillow keeps it: None where it is the identity
+    grey ramp (Pillow then decodes to mode L, index = grey), else a
+    (256, 3) table, the entries past the file's black."""
+    n = len(raw) // 3
+    table = np.frombuffer(raw, np.uint8, n * 3).reshape(n, 3)
+    if np.array_equal(table, np.repeat(np.arange(n, dtype=np.uint8)[:, None],
+                                       3, axis=1)):
+        return None
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:n] = table
+    return palette
+
+
+def _gif_blocks(data: bytes, pos: int) -> Tuple[bytes, int]:
+    """The data sub-blocks from `pos` joined, and the offset after their
+    terminator (or the end of the file where it is missing)."""
+    parts = []
+    while pos < len(data):
+        n = data[pos]
+        pos += 1
+        if n == 0:
+            return b"".join(parts), pos
+        parts.append(data[pos:pos + n])
+        pos += n
+    return b"".join(parts), pos
+
+
+def _decode_gif(data: bytes) -> np.ndarray:
+    """The first frame of a GIF87a or GIF89a as Pillow's
+    `.convert("RGB")` gives it: the LZW codes (C++), rows interlaced or
+    not, the frame's local colour table else the global one (an identity
+    grey ramp is no table: index = grey), the canvas the size of the
+    logical screen (grown to hold the frame) filled with the frame's
+    transparency index, else 0, around the frame."""
+    if len(data) < 13:
+        raise _bad("truncated GIF header")
+    width, height = struct.unpack_from("<HH", data, 6)
+    flags = data[10]
+    pos = 13
+    global_palette = None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        global_palette = _gif_palette(data[pos:pos + n])
+        pos += n
+    transparency = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise _bad("GIF with no image")
+        tag = data[pos]
+        pos += 1
+        if tag == 0x21:  # an extension: its label, then sub-blocks
+            if pos >= len(data):
+                raise _bad("GIF with no image")
+            label = data[pos]
+            pos += 1
+            if pos < len(data) and data[pos]:
+                first = data[pos + 1:pos + 1 + data[pos]]
+                if label == 0xF9 and len(first) >= 4 and first[0] & 1:
+                    transparency = first[3]
+            _, pos = _gif_blocks(data, pos)
+        elif tag == 0x2C:  # the image descriptor
+            if pos + 9 > len(data):
+                raise _bad("truncated GIF image descriptor")
+            x0, y0, fw, fh, fflags = struct.unpack_from("<HHHHB", data, pos)
+            pos += 9
+            palette = global_palette
+            if fflags & 0x80:
+                n = 3 << ((fflags & 7) + 1)
+                palette = _gif_palette(data[pos:pos + n])
+                pos += n
+            interlace = bool(fflags & 0x40)
+            break
+        # any other byte between blocks is skipped, as Pillow skips it
+    width, height = max(width, x0 + fw), max(height, y0 + fh)
+    if width == 0 or height == 0:
+        raise _bad("GIF of no pixels")
+    _check_pixels(width, height)
+    if pos >= len(data):
+        raise _bad("truncated GIF image data")
+    min_code = data[pos]
+    if not 1 <= min_code <= 8:
+        raise _bad(f"GIF LZW minimum code size {min_code}")
+    stream, _ = _gif_blocks(data, pos + 1)
+    indices = np.zeros(fw * fh, np.uint8)
+    written = np.zeros(1, np.int64)
+    lib = native.library()
+    _check(lib.ecgmm_gif_lzw(stream, len(stream), min_code,
+                             indices.ctypes.data, indices.size,
+                             written.ctypes.data))
+    frame = indices.reshape(fh, fw)
+    if interlace:
+        order = np.concatenate([np.arange(a, fh, b) for a, b in _GIF_PASSES])
+        placed = np.empty_like(frame)
+        placed[order] = frame
+        frame = placed
+    canvas = np.full((height, width), 0 if transparency is None
+                     else transparency, np.uint8)
+    canvas[y0:y0 + fh, x0:x0 + fw] = frame
+    if palette is None:
+        return np.repeat(canvas[:, :, None], 3, axis=2)
+    return palette[canvas]
 
 
 # ---------------------------------------------------------------- BMP
@@ -134,13 +253,38 @@ def _decode(data: bytes):
 _BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 
 
+# BI_BITFIELDS masks Pillow reads (r, g, b[, a]) and the 32-bit layouts
+# among them; an all-zero 32-bit mask reads as B, G, R, A
+_BMP_MASKS_32 = ((0xFF0000, 0xFF00, 0xFF, 0x0),
+                 (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+                 (0xFF000000, 0xFF00, 0xFF, 0x0),
+                 (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                 (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+                 (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                 (0xFF000000, 0xFF00, 0xFF, 0xFF0000))
+_BMP_MASKS_16 = ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))
+_BMP_RLE = {1: 8, 2: 4}  # compression -> the bits a pixel it needs
+
+
+def _mask_channel(pixels: np.ndarray, mask: int) -> np.ndarray:
+    """The field `mask` of each pixel scaled to 0-255 as Pillow's
+    unpackers scale it (v * 255 // max)."""
+    shift = (mask & -mask).bit_length() - 1
+    top = mask >> shift
+    v = (pixels >> shift) & top
+    return (v * 255 // top).astype(np.uint8)
+
+
 def _decode_bmp(data: bytes) -> np.ndarray:
-    """Uncompressed (BI_RGB) BMP at 24 and 32 bits (B, G, R and an unused
-    byte) or with a 1-, 4- or 8-bit palette, rows bottom-up or, with a
-    negative height, top-down, each padded to 4 bytes: (H, W, 3) uint8 RGB
-    as Pillow's `.convert("RGB")` gives it (an index beyond the palette
-    is black). The pixel-count guard runs before anything is read; a
-    palette that runs into the pixel data is refused."""
+    """BMP as Pillow's `.convert("RGB")` gives it: uncompressed (BI_RGB)
+    at 16 bits (5-5-5), 24 and 32 bits (B, G, R and an unused byte) or
+    with a 1-, 4- or 8-bit palette; BI_BITFIELDS at 16 bits (5-6-5 and
+    5-5-5), 24 and 32 bits with the masks Pillow reads; and RLE8 and RLE4
+    (the run decoding in C++, `ecgmm_bmp_rle`, with Pillow's quirks). Rows
+    bottom-up or, with a negative height, top-down, each padded to 4
+    bytes; an index beyond the palette is black. The pixel-count guard
+    runs before anything is read; a palette that runs into the pixel data
+    is refused."""
     if len(data) < 26:
         raise _bad("truncated BMP header")
     offset, hsize = struct.unpack_from("<II", data, 10)
@@ -148,6 +292,7 @@ def _decode_bmp(data: bytes) -> np.ndarray:
         raise _unsupported(f"BMP with a {hsize}-byte header")
     if len(data) < 14 + hsize:
         raise _bad("truncated BMP header")
+    masks = None
     if hsize == 12:
         width, height, _, bpp = struct.unpack_from("<HHHH", data, 18)
         compression, colors, entry = 0, 0, 3
@@ -157,25 +302,54 @@ def _decode_bmp(data: bytes) -> np.ndarray:
         colors = struct.unpack_from("<I", data, 46)[0] if hsize >= 40 \
             else 0
         entry = 4
+        if compression == 3:
+            at = 54 if hsize >= 52 else 14 + hsize
+            n = 4 if hsize >= 56 else 3
+            if len(data) < at + 4 * n:
+                raise _bad("truncated BMP header")
+            masks = struct.unpack_from(f"<{n}I", data, at) + (0,) * (4 - n)
     top_down = height < 0
     height = abs(height)
-    if compression != 0:
+    if compression not in (0, 1, 2, 3):
         raise _unsupported(f"BMP with compression {compression}")
-    if bpp not in (1, 4, 8, 24, 32):
+    if bpp not in (1, 4, 8, 16, 24, 32):
         raise _unsupported(f"{bpp}-bit BMP")
+    if compression in _BMP_RLE and bpp != _BMP_RLE[compression]:
+        raise _unsupported(f"{bpp}-bit BMP with compression {compression}")
+    if compression == 3:
+        ok = {32: masks in _BMP_MASKS_32 or masks == (0, 0, 0, 0),
+              24: masks[:3] == (0xFF0000, 0xFF00, 0xFF),
+              16: masks[:3] in _BMP_MASKS_16}.get(bpp, False)
+        if not ok:
+            raise _unsupported("BMP bitfields layout "
+                               f"{tuple(hex(m) for m in masks)}")
     if width <= 0 or height <= 0:
         raise _bad("BMP of no pixels")
     _check_pixels(width, height)
-    stride = (width * bpp + 31) // 32 * 4
-    if offset + stride * height > len(data):
-        raise _bad("truncated BMP pixel data")
-    rows = np.frombuffer(data, np.uint8, stride * height,
-                         offset).reshape(height, stride)
+    if compression in _BMP_RLE:
+        index = _bmp_rle(data, offset, width, height, compression == 2)
+        rows = None
+    else:
+        stride = (width * bpp + 31) // 32 * 4
+        if offset + stride * height > len(data):
+            raise _bad("truncated BMP pixel data")
+        rows = np.frombuffer(data, np.uint8, stride * height,
+                             offset).reshape(height, stride)
     if not top_down:
-        rows = rows[::-1]
+        if rows is not None:
+            rows = rows[::-1]
+        else:
+            index = index[::-1]
+    if bpp == 16:
+        px = rows[:, :2 * width].view("<u2").astype(np.uint32)
+        r, g, b = masks[:3] if masks else _BMP_MASKS_16[1]
+        return np.stack([_mask_channel(px, m) for m in (r, g, b)], axis=2)
     if bpp >= 24:
         k = bpp // 8
-        return rows[:, :k * width].reshape(height, width, k)[..., 2::-1]
+        if masks is None or bpp == 24 or masks == (0, 0, 0, 0):
+            return rows[:, :k * width].reshape(height, width, k)[..., 2::-1]
+        px = rows[:, :4 * width].view("<u4")
+        return np.stack([_mask_channel(px, m) for m in masks[:3]], axis=2)
     n = colors or (1 << bpp)
     start = 14 + hsize
     if n > 256 or start + n * entry > offset:
@@ -183,13 +357,31 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     palette = np.zeros((256, 3), np.uint8)
     palette[:n] = np.frombuffer(data, np.uint8, n * entry,
                                 start).reshape(n, entry)[:, 2::-1]
-    if bpp == 8:
+    if rows is None:
+        pass
+    elif bpp == 8:
         index = rows
     elif bpp == 4:  # the high nibble is the left pixel
         index = np.stack([rows >> 4, rows & 15], axis=2).reshape(height, -1)
     else:  # the high bit is the left pixel
         index = np.unpackbits(rows, axis=1)
     return palette[index[:, :width]]
+
+
+def _bmp_rle(data: bytes, offset: int, width: int, height: int,
+             rle4: bool) -> np.ndarray:
+    """The (height, width) indices of RLE8 or RLE4 pixel data, in file
+    row order; skipped pixels are 0. A stream that ends before its last
+    pixel is refused, as Pillow refuses it ("not enough image data")."""
+    out = np.zeros(width * height, np.uint8)
+    written = np.zeros(1, np.int64)
+    body = data[offset:]
+    _check(native.library().ecgmm_bmp_rle(
+        body, len(body), offset, int(rle4), width, out.ctypes.data, out.size,
+        written.ctypes.data))
+    if written[0] < out.size:
+        raise _bad("BMP RLE data ends before the last pixel")
+    return out.reshape(height, width)
 
 
 def decode_upload(data: bytes) -> np.ndarray:

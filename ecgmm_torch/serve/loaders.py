@@ -1,6 +1,6 @@
 """ServingPipeline assembly recipes (port of `ecgmm_tpu/serve/loaders.py`):
-a trained run's checkpoint, and the self-contained demo. The AOT bundle
-(`pipeline_from_exported`) is not ported yet (ROADMAP.md section 1)."""
+a trained run's checkpoint, the self-contained demo, and an AOT bundle
+(`serve/export.py`)."""
 
 from __future__ import annotations
 
@@ -76,3 +76,47 @@ def demo_pipeline(cls, device: str = "cuda", seed: int = 0):
         torch.manual_seed(seed)
         model = ECGMultimodalModel(cfg=ModelConfig(dtype="float32"))
     return cls(model, model.state_dict(), device=device)
+
+
+def pipeline_from_exported(cls, bundle_dir: str, device: str = "cuda"):
+    """A pipeline that serves a bundle's programs for `device`'s platform
+    (`serve/export.py`) without the model code: `model` is None, and
+    `_predict_many` runs the program of the bucket's size under the
+    device lock and `no_tf32` (TF32 is global state, not in the graph).
+    The b = 1 program is loaded here; the batched ones when batching is
+    enabled, as in JAX."""
+    from ecgmm_torch.serve.export import load_bundle, load_scaler
+
+    program, meta, host = load_bundle(bundle_dir, device=device)
+    pipe = cls.__new__(cls)
+    pipe.model = None
+    pipe.device = torch.device(device)
+    pipe.ecg_scaler = load_scaler(host, "ecg_scaler")
+    pipe.clinical_scaler = load_scaler(host, "clinical_scaler")
+    pipe.signal_len = int(meta["signal_len"])
+    pipe.img_hw = tuple(meta["img_hw"])
+    pipe.cam_hw = (-(-pipe.img_hw[0] // 32), -(-pipe.img_hw[1] // 32))
+    pipe.dims = tuple(meta["dims"])
+    pipe.n_clin = int(meta["clinical_in_features"])
+    pipe.num_classes = int(meta["num_classes"])
+    pipe.background = torch.as_tensor(host["background"],
+                                      device=pipe.device)
+    # informational: the temperature is a constant of the programs
+    pipe.temperature = float(meta.get("temperature", 1.0))
+    pipe._bundle_dir = bundle_dir
+    pipe._programs = {1: program}
+    pipe._exported_buckets = tuple(sorted(meta.get("batch_buckets") or ())
+                                   ) or None
+    pipe._init_serving_state()
+
+    def predict_many(img, sig, clin):
+        fn = pipe._programs.get(int(img.shape[0]))
+        if fn is None:
+            raise ValueError(
+                f"bundle has no program for bucket {img.shape[0]} "
+                f"(loaded: {sorted(pipe._programs)})")
+        with pipe._device_lock, no_tf32():
+            return fn(img, sig, clin)
+
+    pipe._predict_many = predict_many
+    return pipe

@@ -124,6 +124,7 @@ class ServingPipeline:
         cfg = model.cfg
         self.dims = (cfg.image_dim, cfg.signal_dim, cfg.clinical_dim)
         self.n_clin = cfg.clinical_in_features
+        self.num_classes = cfg.num_classes
         if background_embeddings is None:
             rng = np.random.default_rng(0)
             background_embeddings = rng.normal(
@@ -148,6 +149,12 @@ class ServingPipeline:
             torch.arange(IG_STEPS, dtype=torch.float32, device=self.device)
             + 0.5
         ) / IG_STEPS
+        self._exported_buckets = None
+        self._init_serving_state()
+
+    def _init_serving_state(self) -> None:
+        """The locks, counters and batching state of a new pipeline, live
+        or loaded from a bundle."""
         # one device program at a time: CUDA events of a dispatch then
         # time that dispatch alone
         self._device_lock = threading.RLock()
@@ -185,6 +192,15 @@ class ServingPipeline:
 
         return pipeline_from_run(cls, run_dir, data, model=model,
                                  which=which, device=device)
+
+    @classmethod
+    def from_exported(cls, bundle_dir: str,
+                      device: str = "cuda") -> "ServingPipeline":
+        """An AOT bundle's programs for `device` (serve/export.py), with no
+        model — see loaders.pipeline_from_exported."""
+        from ecgmm_torch.serve.loaders import pipeline_from_exported
+
+        return pipeline_from_exported(cls, bundle_dir, device=device)
 
     # -- the device program ----------------------------------------------
 
@@ -267,12 +283,21 @@ class ServingPipeline:
         return rows, np.full(rows.shape[0], ms)
 
     def _unpack(self, row: np.ndarray):
-        c, d, f = self.model.cfg.num_classes, sum(self.dims), self.n_clin
+        c, d, f = self.num_classes, sum(self.dims), self.n_clin
         h, w = self.cam_hw
         sizes = [c, 1, h * w, d, f]
         probs, pred, cam, attr, ca = np.split(row, np.cumsum(sizes)[:-1])
         return (probs, int(round(float(pred[0]))),
                 cam.reshape(1, h, w), attr.reshape(1, d), ca)
+
+    def _load_exported_batched(self) -> None:
+        """Load the bundle's batched programs once (deferred from
+        `from_exported`: each carries its own copy of the weights)."""
+        if not set(self._exported_buckets) <= set(self._programs):
+            from ecgmm_torch.serve.export import load_batched_programs
+
+            self._programs.update(
+                load_batched_programs(self._bundle_dir, self.device))
 
     # -- micro-batching ----------------------------------------------------
 
@@ -353,9 +378,20 @@ class ServingPipeline:
         the buckets must divide by n_data and default to n_data * (1, 2,
         4, 8), and a re-enable reuses the replicas. Requests are
         independent row by row, so the responses are the single-device
-        ones."""
+        ones. A pipeline loaded from a bundle serves the buckets it was
+        exported with (all of them by default), on one device."""
         if n_data < 1:
             raise ValueError(f"n_data must be >= 1, got {n_data}")
+        if n_data > 1 and self.model is None:
+            raise ValueError(
+                "mesh serving (n_data > 1) needs a live model — an AOT "
+                "bundle is a fixed single-device program")
+        exported = self._exported_buckets
+        if self.model is None and not exported:
+            raise ValueError(
+                "this pipeline has no batched request program — export "
+                "the bundle with batch_buckets=(8,) (or more buckets) to "
+                "serve batched from AOT")
         if n_data > 1:
             visible = len(meshlib.visible_devices(self.device))
             if n_data > visible:
@@ -364,8 +400,15 @@ class ServingPipeline:
                     "device(s)"
                 )
         if buckets is None:
-            buckets = tuple(max(n_data, 1) * b for b in (1, 2, 4, 8))
+            buckets = exported or tuple(max(n_data, 1) * b
+                                        for b in (1, 2, 4, 8))
         buckets = tuple(buckets)
+        if exported is not None and not set(buckets) <= set(exported):
+            raise ValueError(
+                f"requested batch buckets {buckets} not all exported "
+                f"(bundle has {exported})")
+        if self.model is None:
+            self._load_exported_batched()
         if n_data > 1:
             bad = tuple(b for b in buckets if b % n_data)
             if bad:
@@ -496,7 +539,7 @@ class ServingPipeline:
             "requests": n,
             "errors": errs,
             "mean_latency_ms": (lat / n * 1e3) if n else 0.0,
-            "aot": False,
+            "aot": self.model is None,
             "temperature": self.temperature,
             "device": str(self.device),
             "batching": None,

@@ -17,6 +17,13 @@ both (`fwd_bwd_us`). Per fusion shape: the forward without autograd
 (`fwd_us`) and, for the serving request's SHAP and IG cases and for all
 six inputs as a fusion head in training needs them, the backward alone
 and both. `device_us` and `host_us` are chip_smoke.py's timers.
+
+`entry` (with `--entry-only`, alone): the host's µs per call of the eager
+entry points as the main paths call them, `fused_se` forward at the
+serving shape (1, 64, 619) and forward plus backward at the training one
+(16, 64, 619), and `fused_attention_fusion` forward at B = 1 and forward
+plus the IG backward at B = 8 (D = 672): the launch glue a change to the
+wrappers could move.
 """
 
 from __future__ import annotations
@@ -165,18 +172,57 @@ def fusion_times(fusion, gen):
     return fwd, bwd
 
 
+def entry_times(se, fusion, gen):
+    """Host µs per call of the eager entry points (see the docstring)."""
+    def se_inputs(b):
+        c, t = 64, 619
+        x = torch.randn(b, c, t, generator=gen).cuda()
+        ws = [torch.randn(*shape, generator=gen).cuda() * 0.1
+              for shape in ((4, c), (4,), (c, 4), (c,))]
+        return x, ws
+
+    x1, w1 = se_inputs(1)
+    x16, w16 = se_inputs(16)
+    leaf = x16.clone().requires_grad_(True)
+    ws16 = [w.clone().requires_grad_(True) for w in w16]
+    g16 = torch.randn_like(x16)
+    f1 = _fusion_inputs(gen, 1, FUSION_DIMS[672])
+    f8 = _fusion_inputs(gen, 8, FUSION_DIMS[672])
+    clin = f8[2].clone().requires_grad_(True)
+    go = torch.randn(8, 672, generator=gen).cuda()
+
+    def se_train():
+        out = se.fused_se(leaf, *ws16)
+        return torch.autograd.grad(out, [leaf, *ws16], g16)
+
+    def fusion_ig():
+        out, _ = fusion.fused_attention_fusion(f8[0], f8[1], clin, *f8[3:],
+                                               eps=EPS)
+        return torch.autograd.grad(out, clin, go)
+
+    with torch.no_grad():
+        rows = {"fused_se_fwd_b1": host_us(lambda: se.fused_se(x1, *w1)),
+                "fusion_fwd_b1": host_us(
+                    lambda: fusion.fused_attention_fusion(*f1, eps=EPS))}
+    rows["fused_se_fwd_bwd_b16"] = host_us(se_train)
+    rows["fusion_fwd_ig_bwd_b8"] = host_us(fusion_ig)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     here = os.path.dirname(os.path.abspath(__file__))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--entry-only", action="store_true",
+                    help="time only the entry points' host cost per call")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from ecgmm_torch.ops import _ext, fusion, losses
+    from ecgmm_torch.ops import _ext, fusion, losses, se
 
     if not os.path.abspath(_ext.__file__).startswith(root + os.sep):
         raise RuntimeError(f"ecgmm_torch came from {_ext.__file__}, not "
@@ -188,9 +234,12 @@ def main(argv=None) -> int:
     _ext.library()
     gen = torch.Generator().manual_seed(0)
     result = {"root": root, "device": smi,
-              "floor_us": device_us(lambda: torch.cuda._sleep(1)),
-              "focal": focal_times(losses, gen)}
-    result["fusion_fwd"], result["fusion_bwd"] = fusion_times(fusion, gen)
+              "entry_host_us": entry_times(se, fusion, gen)}
+    if not args.entry_only:
+        result["floor_us"] = device_us(lambda: torch.cuda._sleep(1))
+        result["focal"] = focal_times(losses, gen)
+        result["fusion_fwd"], result["fusion_bwd"] = fusion_times(fusion,
+                                                                  gen)
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -269,11 +269,18 @@ def cross_dataset_eval(model: torch.nn.Module, signals: np.ndarray,
 
 def _load_weights(args) -> Dict[str, torch.Tensor]:
     """`--pth`: a reference ResNet1D-SE state dict (the port's models use
-    the reference's names and layout); `--ckpt`: a checkpoint of the
-    port's `train/checkpoint.py` (its model's state dict)."""
+    the reference's names and layout); `--ckpt`: a `.msgpack` flax tree
+    (JAX's converted checkpoints, `ecgmm-convert`; read by the port's own
+    codec) or a checkpoint of the port's `train/checkpoint.py` (its
+    model's state dict)."""
     if args.pth:
         sd = torch.load(args.pth, map_location="cpu", weights_only=True)
         return sd.state_dict() if hasattr(sd, "state_dict") else sd
+    if args.ckpt.endswith(".msgpack"):
+        from ecgmm_torch.tools.convert_pth import load_converted
+        from ecgmm_torch.tools.weights import from_jax_resnet1d_se
+
+        return from_jax_resnet1d_se(load_converted(args.ckpt))
     return torch.load(args.ckpt, map_location="cpu",
                       weights_only=True)["model"]
 

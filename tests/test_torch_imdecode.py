@@ -344,7 +344,9 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
         (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC3), "lossless JPEG"),
         (b"not an image", "not a decodable image"),
         (_jpeg(img)[:300], "not a decodable image"),
-        (b"GIF89a" + b"\x00" * 20, "not a JPEG, PNG or BMP"),
+        (b"GIF89a" + b"\x00" * 20, "GIF with no image"),
+        (b"RIFF\x24\x00\x00\x00WEBPVP8 " + b"\x00" * 24,
+         "not a JPEG, PNG, GIF or BMP"),
     ]
     three = bytearray(write_png(img[:, :, :1], 0, 0))
     ihdr = three.index(b"IHDR")
@@ -636,8 +638,10 @@ def test_bmp_bit_equal_to_pillow(bpp, core, top_down):
 
 def test_bmp_saved_by_pillow_and_refusals(photo):
     """Pillow's own BMP files (RGB, RGBA, palette, gray, 1-bit) decode
-    bit-equal; a compressed or 16-bit BMP and a header over the pixel
-    limit are refused, the last before any pixel is read."""
+    bit-equal; a run-length compression on a depth it does not apply to,
+    a JPEG-compressed BMP, 16-bit bitfields that Pillow does not read and
+    a header over the pixel limit are refused, the last before any pixel
+    is read."""
     img = photo[:21, :37]
     for mode in ("RGB", "RGBA", "P", "L", "1"):
         im = Image.fromarray(img)
@@ -650,12 +654,268 @@ def test_bmp_saved_by_pillow_and_refusals(photo):
     good = bytearray(_bmp([b"\x00" * 6] * 2, 24, 2))
     rle = bytearray(good)
     rle[30:34] = struct.pack("<I", 1)
-    sixteen = bytearray(good)
-    sixteen[28:30] = struct.pack("<H", 16)
+    jpeg = bytearray(good)
+    jpeg[30:34] = struct.pack("<I", 4)
     bomb = bytearray(good)
     bomb[18:26] = struct.pack("<ii", 100000, 100000)
-    for data, want in ((rle, "compression 1"), (sixteen, "16-bit BMP"),
+    odd_masks = _bitfields_bmp(np.zeros((2, 2), np.uint16), 16,
+                               (0xF000, 0x0F00, 0x00F0))
+    for data, want in ((rle, "compression 1"), (jpeg, "compression 4"),
+                       (odd_masks, "bitfields layout"),
                        (bomb, "decompression bomb"),
                        (bytes(good[:40]), "truncated")):
         with pytest.raises(BadRequest, match=want):
             decode_upload(bytes(data))
+
+
+# ---------------------------------------------------------------- GIF, and
+# the compressed and 16-bit BMP layouts
+
+
+def _lzw(indices, min_code):
+    """GIF LZW codes for `indices`, the simplest valid stream: a clear
+    code before every run of literal codes short enough that the code
+    size never grows, then the end code; returns the data sub-blocks."""
+    clear, end = 1 << min_code, (1 << min_code) + 1
+    size = min_code + 1
+    room = (1 << size) - (clear + 2)  # literals before the size would grow
+    codes = []
+    for i in range(0, len(indices), max(1, room)):
+        codes.append(clear)
+        codes += list(indices[i:i + max(1, room)])
+    codes.append(end)
+    acc = nbits = 0
+    out = bytearray()
+    for c in codes:
+        acc |= c << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + bytes(out[i:i + 255])
+                      for i in range(0, len(out), 255))
+    return bytes([min_code]) + blocks + b"\x00"
+
+
+def _gif(screen, frame_box, index, global_palette=None, local_palette=None,
+         transparency=None, interlace=False, min_code=8, tail=b";"):
+    """A GIF89a by hand: the logical screen (w, h), one frame at
+    frame_box (x0, y0, w, h) of palette `index` rows (stored interlaced
+    where asked), the colour tables as (n, 3) arrays (n a power of two),
+    a graphic control extension with the transparency index."""
+    def table(p):
+        return (len(p).bit_length() - 2) | 0x80, bytes(np.asarray(
+            p, np.uint8).reshape(-1))
+
+    flags, gtab = (table(global_palette) if global_palette is not None
+                   else (0, b""))
+    out = b"GIF89a" + struct.pack("<HHBBB", *screen, flags, 0, 0) + gtab
+    if transparency is not None:
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) \
+            + b"\x00"
+    out += b"!\xfe\x05hello\x00"  # a comment, skipped
+    lflags, ltab = (table(local_palette) if local_palette is not None
+                    else (0, b""))
+    rows = np.asarray(index, np.uint8)
+    if interlace:
+        lflags |= 0x40
+        rows = rows[np.concatenate([np.arange(a, len(rows), b) for a, b in
+                                    ((0, 8), (4, 8), (2, 4), (1, 2))])]
+    out += b"," + struct.pack("<HHHHB", *frame_box, lflags) + ltab
+    return out + _lzw(rows.reshape(-1).tolist(), min_code) + tail
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("case", ["global", "local", "grey", "none",
+                                  "transparent_inset", "short_table"])
+def test_gif_bit_equal_to_pillow(case, interlace):
+    """The first frame of hand-made GIFs against Pillow's
+    `.convert("RGB")`: a global colour table, a local one over a global
+    one, an identity grey table (Pillow's mode L), no table at all, a
+    frame inset in a larger screen whose margin takes the transparency
+    index, and indices past a short table; rows plain and interlaced."""
+    rng = np.random.default_rng(len(case) + interlace)
+    w, h = 23, 19
+    pal = rng.integers(0, 256, (16, 3))
+    kw = {}
+    screen, box = (w, h), (0, 0, w, h)
+    index = rng.integers(0, 16, (h, w))
+    if case == "global":
+        kw["global_palette"] = pal
+    elif case == "local":
+        kw["global_palette"] = rng.integers(0, 256, (4, 3))
+        kw["local_palette"] = pal
+    elif case == "grey":
+        kw["global_palette"] = np.repeat(np.arange(16)[:, None], 3, 1)
+    elif case == "transparent_inset":
+        kw["global_palette"] = pal
+        kw["transparency"] = 5
+        screen, box = (w + 7, h + 4), (3, 2, w, h)
+    elif case == "short_table":
+        kw["global_palette"] = pal[:4]
+        kw["min_code"] = 5
+        index = rng.integers(0, 32, (h, w))
+    data = _gif(screen, box, index, interlace=interlace, **kw)
+    np.testing.assert_array_equal(decode_upload(data), pillow(data))
+
+
+@pytest.mark.parametrize("mode", ["P", "L", "RGB"])
+def test_gif_saved_by_pillow(photo, mode):
+    """Pillow's own GIF files (its LZW coder grows the code size and
+    fills the table) of a strip decode bit-equal."""
+    im = Image.fromarray(photo[:120, :900])
+    im = im.quantize(200) if mode == "P" else im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, format="GIF")
+    assert_bit_equal(buf.getvalue())
+
+
+def test_gif_refusals():
+    """A GIF whose image data stops early, one with a code beyond the
+    table, one with no image and one over the pixel limit are refused,
+    as Pillow refuses them."""
+    pal = np.zeros((4, 3))
+    good = _gif((5, 4), (0, 0, 5, 4), np.ones((4, 5)), global_palette=pal,
+                min_code=2)
+    cut = good[:-6]
+    bad_code = bytearray(good)
+    lzw_at = good.index(b",") + 10
+    bad_code[lzw_at + 2] = 0xFF  # a code far past the table
+    bomb = bytearray(good)
+    bomb[6:10] = struct.pack("<HH", 65535, 65535)
+    cases = ((cut, "truncated GIF"), (bytes(bad_code), "LZW code"),
+             (good[:good.index(b",")] + b";", "GIF with no image"),
+             (bytes(bomb), "decompression bomb"))
+    for data, want in cases:
+        if want != "decompression bomb":
+            with pytest.raises(Exception):
+                pillow(data)
+        with pytest.raises(BadRequest, match=want):
+            decode_upload(data)
+
+
+def _bitfields_bmp(pixels, bpp, masks, hsize=40):
+    """A BI_BITFIELDS BMP of `pixels` (height, width) uint16 or uint32,
+    top row first, with the masks after a 40-byte header or inside a
+    larger one."""
+    height, width = pixels.shape
+    dtype = "<u2" if bpp == 16 else "<u4"
+    stride = (width * bpp + 31) // 32 * 4
+    body = b"".join(r.astype(dtype).tobytes().ljust(stride, b"\x00")
+                    for r in pixels[::-1])
+    masks = tuple(masks) + (0,) * (4 - len(masks))
+    dib = struct.pack("<IiiHHIIiiII", hsize, width, height, 1, bpp, 3,
+                      len(body), 0, 0, 0, 0)
+    if hsize == 40:
+        extra = struct.pack("<III", *masks[:3])
+    else:
+        dib += struct.pack("<IIII", *masks)
+        dib = dib[:hsize].ljust(hsize, b"\x00")
+        extra = b""
+    offset = 14 + len(dib) + len(extra)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + dib + extra + body)
+
+
+@pytest.mark.parametrize("hsize", [40, 56, 124])
+@pytest.mark.parametrize("layout", [
+    (16, (0xF800, 0x7E0, 0x1F)), (16, (0x7C00, 0x3E0, 0x1F)),
+    (32, (0xFF0000, 0xFF00, 0xFF)), (32, (0xFF000000, 0xFF0000, 0xFF00)),
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)), (32, (0, 0, 0, 0))])
+def test_bmp_bitfields_bit_equal_to_pillow(layout, hsize):
+    """BI_BITFIELDS at 16 bits (5-6-5, 5-5-5) and 32 bits with the masks
+    Pillow reads, the masks after a 40-byte header or inside a V3/V5
+    header. A 40-byte header carries no alpha mask: where that leaves a
+    layout Pillow does not read, both refuse it."""
+    bpp, masks = layout
+    if hsize == 40 and len(masks) == 4 and masks[3]:
+        masks = masks[:3]
+    rng = np.random.default_rng(bpp + hsize)
+    px = rng.integers(0, 1 << bpp, (7, 11), dtype=np.uint64)
+    data = _bitfields_bmp(px, bpp, masks, hsize)
+    try:
+        want = pillow(data)
+    except OSError:
+        with pytest.raises(BadRequest, match="bitfields layout"):
+            decode_upload(data)
+        return
+    np.testing.assert_array_equal(decode_upload(data), want)
+
+
+def test_bmp_16_bit_rgb_bit_equal_to_pillow():
+    """16-bit BI_RGB (5-5-5, the high bit unused), odd width, bottom-up
+    and top-down."""
+    rng = np.random.default_rng(16)
+    px = rng.integers(0, 1 << 16, (5, 9), dtype=np.uint16)
+    for top_down in (False, True):
+        data = _bmp([r.astype("<u2").tobytes() for r in px], 16, 9,
+                    top_down=top_down)
+        np.testing.assert_array_equal(decode_upload(data), pillow(data))
+
+
+def _rle_stream(rng, width, height, rle4, base, n_ops=160):
+    """A random RLE8/RLE4 stream that starts at file offset `base`:
+    encoded runs (some longer than the row has room for), absolute runs
+    (odd lengths included, each padded to an even file offset), ends of
+    line, deltas and, last, the end of the bitmap."""
+    out = bytearray()
+    top = 16 if rle4 else 256
+    for _ in range(n_ops):
+        op = rng.integers(0, 10)
+        if op < 4:
+            run = int(rng.integers(1, width + 4))
+            out += bytes([run, int(rng.integers(0, 256))])
+        elif op < 7:
+            n = int(rng.integers(3, width + 2))
+            vals = rng.integers(0, top, n)
+            if rle4:
+                vals = list(vals) + [0] * (n % 2)
+                raw = bytes((vals[i] << 4) | vals[i + 1]
+                            for i in range(0, len(vals), 2))
+            else:
+                raw = bytes(int(v) for v in vals)
+            out += bytes([0, n]) + raw
+            if (base + len(out)) % 2:
+                out += b"\x00"
+        elif op < 9:
+            out += b"\x00\x00"
+        else:
+            out += b"\x00\x02\x00\x00" + bytes([int(rng.integers(0, 4)),
+                                                int(rng.integers(0, 2))])
+    return bytes(out) + b"\x00\x01"
+
+
+@pytest.mark.parametrize("top_down", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("rle4", [False, True], ids=["rle8", "rle4"])
+def test_bmp_rle_bit_equal_to_pillow(rle4, seed, top_down):
+    """RLE8 and RLE4 BMP against Pillow's decoder, quirks and all: runs
+    clipped at the row's end, a row overrun by an absolute run running
+    into the next row, padding to an even file offset, a delta that
+    reads its (right, up) two bytes late, rows the stream never reaches
+    left at index 0, and a palette index past the file's colours. A
+    stream that ends before the last pixel is refused by both."""
+    rng = np.random.default_rng(seed)
+    width, height = 17, 9
+    bpp = 4 if rle4 else 8
+    n = 12
+    palette = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+    pal = b"".join(bytes(c[::-1]) + b"\x00" for c in palette)
+    dib_size, pad = 40, seed % 2  # an odd offset, too
+    offset = 14 + dib_size + len(pal) + pad
+    body = _rle_stream(rng, width, height, rle4, offset)
+    dib = struct.pack("<IiiHHIIiiII", dib_size, width,
+                      -height if top_down else height, 1, bpp,
+                      2 if rle4 else 1, len(body), 0, 0, n, 0)
+    data = (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + dib + pal + b"\x00" * pad + body)
+    np.testing.assert_array_equal(decode_upload(data), pillow(data))
+    short = data[:-len(body)] + body[:2] + b"\x00\x01"  # one run, the end
+    with pytest.raises(ValueError, match="not enough image data"):
+        pillow(short)
+    with pytest.raises(BadRequest, match="ends before the last pixel"):
+        decode_upload(short)

@@ -6,8 +6,12 @@ fall back to the CPU. The scan and the blocked import walk every module
 of the package, the explainers of `ecgmm_torch/explain/` and the XAI CLI,
 the record readers and writers of the real-data path and the CV
 harnesses (`train/cv.py`, `train/cv_parallel.py`), the parallel package
-(`parallel/*`) and the collective report (`tools/tp_report.py`) among
-them."""
+(`parallel/*`), the collective report (`tools/tp_report.py`), the AOT
+bundle (`serve/export.py`) and the tools (`tools/flax_msgpack.py`,
+`convert_pth`, `export_pth`, `trace_report`, `digitize_batch`,
+`digitize_envelope`, `eda`, `ocr`, `rows_cap_probe`, `train/profiler.py`)
+among them. The msgpack package is refused as well: the port reads and
+writes flax's format with its own codec."""
 
 import ast
 import os
@@ -22,7 +26,8 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL",
-             "pandas", "matplotlib", "openpyxl", "wfdb", "sklearn")
+             "pandas", "matplotlib", "openpyxl", "wfdb", "sklearn",
+             "msgpack")
 XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
                "shap_fusion", "tabnet_masks")
 REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
@@ -30,6 +35,12 @@ REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
                      "train.cv", "train.cv_parallel", "data.splits")
 PARALLEL_MODULES = ("parallel.collectives", "parallel.mesh",
                     "parallel.launch", "parallel.tp", "tools.tp_report")
+TOOL_MODULES = ("serve.export", "tools.flax_msgpack", "tools.convert_pth",
+                "tools.export_pth", "train.profiler", "tools.trace_report",
+                "tools.digitize_batch", "tools.digitize_envelope",
+                "tools.eda", "tools.ocr", "tools.rows_cap_probe",
+                "tools.export_times")
+PORT_MODULES = REAL_DATA_MODULES + PARALLEL_MODULES + TOOL_MODULES
 
 
 def _port_files():
@@ -44,7 +55,7 @@ def test_no_forbidden_import_in_source():
     for name in XAI_MODULES:
         assert os.path.join(REPO, "ecgmm_torch", "explain",
                             f"{name}.py") in files
-    for name in REAL_DATA_MODULES + PARALLEL_MODULES:
+    for name in PORT_MODULES:
         assert os.path.join(REPO, "ecgmm_torch",
                             *name.split(".")) + ".py" in files
     bad = []
@@ -79,7 +90,7 @@ def test_imports_with_jax_blocked():
         assert all(f"ecgmm_torch.explain.{{n}}" in mods
                    for n in {XAI_MODULES!r})
         assert all(f"ecgmm_torch.{{n}}" in mods
-                   for n in {REAL_DATA_MODULES + PARALLEL_MODULES!r})
+                   for n in {PORT_MODULES!r})
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         mod = importlib.util.module_from_spec(spec)

@@ -371,13 +371,14 @@ def test_soak_histogram_percentiles_interpolate():
 
 def test_cli_defaults_to_the_card():
     """Without --device the server runs on CUDA: where there is no card
-    it raises instead of quietly using the CPU. --bundle raises, naming
-    the ROADMAP item it waits for; --n-data beyond the visible devices
+    it raises instead of quietly using the CPU. --bundle of a missing
+    directory raises FileNotFoundError, as JAX's load_bundle does;
+    --n-data beyond the visible devices
     (one CPU) raises JAX's error before the pipeline is built."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             port_http.main(["--synthetic", "--no-warmup"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="nonexistent"):
         port_http.main(["--bundle", "/nonexistent", "--device", "cpu"])
     with pytest.raises(ValueError, match="visible device"):
         port_http.main(["--n-data", "2", "--batch-window-ms", "5",
