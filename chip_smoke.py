@@ -46,17 +46,19 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      clock), and a `host_kernels` JSON line;
   5. numbers: request latency;
   8. (run after phase 5) the front end: the upload decoder turns the
-     committed fixtures into Pillow's bytes (SHA-256); the HTTP server
+     committed fixtures (JPEG and WebP: lossy, VP8X with EXIF, lossless,
+     animated) into Pillow's bytes (SHA-256), and each WebP fixture's
+     decode ms is printed beside the JPEG strip's; the HTTP server
      (`serve(ServingPipeline.demo(device="cuda"), port=0,
      background=True)`) with the micro-batcher on (20 ms window, buckets
-     1-16) answers 16 client threads posting the hammer's JPEG, every
-     response checked, with the launch counters equal to dispatches x
-     (3 SE forwards, 3 fusion forwards, 2 fusion backwards), coalescence
-     above 1 in /stats and /metrics parsed; a b=16 dispatch matches the
-     CPU with TF32 at torch's defaults (and a TF32 control is read);
-     requests/s and p50/p90 at 1, 4 and 16 clients batched and unbatched,
-     device ms per bucket, the busy share, decode ms; a drain with 16
-     requests in flight loses none;
+     1-16) answers 16 client threads posting the hammer's JPEG, then the
+     same strip as WebP, every response checked, with the launch counters
+     equal to dispatches x (3 SE forwards, 3 fusion forwards, 2 fusion
+     backwards), coalescence above 1 in /stats and /metrics parsed; a
+     b=16 dispatch matches the CPU with TF32 at torch's defaults (and a
+     TF32 control is read); requests/s and p50/p90 at 1, 4 and 16 clients
+     batched and unbatched, device ms per bucket, the busy share; a drain
+     with 16 requests in flight loses none;
   6. the training slices: 3 full-width `ptbxl_af` train steps from one
      initial state on the card and on the CPU agree (loss, gradients,
      parameters, BatchNorm buffers), and the same first step with TF32 on
@@ -127,7 +129,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      launches of each against its plan (each kernel once per vmapped op,
      never once per fold); `python -m ecgmm_torch.train.cv` nested,
      nested --fold-parallel --cache-embeddings, exhaustive --k 10
-     --max-pairs 30 --fold-parallel --cache-embeddings and cross --pth in four
+     --max-pairs 10 --fold-parallel --cache-embeddings and cross --pth in four
      subprocesses at once (finite summaries, wall times); the peak memory
      of raw `fusion` and `signal_only` waves at two wave sizes and the
      rows cap it gives;
@@ -1190,11 +1192,14 @@ SERVE_PLAN = {"fused_se": 3, "fused_attention_fusion": 3,
               "fused_focal_loss": 0, "fused_focal_loss_backward": 0}
 
 
+WEBP_STRIP = os.path.join(FIXTURES, "strip_q80.webp")
+
+
 def check_decoder(smi):
     """The upload decoder where the script runs: each committed fixture
-    decodes to the SHA-256 that Pillow's decode gave where the fixtures
-    were made; decode time of the hammer's strip (host clock, median of
-    20)."""
+    (JPEG and WebP) decodes to the SHA-256 that Pillow's decode gave where
+    the fixtures were made; decode time of the hammer's JPEG strip and of
+    each WebP fixture (host clock, median of 20). Returns {file: ms}."""
     with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
         hashes = json.load(f)
     for name, want in hashes.items():
@@ -1206,17 +1211,21 @@ def check_decoder(smi):
         if list(rgb.shape) != want["shape"] or got != want["rgb_sha256"]:
             raise AssertionError(f"{name}: the decode differs from Pillow's "
                                  f"(sha256 {want['rgb_sha256']})")
-    with open(os.path.join(FIXTURES, "strip.jpg"), "rb") as f:
-        data = f.read()
-    times = []
-    for _ in range(20):
-        t = time.perf_counter()
-        decode_upload(data)
-        times.append((time.perf_counter() - t) * 1e3)
-    ms = statistics.median(times)
-    print(f"decode strip.jpg (250x2500 JPEG 4:2:0): median {ms:.3f} ms "
-          f"(host clock; {smi})", flush=True)
-    return ms
+    out = {}
+    for name in ["strip.jpg"] + sorted(n for n in hashes
+                                       if n.endswith(".webp")):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            rgb = decode_upload(data)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+        print(f"decode {name} ({len(data)} bytes, {rgb.shape[0]}x"
+              f"{rgb.shape[1]}): median {out[name]:.3f} ms (host clock; "
+              f"{smi})", flush=True)
+    return out
 
 
 # ------------------------------------------------ the request's host kernels
@@ -1599,9 +1608,11 @@ def bucket_device_ms(pipe, smi):
     return out
 
 
-def hammer_window(url, clients, seconds, pipe):
-    """`serve_hammer.hammer` with every response checked against the
-    contract, and the dispatches' device ms summed over the window."""
+def hammer_window(url, clients, seconds, pipe,
+                  photo=serve_hammer.STRIP_JPEG):
+    """`serve_hammer.hammer` (uploads of `photo`) with every response
+    checked against the contract, and the dispatches' device ms summed
+    over the window."""
     spans = []
     inner = pipe._dispatch
 
@@ -1615,7 +1626,8 @@ def hammer_window(url, clients, seconds, pipe):
         t = time.perf_counter()
         res = serve_hammer.hammer(
             url, clients, seconds,
-            on_response=lambda b: check_response(json.loads(b), "png"))
+            on_response=lambda b: check_response(json.loads(b), "png"),
+            photo=photo)
         wall_ms = (time.perf_counter() - t) * 1e3
     finally:
         del pipe._dispatch
@@ -1707,12 +1719,13 @@ def run_front_end(smi):
     """Phase 8: the serving front end on the card. The decoder's
     fixtures; `serve(ServingPipeline.demo(device="cuda"), port=0,
     background=True)` with the micro-batcher on (window 20 ms, buckets
-    1-16) under 16 client threads posting the hammer's JPEG, every
-    response checked, with the launch counters equal to dispatches times
-    the plan (3 SE forwards, 3 fusion forwards, 2 fusion backwards);
-    /stats and /metrics; a b=16 dispatch against the CPU; requests/s and
-    latency at 1, 4 and 16 clients batched and unbatched; device ms per
-    bucket; the drain. Returns the launches of the batched HTTP run."""
+    1-16) under 16 client threads posting the hammer's JPEG, then the
+    same strip as WebP, every response checked, with the launch counters
+    equal to dispatches times the plan (3 SE forwards, 3 fusion forwards,
+    2 fusion backwards); /stats and /metrics; a b=16 dispatch against the
+    CPU; requests/s and latency at 1, 4 and 16 clients batched and
+    unbatched; device ms per bucket; the drain. Returns the launches of
+    the two batched HTTP runs by path."""
     decode_ms = check_decoder(smi)
     pipe = ServingPipeline.demo(device="cuda", seed=0)
     pipe.enable_batching(HTTP_WINDOW_MS, max_batch=max(SERVE_BUCKETS),
@@ -1744,6 +1757,20 @@ def run_front_end(smi):
                 or "ecgmm_live_buffer_bytes" not in m:
             raise AssertionError(f"/metrics does not agree with /stats: {m}")
         print(f"/metrics: {m}", flush=True)
+        before = pipe.stats()["batching"]["dispatches"]
+        _zero_launch_counts()
+        webp16 = hammer_window(url, 16, 4.0, pipe, photo=WEBP_STRIP)
+        webp_launches = _launch_counts()
+        webp_dispatches = pipe.stats()["batching"]["dispatches"] - before
+        print(f"http batched 16 clients posting {os.path.basename(WEBP_STRIP)}"
+              f": {webp16['requests']} requests in {webp_dispatches} "
+              f"dispatches, launches {webp_launches}, "
+              f"{webp16['req_per_sec']:.3f} req/s, p50 "
+              f"{webp16['latency_median_ms']:.3f} ms ({smi})", flush=True)
+        if webp_launches != {k: n * webp_dispatches
+                             for k, n in SERVE_PLAN.items()}:
+            raise AssertionError("the WebP uploads did not run through the "
+                                 "kernels' plan per dispatch")
         busy = profiled_busy(url, 16, 2.0, smi)
         cpu_pipe = _cpu_twin(pipe)
         tf32 = compare_batched_with_cpu(pipe, cpu_pipe)
@@ -1774,6 +1801,9 @@ def run_front_end(smi):
         pipe.close_batching()
     print(json.dumps({"front_end": {
         "device": smi, "decode_ms": decode_ms, "busy_share_16": busy,
+        "webp_batched_16": {k: webp16[k] for k in (
+            "req_per_sec", "latency_median_ms", "latency_p90_ms",
+            "device_program_share", "requests", "dispatches")},
         "bucket_device_ms": device_ms, "tf32_off": tf32[0],
         "tf32_control": tf32[1],
         "served": {mode: {c: {k: r[k] for k in (
@@ -1781,7 +1811,7 @@ def run_front_end(smi):
             "device_program_share", "requests", "dispatches")}
             for c, r in by.items()} for mode, by in served.items()}}}),
         flush=True)
-    return launches
+    return {"serve_http_batched": launches, "serve_http_webp": webp_launches}
 
 
 def _on(arrays, device):
@@ -3595,6 +3625,14 @@ def _grads_within(where, got, want, bar):
     return errs
 
 
+# the plain fold-axis versions loop the plain op over the folds. At n=5
+# the loops over 4 folds and the 15-fold fusion forward fit in the card's
+# launch queue and read device time; the 15-fold fusion forward+backward
+# and the 90-fold loops (up to ~150 ms a call) overflow it and read the
+# host's pace. Two rounds of 5 keep those calls short.
+PLAIN_FOLD_TIMING = {"n": 5, "rounds": 2}
+
+
 def fold_se_row(gen, folds, t, c, peaks):
     """The fold-axis SE kernels at (folds * 16, C, T) with per-fold weights:
     the forward within phase 3's 1e-5, each gradient against autograd of
@@ -3646,12 +3684,13 @@ def fold_se_row(gen, folds, t, c, peaks):
         "grad_err_rel": grad_err,
         "k_fwd": se.cluster_size(b, c, t, r, 4),
         "us": device_us(lambda: se._launch(x, *ws, folds=folds)),
-        "plain_us": device_us(lambda: se.reference_fold_se(x, *ws)),
+        "plain_us": device_us(lambda: se.reference_fold_se(x, *ws),
+                              **PLAIN_FOLD_TIMING),
         "bwd_us": device_us(backward),
         "fwd_bwd_us": device_us(lambda: fwd_bwd(
             lambda *a: se._FoldSE.apply(*a)[0], leaves)),
         "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(
-            se.reference_fold_se, ref_leaves)),
+            se.reference_fold_se, ref_leaves), **PLAIN_FOLD_TIMING),
         "bound_us": max(fwd_bytes / bw, fwd_ops / flops) * 1e6,
         "bwd_bound_us": max(bwd_bytes / bw, bwd_ops / flops) * 1e6,
         "bound_by": "bytes", "library_us": None,
@@ -3734,10 +3773,11 @@ def fold_fusion_row(gen, folds, peaks, dims=FUSION_DIMS[0]):
         "param_groups": fusion.param_groups(CV_B),
         "us": device_us(lambda: fusion._launch(*prepared, eps,
                                                folds=folds)),
-        "plain_us": device_us(lambda: plain(*ins)),
+        "plain_us": device_us(lambda: plain(*ins), **PLAIN_FOLD_TIMING),
         "bwd_us": device_us(backward),
         "fwd_bwd_us": device_us(lambda: fwd_bwd(kernel, leaves)),
-        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, ref_leaves)),
+        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, ref_leaves),
+                                      **PLAIN_FOLD_TIMING),
         "bound_us": max(fwd_bytes / bw, 9 * b * d / flops) * 1e6,
         "bwd_bound_us": max(bwd_bytes / bw, 16 * b * d / flops) * 1e6,
         "bound_by": "bytes", "library_us": None,
@@ -3811,10 +3851,12 @@ def fold_focal_row(gen, folds, peaks, c=2):
         "grad_err": grad_err,
         "us": device_us(lambda: focal._launch(*inputs, 1.0, 2.0,
                                               folds=folds)),
-        "plain_us": device_us(lambda: plain(logits, mask)),
+        "plain_us": device_us(lambda: plain(logits, mask),
+                              **PLAIN_FOLD_TIMING),
         "bwd_us": device_us(backward),
         "fwd_bwd_us": device_us(lambda: fwd_bwd(kernel, *leaves)),
-        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, *ref_leaves)),
+        "plain_fwd_bwd_us": device_us(lambda: fwd_bwd(plain, *ref_leaves),
+                                      **PLAIN_FOLD_TIMING),
         "bound_us": max(nbytes / bw, nops / flops) * 1e6,
         "bwd_bound_us": max(bwd_bytes / bw, b * (6 * c + 12) / flops) * 1e6,
         "bound_by": "bytes" if nbytes / bw >= nops / flops else "operations",
@@ -3953,7 +3995,7 @@ def compare_fold_program(name, cfg, cohort, folds, smi, raw_arrays=None,
 def run_cv_cli(smi, tmp):
     """Phase 12.3: the CV CLI in four subprocesses at once on a synthetic
     cohort of CV_CLI_N records, 2 epochs: nested (sequential), nested
-    --fold-parallel --cache-embeddings, exhaustive --k 10 (30 of its 90
+    --fold-parallel --cache-embeddings, exhaustive --k 10 (10 of its 90
     pairs, to keep the script's time) --fold-parallel
     --cache-embeddings, and cross --pth on a ResNet1D-SE
     state dict written here by torch.save. Each summary must be finite
@@ -3970,7 +4012,7 @@ def run_cv_cli(smi, tmp):
                                  "--fold-parallel", "--cache-embeddings"],
         "exhaustive_fold_parallel": [
             "exhaustive", "--preset", "fusion", "--k", "10",
-            "--max-pairs", "30", *common, "--fold-parallel",
+            "--max-pairs", "10", *common, "--fold-parallel",
             "--cache-embeddings"],
         "cross": ["cross", "--pth", pth, "--n-synth", "64", "--device",
                   CV_DEVICE],
@@ -4079,8 +4121,17 @@ def run_cv_phase(smi, peaks):
     """Phase 12, the CV path on the card (see the functions above).
     Returns the fold-kernel rows and the launches of each CV path."""
     t0 = time.perf_counter()
+    lap = [t0]
+    sub = {}
+
+    def part(name):  # phase 12's parts' walls, s
+        now = time.perf_counter()
+        sub[name] = round(now - lap[0], 3)
+        lap[0] = now
+
     gen = torch.Generator().manual_seed(12)
     rows = check_fold_kernels(gen, peaks)
+    part("fold_kernels")
     paths = {}
     # (a) signal: 4 folds of a 2x2 nested split, the last one's val split
     # replaced by NaN rows of no other fold (JAX's NaN-val test)
@@ -4094,6 +4145,7 @@ def run_cv_phase(smi, peaks):
     paths["cv_signal"] = compare_fold_program(
         "signal", _cv_signal_cfg(), cohort, folds, smi,
         nan_folds={len(folds) - 1})
+    part("a_signal")
     # (b) fusion raw, 4 folds
     cohort = synthetic.make_cohort(n=n, signal_len=CV_SIGNAL_LEN,
                                    img_hw=CV_IMG)
@@ -4101,6 +4153,7 @@ def run_cv_phase(smi, peaks):
                                                       42) for s in inner]
     paths["cv_fusion_raw"] = compare_fold_program(
         "fusion_raw", _cv_fusion_cfg(False, 2), cohort, folds, smi)
+    part("b_fusion_raw")
     # (c) fusion cached, the 15 folds of nested 5x3
     cfg = _cv_fusion_cfg(True, 4)
     cohort = synthetic.make_cohort(n=CV_CLI_N, signal_len=CV_SIGNAL_LEN,
@@ -4118,10 +4171,14 @@ def run_cv_phase(smi, peaks):
 
     paths["cv_fusion_cached"] = compare_fold_program(
         "fusion_cached", cfg, cohort, folds, smi, raw_arrays=raw)
+    part("c_fusion_cached")
     with tempfile.TemporaryDirectory() as tmp:
         cli = run_cv_cli(smi, tmp)
+    part("cli")
     cap = rows_cap(smi)
-    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    part("rows_cap")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s, parts "
+          f"{json.dumps(sub)}", flush=True)
     return rows, paths, cli, cap
 
 
@@ -4906,22 +4963,32 @@ def main() -> int:
           f"`_ext.launch_target` {host_us(raw_stream, 2000):.3f} ({smi})",
           flush=True)
     gen = torch.Generator().manual_seed(0)
+    sub = {}
+
+    def timed(name, fn, *args):  # phase 3's parts' walls, s
+        t = time.perf_counter()
+        out = fn(*args)
+        sub[name] = round(time.perf_counter() - t, 3)
+        return out
+
     print("fused_se has no single PyTorch call computing the same function "
           "(library_ms null)", flush=True)
-    se_rows = check_se(gen, peaks)
-    fusion_rows = check_fusion(gen, peaks)
-    fusion_bwd_rows = check_fusion_backward(gen, peaks)
-    fusion_sweep = fusion_layout_sweep(gen)
+    se_rows = timed("se", check_se, gen, peaks)
+    fusion_rows = timed("fusion", check_fusion, gen, peaks)
+    fusion_bwd_rows = timed("fusion_backward", check_fusion_backward, gen,
+                            peaks)
+    fusion_sweep = timed("fusion_sweep", fusion_layout_sweep, gen)
     print("fused_focal_loss has no single PyTorch call computing the same "
           "function (library_ms null)", flush=True)
-    focal_rows = check_focal(gen, peaks)
-    focal_profiled_backward(gen)
-    focal_sweep = focal_cluster_sweep(gen)
-    se_train_rows = check_se_train(gen, peaks)
-    se_fusion_rows = check_se_fusion(gen, peaks)
-    se_serving_rows = check_se_serving(gen, peaks)
-    se_xai_rows = check_se_xai(gen, peaks)
-    fusion_lime_rows = check_fusion_lime(gen, peaks)
+    focal_rows = timed("focal", check_focal, gen, peaks)
+    timed("focal_profiled", focal_profiled_backward, gen)
+    focal_sweep = timed("focal_sweep", focal_cluster_sweep, gen)
+    se_train_rows = timed("se_train", check_se_train, gen, peaks)
+    se_fusion_rows = timed("se_fusion", check_se_fusion, gen, peaks)
+    se_serving_rows = timed("se_serving", check_se_serving, gen, peaks)
+    se_xai_rows = timed("se_xai", check_se_xai, gen, peaks)
+    fusion_lime_rows = timed("fusion_lime", check_fusion_lime, gen, peaks)
+    print(f"phase 3 parts, s: {json.dumps(sub)}", flush=True)
     phase_done("3 kernels")
 
     # 4. the slice
@@ -4942,7 +5009,7 @@ def main() -> int:
               f"{float(np.percentile(vals, 90)):.3f} ({smi})", flush=True)
 
     # 8. the front end: decoder, HTTP server, micro-batcher
-    http_launches = run_front_end(smi)
+    http_paths = run_front_end(smi)
     phase_done("8 front end")
 
     # 6. the training slices: first the algorithm against the CPU in
@@ -5024,7 +5091,7 @@ def main() -> int:
     print(f"phase walls, s: {json.dumps(walls)} ({smi})", flush=True)
     paths = {
         "serve": launches,
-        "serve_http_batched": http_launches,
+        **http_paths,
         "train_ptbxl_af": ptbxl_launches,
         "train_physionet_multi": multi_launches,
         "train_fusion": fusion_launches,

@@ -1,10 +1,14 @@
 """Deterministic synthetic cohort (port of `ecgmm_tpu/data/synthetic.py`):
-`make_cohort` for the training presets and `_render_strip` for request
-images, in numpy alone (the JAX module imports pandas for its fixture
-writer, which the port does not need)."""
+`make_cohort` for the training presets, `_render_strip` for request
+images and `write_fixture_tree` for the hospital layout on disk, in numpy
+alone (the JAX module writes its fixture tree with pandas and Pillow; the
+port writes the same CSV text itself and the same JPEG bytes through its
+native encoder)."""
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -81,3 +85,49 @@ def make_cohort(
         h, w = img_hw
         images = np.stack([_render_strip(s, h, w) for s in signals])
     return SyntheticCohort(indices, labels, signals, clinical, images, cols)
+
+
+def _csv(path: str, header, rows) -> None:
+    """A CSV file as pandas' `to_csv` writes it: minimal quoting, "\n"
+    line ends, float32 values as numpy prints them."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
+
+
+def write_fixture_tree(
+    root: str, cohort: Optional[SyntheticCohort] = None, n: int = 24
+) -> SyntheticCohort:
+    """Write the cohort to disk in the reference's on-disk layout:
+    labels csv (xlsx surrogate), clinical.csv, ecg_signals.csv,
+    images/<idx>/<idx:03d>ECG_lead2.jpg (reference dataset.py:58-60,
+    127-130), byte for byte as the JAX module writes it: the JPEGs are
+    Pillow's default (quality 75, `native.jpeg_encode`). Used by loader
+    round-trip tests."""
+    from ecgmm_torch import native
+
+    cohort = cohort or make_cohort(n=n, img_hw=(50, 500))
+    os.makedirs(root, exist_ok=True)
+    # every ~8th sample Borderline to exercise the drop path
+    labels = ["Borderline" if i % 8 == 5 else
+              "Abnormal" if lab == 1 else "Normal"
+              for i, lab in enumerate(cohort.labels)]
+    _csv(os.path.join(root, "labels.csv"), ["index", "label"],
+         zip(cohort.indices.tolist(), labels))
+    _csv(os.path.join(root, "clinical.csv"),
+         ["index", *cohort.clinical_columns, "ECG"],
+         ([idx, *(str(np.float32(v)) for v in row), "unused"]
+          for idx, row in zip(cohort.indices.tolist(), cohort.clinical)))
+    _csv(os.path.join(root, "ecg_signals.csv"),
+         [""] + [str(j) for j in range(cohort.signals.shape[1])],
+         ([idx, *(str(np.float32(v)) for v in row)]
+          for idx, row in zip(cohort.indices.tolist(), cohort.signals)))
+    img_dir = os.path.join(root, "images")
+    for i, idx in enumerate(cohort.indices):
+        d = os.path.join(img_dir, str(idx))
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, f"{str(idx).zfill(3)}ECG_lead2.jpg"),
+                  "wb") as f:
+            f.write(native.jpeg_encode(cohort.images[i], quality=75))
+    return cohort

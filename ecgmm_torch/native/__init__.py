@@ -74,6 +74,8 @@ _SIGNATURES = {
     "ecgmm_resize_bicubic_u8": ([_P, _L, _L, _I, _L, _L, _P], _I),
     "ecgmm_jpeg_encode": ([_P, _L, _L, _I, _P, _L, _P], _I),
     "ecgmm_jpeg_std_huffman": ([_I, _P, _P], _I),
+    "ecgmm_webp_vp8": ([_P, _L, _P, _L, _I, _I, _P, _L, _P, _L], _I),
+    "ecgmm_webp_vp8l": ([_P, _L, _I, _I, _P, _L, _P, _L], _I),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""The upload decoder: JPEG, PNG, GIF and BMP bytes -> an (H, W, 3) uint8
-RGB array, turned upright by the EXIF orientation.
+"""The upload decoder: JPEG, PNG, GIF, BMP and WebP bytes -> an (H, W, 3)
+uint8 RGB array, turned upright by the EXIF orientation.
 
 It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 (`ecgmm_tpu/serve/http.py:101-112`),
@@ -28,17 +28,23 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 - GIF87a and GIF89a: the first frame, its LZW codes, the global and
   local colour tables, interlacing, and the transparency index as the
   fill around a frame smaller than the screen (`_decode_gif`);
+- WebP as libwebp 1.6's animation decoder gives it to Pillow: lossy
+  (VP8), lossless (VP8L), alpha (ALPH, decoded and dropped), extended
+  (VP8X) files and an animation's first frame on its canvas, with
+  libwebp's demuxer rules for which files it refuses (`_decode_webp`);
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
-  `eXIf` or ImageMagick's "Raw profile type exif" text), else of the XMP
-  packet, applied as `ImageOps.exif_transpose` applies its 8 cases.
+  `eXIf`, WebP `EXIF` or ImageMagick's "Raw profile type exif" text),
+  else of the XMP packet, applied as `ImageOps.exif_transpose` applies
+  its 8 cases.
 
 The Huffman decoding, the inverse DCT, the upsampling, the colour
 conversion, the PNG row filters, GIF's LZW and BMP's run lengths are C++
-(`ecgmm_torch/native/imdecode.cpp`, built by g++ at first use); the
+(`ecgmm_torch/native/imdecode.cpp`), and so are WebP's bitstreams
+(`ecgmm_torch/native/webpdec.cpp`; both built by g++ at first use); the
 markers and chunks are parsed here. Anything else (arithmetic-coded,
 lossless or hierarchical JPEG, 12-bit samples, a DNL marker, a
-progressive JPEG whose scans leave libjpeg to smooth its blocks, WebP,
-TIFF and the other formats) raises `BadRequest` naming what it met.
+progressive JPEG whose scans leave libjpeg to smooth its blocks, TIFF
+and the other formats) raises `BadRequest` naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -52,6 +58,7 @@ from __future__ import annotations
 import re
 import struct
 import zlib
+from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
@@ -88,8 +95,12 @@ _SOF_KINDS = {
 _XMP_ORIENTATION = rb'tiff:Orientation(="|>)([0-9])'
 _TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
                   b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
-# EXIF value types that hold one integer in the entry itself
-_INT_TYPES = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l"}
+# the EXIF value types Pillow's TIFF reader loads: type -> (bytes a value,
+# the struct code of a value, None where Pillow's value is bytes or text)
+_EXIF_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
+               5: (8, "LL"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
+               9: (4, "l"), 10: (8, "ll"), 11: (4, "f"), 12: (8, "d"),
+               13: (4, "L"), 16: (8, "Q")}
 # ImageOps.exif_transpose: orientation -> the transposition that undoes it
 _TRANSPOSE = {
     2: lambda a: a[:, ::-1],                      # FLIP_LEFT_RIGHT
@@ -130,7 +141,10 @@ def _decode(data: bytes):
         return _decode_bmp(data), None, None
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return _decode_gif(data), None, None
-    raise _bad("not a JPEG, PNG, GIF or BMP file")
+    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
+            and data[12:16] in _WEBP_FIRST):
+        return _decode_webp(data)
+    raise _bad("not a JPEG, PNG, GIF, BMP or WebP file")
 
 
 # ---------------------------------------------------------------- GIF
@@ -384,9 +398,306 @@ def _bmp_rle(data: bytes, offset: int, width: int, height: int,
     return out.reshape(height, width)
 
 
+# ---------------------------------------------------------------- WebP
+
+# Pillow opens a RIFF/WEBP file whose first chunk is one of these
+_WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
+_MAX_CHUNK_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_MAX_IMAGE_AREA = 1 << 32
+# VP8X flags (libwebp's WebPFeatureFlags) and those it knows
+_ANIMATION_FLAG, _XMP_FLAG, _EXIF_FLAG, _ALPHA_FLAG, _ICCP_FLAG = (
+    0x02, 0x04, 0x08, 0x10, 0x20)
+_WEBP_VALID_FLAGS = 0x3E
+_WEBP_STORED = {b"ICCP": _ICCP_FLAG, b"EXIF": _EXIF_FLAG, b"XMP ": _XMP_FLAG}
+_NATIVE_ERRORS.update({
+    -20: "bad VP8 frame header", -21: "VP8 first partition ends early",
+    -22: "premature end of the VP8 data", -23: "bad VP8 partitions",
+    -24: "bad VP8L data", -25: "bad WebP alpha data",
+    -26: "a WebP frame whose size disagrees with its header"})
+
+
+def _le24(data: bytes, pos: int) -> int:
+    return data[pos] | data[pos + 1] << 8 | data[pos + 2] << 16
+
+
+class _WebPFrame:
+    """A frame as libwebp's demuxer records it: its offset on the canvas,
+    its size (the bitstream's), and its image and ALPH chunks as
+    (offset of the chunk header, header plus available payload)."""
+
+    def __init__(self):
+        self.x = self.y = self.width = self.height = self.num = 0
+        self.image = self.alpha = None
+        self.complete = False
+
+
+class _WebPDemux:
+    """libwebp's demuxer (`WebPDemux`, demux.c) over a whole file, as
+    Pillow's animation decoder runs it: the chunk order, sizes, flags and
+    frame bounds it checks, the frames it keeps and the EXIF and XMP
+    chunks it stores. A file shorter than its RIFF size is refused; bytes
+    past it are ignored."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.flags = 0
+        self.canvas = (0, 0)
+        self.is_ext = False
+        self.frames = []
+        self.chunks = {}
+        if len(data) < 20:
+            raise _bad("truncated WebP header")
+        riff_size = struct.unpack_from("<I", data, 4)[0]
+        if riff_size < 8 or riff_size > _MAX_CHUNK_PAYLOAD:
+            raise _bad(f"WebP RIFF size {riff_size}")
+        self.end = riff_size + 8
+        if len(data) < self.end:
+            raise _bad("truncated WebP file")
+        self.start = 12
+        if data[12:16] == b"VP8X":
+            self._parse_vp8x()
+            self._check_extended()
+        else:
+            self._parse_single_image()
+
+    def _avail(self) -> int:
+        return self.end - self.start
+
+    def _need(self, size: int, what: str) -> None:
+        if size > self._avail():
+            raise _bad(f"truncated WebP {what}")
+
+    def _header(self):
+        """The chunk header at `start` (moved past it): fourcc, size, the
+        padded size, which must fit in the file."""
+        self._need(8, "chunk header")
+        fourcc = self.data[self.start:self.start + 4]
+        size = struct.unpack_from("<I", self.data, self.start + 4)[0]
+        self.start += 8
+        if size > _MAX_CHUNK_PAYLOAD:
+            raise _bad(f"WebP chunk size {size}")
+        padded = size + (size & 1)
+        self._need(padded, f"{fourcc.decode('latin-1')!r} chunk")
+        return fourcc, size, padded
+
+    def _store_frame(self, num: int, min_size: int, frame: _WebPFrame):
+        """libwebp's StoreFrame: an optional ALPH chunk, then a VP8 or VP8L
+        chunk; it stops, the header unread, at any other chunk."""
+        self._need(max(8, min_size), "frame")
+        alpha_chunks = image_chunks = 0
+        while True:
+            at = self.start
+            fourcc, _, padded = self._header()
+            chunk = (at, 8 + padded)
+            done = False
+            if fourcc == b"ALPH" and not alpha_chunks:
+                alpha_chunks = 1
+                frame.alpha, frame.num = chunk, num
+                self.start += padded
+            elif fourcc in (b"VP8 ", b"VP8L"):
+                if fourcc == b"VP8L" and alpha_chunks:
+                    raise _bad("a VP8L frame after an ALPH chunk")
+                if image_chunks:
+                    done = True
+                else:
+                    image_chunks = 1
+                    frame.width, frame.height = _webp_features(self.data,
+                                                               *chunk)
+                    frame.image, frame.num = chunk, num
+                    frame.complete = True
+                    self.start += padded
+            else:
+                done = True
+            if done:
+                self.start -= 8
+            if self.start == self.end:
+                return
+            self._need(8, "chunk header")
+            if done:
+                return
+
+    def _add_frame(self, frame: _WebPFrame) -> None:
+        if self.frames and not self.frames[-1].complete:
+            raise _bad("a WebP frame after an incomplete one")
+        self.frames.append(frame)
+
+    def _parse_single_image(self) -> None:
+        if self.frames:
+            raise _bad("a second WebP image")
+        frame = _WebPFrame()
+        self._store_frame(1, 0, frame)
+        if not self.flags & _ALPHA_FLAG:
+            frame.alpha = None  # alpha without the VP8X flag is dropped
+        if not self.is_ext:
+            self.canvas = (frame.width, frame.height)
+        self._add_frame(frame)
+
+    def _parse_vp8x(self) -> None:
+        self.is_ext = True
+        self._need(8, "VP8X chunk")
+        self.start += 4
+        size = struct.unpack_from("<I", self.data, self.start)[0]
+        self.start += 4
+        if size > _MAX_CHUNK_PAYLOAD or size < 10:
+            raise _bad(f"VP8X chunk of {size} bytes")
+        size += size & 1
+        self._need(size, "VP8X chunk")
+        d, p = self.data, self.start
+        self.flags = d[p]
+        self.canvas = (1 + _le24(d, p + 4), 1 + _le24(d, p + 7))
+        if self.canvas[0] * self.canvas[1] >= _MAX_IMAGE_AREA:
+            raise _bad(f"WebP canvas of {self.canvas[0]}x{self.canvas[1]}")
+        self.start += size
+        self._need(8, "chunk header")
+        self._parse_vp8x_chunks()
+
+    def _parse_vp8x_chunks(self) -> None:
+        is_animation = bool(self.flags & _ANIMATION_FLAG)
+        anim_chunks = 0
+        while True:
+            at = self.start
+            fourcc, size, padded = self._header()
+            if fourcc == b"VP8X":
+                raise _bad("a second VP8X chunk")
+            if fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
+                if anim_chunks or is_animation:
+                    raise _bad("a still image in an animated WebP")
+                self.start -= 8
+                self._parse_single_image()
+            elif fourcc == b"ANIM" and not anim_chunks:
+                if padded < 6:
+                    raise _bad(f"ANIM chunk of {size} bytes")
+                anim_chunks = 1
+                self.start += padded
+            elif fourcc == b"ANMF":
+                if not anim_chunks:
+                    raise _bad("an ANMF chunk before ANIM")
+                self._parse_animation_frame(padded, is_animation)
+            else:  # ICCP, EXIF, XMP, a second ANIM, unknown chunks
+                if fourcc == b"ANIM" and padded < 6:
+                    raise _bad(f"ANIM chunk of {size} bytes")
+                flag = _WEBP_STORED.get(fourcc)
+                if fourcc != b"ANIM" and (flag is None or self.flags & flag):
+                    self.chunks.setdefault(
+                        fourcc, self.data[at + 8:at + 8 + size])
+                self.start += padded
+            if self.start == self.end:
+                return
+            self._need(8, "chunk header")
+
+    def _parse_animation_frame(self, chunk_size: int, is_animation: bool):
+        if chunk_size < 16:
+            raise _bad(f"ANMF chunk of {chunk_size} bytes")
+        d, p = self.data, self.start
+        frame = _WebPFrame()
+        frame.x, frame.y = 2 * _le24(d, p), 2 * _le24(d, p + 3)
+        frame.width, frame.height = 1 + _le24(d, p + 6), 1 + _le24(d, p + 9)
+        self.start += 16
+        if frame.width * frame.height >= _MAX_IMAGE_AREA:
+            raise _bad(f"ANMF frame of {frame.width}x{frame.height}")
+        start = self.start
+        self._store_frame(len(self.frames) + 1, chunk_size - 16, frame)
+        if self.start - start > chunk_size - 16:
+            raise _bad("a WebP frame overruns its ANMF chunk")
+        if is_animation and frame.num > 0:
+            self._add_frame(frame)
+
+    def _check_extended(self) -> None:
+        """libwebp's IsValidExtendedFormat."""
+        if not self.frames:
+            raise _bad("WebP without a frame")
+        if self.flags & ~_WEBP_VALID_FLAGS:
+            raise _bad(f"VP8X flags {self.flags:#04x}")
+        exact = not self.flags & _ANIMATION_FLAG
+        for f in self.frames:
+            if exact and f.num > 1:
+                raise _bad("a second frame in a still WebP")
+            if not f.complete:
+                raise _bad("an incomplete WebP frame")
+            if f.alpha is not None and f.alpha[0] > f.image[0]:
+                raise _bad("an ALPH chunk after its image")
+            w, h = self.canvas
+            if exact:
+                ok = (f.x, f.y, f.width, f.height) == (0, 0, w, h)
+            else:
+                ok = f.x + f.width <= w and f.y + f.height <= h
+            if not ok:
+                raise _bad("a WebP frame outside its canvas")
+
+
+def _webp_features(data: bytes, at: int, size: int):
+    """(width, height) of a VP8 or VP8L chunk as `WebPGetFeatures` checks
+    it: a VP8 key frame that is shown, whose first partition is shorter
+    than the chunk, or a VP8L header of version 0."""
+    fourcc = data[at:at + 4]
+    chunk_size = struct.unpack_from("<I", data, at + 4)[0]
+    b = data[at + 8:at + size]
+    if size < 12:
+        raise _bad(f"{fourcc.decode('latin-1')!r} chunk too short")
+    if fourcc == b"VP8 ":
+        if len(b) < 10:
+            raise _bad("VP8 chunk too short")
+        bits = b[0] | b[1] << 8 | b[2] << 16
+        w = (b[6] | b[7] << 8) & 0x3FFF
+        h = (b[8] | b[9] << 8) & 0x3FFF
+        if (b[3:6] != b"\x9d\x01\x2a" or bits & 1 or (bits >> 1) & 7 > 3
+                or not (bits >> 4) & 1 or bits >> 5 >= chunk_size
+                or w == 0 or h == 0):
+            raise _bad("bad VP8 frame header")
+        return w, h
+    if len(b) < 5 or b[0] != 0x2F or b[4] >> 5:
+        raise _bad("bad VP8L header")
+    v = int.from_bytes(b[1:5], "little")
+    return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+
+
+def _decode_webp(data: bytes, alpha: bool = False):
+    """The first frame of a WebP file as Pillow gives it (libwebp's
+    animation decoder, RGBA, then `.convert("RGB")`): a still image, or an
+    animation's first frame at its offset on a canvas that is black
+    around it (the decoder zero-fills the canvas for a key frame, whatever
+    the ANIM background colour). The container is parsed here
+    (`_WebPDemux`), the bitstreams in C++ (`native/webpdec.cpp`). Returns
+    (rgb, exif, xmp), and where `alpha` the canvas's alpha plane as a
+    fourth item (0 around the frame, 255 in a frame without alpha), which
+    the tests hold against Pillow's RGBA."""
+    demux = _WebPDemux(data)
+    width, height = demux.canvas
+    _check_pixels(width, height)
+    frame = demux.frames[0]
+    buf = np.frombuffer(data, np.uint8)
+    rgb = np.zeros((height, width, 3), np.uint8)
+    a = np.zeros((height, width), np.uint8) if alpha else None
+    out = rgb[frame.y:, frame.x:]
+    a_out = a[frame.y:, frame.x:] if alpha else None
+    a_ptr = a_out.ctypes.data if alpha else None
+    at, size = frame.image
+    lib = native.library()
+    if data[at:at + 4] == b"VP8 ":
+        alph = alph_n = None
+        if frame.alpha is not None:
+            alph = buf.ctypes.data + frame.alpha[0] + 8
+            alph_n = struct.unpack_from("<I", data, frame.alpha[0] + 4)[0]
+        _check(lib.ecgmm_webp_vp8(
+            buf.ctypes.data + at + 8, size - 8, alph, alph_n or 0,
+            frame.width, frame.height, out.ctypes.data, width * 3,
+            a_ptr, width))
+        if alpha and frame.alpha is None:
+            a_out[:frame.height, :frame.width] = 255
+    else:
+        _check(lib.ecgmm_webp_vp8l(
+            buf.ctypes.data + at + 8, size - 8, frame.width, frame.height,
+            out.ctypes.data, width * 3, a_ptr, width))
+    exif = demux.chunks.get(b"EXIF") or None
+    xmp = demux.chunks.get(b"XMP ") or None
+    if alpha:
+        return rgb, exif, xmp, a
+    return rgb, exif, xmp
+
+
 def decode_upload(data: bytes) -> np.ndarray:
-    """An uploaded JPEG, PNG or BMP as an upright (H, W, 3) uint8 RGB
-    array."""
+    """An uploaded JPEG, PNG, GIF, BMP or WebP file as an upright (H, W, 3)
+    uint8 RGB array."""
     rgb, exif, xmp = _decode(data)
     orientation = _orientation(exif, xmp)
     if orientation in _TRANSPOSE:
@@ -395,7 +706,7 @@ def decode_upload(data: bytes) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """A JPEG or PNG file as stored, (H, W, 3) uint8 RGB, without the EXIF
+    """An image file as stored, (H, W, 3) uint8 RGB, without the EXIF
     turn: Pillow's `Image.open(f).convert("RGB")`, as the training data's
     image reader (`data/sources.load_images`) calls it."""
     return np.ascontiguousarray(_decode(data)[0])
@@ -423,7 +734,10 @@ def _orientation(exif: Optional[bytes], xmp) -> object:
 def _exif_orientation(exif: bytes) -> Tuple[bool, object]:
     """(whether IFD0 holds the orientation tag 0x0112, its value), read
     from a TIFF-structured EXIF block as leniently as Pillow's reader: a
-    truncated directory ends the search."""
+    truncated directory ends the search; an entry of a type Pillow does
+    not know, of no values, or whose values lie past the block is
+    skipped; the last entry that remains gives the value, its first
+    number (a rational as a fraction; bytes and text are no number)."""
     while exif.startswith(b"Exif\x00\x00"):
         exif = exif[6:]
     if not exif:
@@ -443,13 +757,24 @@ def _exif_orientation(exif: bytes) -> Tuple[bool, object]:
         if len(entry) < 12:
             break
         tag, typ, count = struct.unpack(end + "HHL", entry[:8])
-        if tag != 0x0112:
+        if tag != 0x0112 or typ not in _EXIF_TYPES:
+            continue
+        unit, fmt = _EXIF_TYPES[typ]
+        size = count * unit
+        if size > 4:
+            (at,) = struct.unpack(end + "L", entry[8:12])
+            data = exif[at:at + size]
+        else:
+            data = entry[8:8 + size]
+        if len(data) != size or not data:
             continue
         found, value = True, None
-        if count == 1 and typ in _INT_TYPES:
-            fmt = _INT_TYPES[typ]
-            (value,) = struct.unpack(
-                end + fmt, entry[8:8 + struct.calcsize(fmt)])
+        if fmt is not None:
+            v = struct.unpack_from(end + fmt, data)
+            if len(fmt) == 2:  # Pillow's IFDRational
+                value = Fraction(v[0], v[1]) if v[1] else None
+            else:
+                value = v[0]
     return found, value
 
 

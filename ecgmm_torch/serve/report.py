@@ -1,21 +1,44 @@
-"""Rule-based clinical report (port of the offline backend of
-`ecgmm_tpu/serve/report.py`).
+"""Clinical report generation (port of `ecgmm_tpu/serve/report.py`).
 
-The reference sends the Grad-CAM overlay to GPT-4o and extracts five
-sections (the reference repository's `gpt/gpt_analysis.py:7-153`);
-`rule_based_report` fills the same section contract
-{"RR 간격", "QRS 파형", "T파", "P파", "임상 권고"} from measured signal
-statistics, so every response carries a complete gpt_result. The OpenAI
-backend is not ported yet.
+The reference sends the Grad-CAM overlay to GPT-4o with a Korean
+clinician prompt and extracts five sections (the reference repository's
+`gpt/gpt_analysis.py:7-153`). This module keeps that section contract
+{"RR 간격", "QRS 파형", "T파", "P파", "임상 권고"} with the JAX package's
+two backends:
+
+  * openai_report(): the GPT-4o-vision call, through either generation
+    of the openai SDK; the `openai` import is gated (the package is not
+    a dependency) and a `client` may be injected;
+  * rule_based_report(): the offline backend the served request uses
+    (`serve/request.py`), computing the same sections from measured
+    signal statistics, so every response carries a complete gpt_result.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional
 
 import numpy as np
 
 SECTIONS = ["RR 간격", "QRS 파형", "T파", "P파", "임상 권고"]
+
+
+def parse_sections(gpt_output: str) -> Dict[str, str]:
+    """Extract the '### [section]' blocks the GPT prompt mandates into a
+    {section: body} dict (behavioral contract of gpt_analysis.py:137-147,
+    including its quirk of stripping edge dashes from each body)."""
+    out = {s: "" for s in SECTIONS}
+    # Split the document at section headings, then claim each block for
+    # the section named in its heading; a section can appear at most
+    # once (later occurrences overwrite, like the reference's findall
+    # loop).
+    blocks = re.split(r"^### \[([^\]\n]+)\]\n?", gpt_output,
+                      flags=re.MULTILINE)
+    for name, body in zip(blocks[1::2], blocks[2::2]):
+        if name in out:
+            out[name] = body.strip().strip("---").strip()
+    return out
 
 
 def detect_r_peaks(signal: np.ndarray, fs: float = 250.0) -> np.ndarray:
@@ -115,3 +138,78 @@ def rule_based_report(
         "P파": p_txt,
         "임상 권고": "\n".join(rec),
     }
+
+
+def _chat_messages(
+    overlay_png_b64: str, abnormal: bool, probability: float,
+    age: Optional[float], sex: Optional[str],
+) -> list:
+    """The reference's GPT-4o-vision message shape (gpt_analysis.py:
+    90-127): system persona + text prompt + data-URL image."""
+    system_prompt = (
+        "당신은 심장내과 전문의입니다. 환자의 lead-II 심전도와 Grad-CAM "
+        "관심영역 오버레이를 보고, 각 항목을 '### [항목]' 형식의 한국어 "
+        "소견으로 작성하십시오."
+    )
+    user_prompt = (
+        f"모델 판정: {'Abnormal' if abnormal else 'Normal'} "
+        f"(확률 {probability:.2f}); 나이 {age}, 성별 {sex}.\n"
+        "### [RR 간격]\n### [QRS 파형]\n### [T파]\n### [P파]\n"
+        "### [임상 권고]\n의 형식으로 작성하십시오."
+    )
+    return [
+        {"role": "system", "content": system_prompt},
+        {
+            "role": "user",
+            "content": [
+                {"type": "text", "text": user_prompt},
+                {
+                    "type": "image_url",
+                    "image_url": {
+                        "url": f"data:image/png;base64,{overlay_png_b64}"
+                    },
+                },
+            ],
+        },
+    ]
+
+
+def openai_report(
+    overlay_png_b64: str, abnormal: bool, probability: float,
+    age: Optional[float] = None, sex: Optional[str] = None,
+    model: str = "gpt-4o", client=None,
+) -> Dict[str, str]:
+    """GPT-4o-vision path (gpt_analysis.py:7-135). Raises ImportError when
+    the openai package is unavailable — callers fall back to
+    rule_based_report.
+
+    Supports BOTH SDK generations, selected at runtime:
+      * openai<1.0 — module-level `openai.ChatCompletion.create` (the
+        exact call shape the reference uses, gpt_analysis.py:112);
+      * openai>=1.0 — `OpenAI().chat.completions.create` (the v0 surface
+        was removed from the SDK; without this branch the live path could
+        never run against a current install).
+    `client` injects a pre-built client/module (also how the offline
+    tests fake both SDKs without network)."""
+    if client is None:
+        import openai  # gated: not in this image
+
+        client = openai
+    messages = _chat_messages(overlay_png_b64, abnormal, probability,
+                              age, sex)
+    # v1 FIRST: real openai>=1.0 modules still expose a module-level
+    # ChatCompletion (a migration-error proxy that raises on .create), so
+    # its presence must not select the legacy branch.
+    if hasattr(client, "OpenAI"):  # openai>=1.0 module → build client
+        client = client.OpenAI()
+    if hasattr(client, "chat"):  # openai>=1.0 client (built or injected)
+        response = client.chat.completions.create(
+            model=model, messages=messages, max_tokens=2048,
+        )
+        content = response.choices[0].message.content
+    else:  # openai<1.0 module (the reference's call shape)
+        response = client.ChatCompletion.create(
+            model=model, messages=messages, max_tokens=2048,
+        )
+        content = response["choices"][0]["message"]["content"]
+    return parse_sections(content)

@@ -56,8 +56,9 @@ def device_us(fn, n: int = 20, rounds: int = 3) -> float:
     """Device time of one call of fn, in µs: the least over `rounds`
     rounds of the median of n calls, each call between CUDA events. The
     launches are queued behind a sleeping kernel so that the host's launch
-    overhead does not land between the timing events. The sleep lasts at
-    least three times as long as an untimed round of the n calls took, and
+    overhead does not land between the timing events. The sleep lasts
+    three times as long as an untimed round of the n calls took, at least
+    2e7 cycles (~10 ms), and
     n is small enough that n calls of a plain version (up to ~40 launches
     each) fit in the card's launch queue; a longer queue blocks the host
     until the sleep ends, and the rest would be timed at the host's pace.
@@ -77,7 +78,7 @@ def device_us(fn, n: int = 20, rounds: int = 3) -> float:
         starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
         # cycles at up to 2 GHz
-        torch.cuda._sleep(int(max(1e8, 3 * round_s * 2e9)))
+        torch.cuda._sleep(int(max(2e7, 3 * round_s * 2e9)))
         for i in range(n):
             starts[i].record()
             fn()

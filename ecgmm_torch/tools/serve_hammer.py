@@ -63,11 +63,13 @@ def percentile(sorted_values, p: float) -> float:
 
 
 def hammer(url: str, clients: int, seconds: float,
-           heatmap_format: str = "png", on_response=None) -> dict:
-    """`clients` threads post the request back to back for `seconds`
-    (after one warm-up request). on_response(bytes), if given, sees every
-    response body (chip_smoke.py checks each against the contract)."""
-    body, ctype = request_body(heatmap_format)
+           heatmap_format: str = "png", on_response=None,
+           photo: str = STRIP_JPEG) -> dict:
+    """`clients` threads post the request (an upload of `photo`) back to
+    back for `seconds` (after one warm-up request). on_response(bytes),
+    if given, sees every response body (chip_smoke.py checks each against
+    the contract)."""
+    body, ctype = request_body(heatmap_format, photo)
     latencies: List[float] = []
     errors = [0]
     lock = threading.Lock()
@@ -204,6 +206,11 @@ def main(argv=None):
     p.add_argument("--clients", type=int, default=8)
     p.add_argument("--seconds", type=float, default=20.0)
     p.add_argument("--heatmap-format", default="png", choices=("png", "cam"))
+    p.add_argument("--photo", default=STRIP_JPEG,
+                   help="hammer only, not --soak: the uploaded file "
+                        "(default the JPEG strip; "
+                        "serve/fixtures/strip_q80.webp is the same strip "
+                        "as WebP)")
     p.add_argument("--soak", action="store_true",
                    help="scrape /metrics at start/mid/end and report the "
                         "server histogram's percentiles, the error delta "
@@ -218,7 +225,8 @@ def main(argv=None):
         out = soak(base, url, args.clients, args.seconds,
                    args.heatmap_format, args.min_requests)
     else:
-        out = hammer(url, args.clients, args.seconds, args.heatmap_format)
+        out = hammer(url, args.clients, args.seconds, args.heatmap_format,
+                     photo=args.photo)
     print(json.dumps(out))
 
 

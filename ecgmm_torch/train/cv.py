@@ -330,24 +330,10 @@ def _clean(v):
     return v
 
 
-def main(argv=None):
-    """The reference's `python train_kfold.py` (nested 5 x 3 CV,
-    train_kfold.py:135-178), `python train_exhausted.py` (every (test,
-    val) pair, train_exhausted.py:165-217) and `python
-    evaluation_signal.py` (a trained signal model on another dataset,
-    evaluation_signal.py:171-219), on the card unless --device cpu:
-
-        python -m ecgmm_torch.train.cv nested --preset fusion
-        python -m ecgmm_torch.train.cv exhaustive --k 10 --max-pairs 10
-        python -m ecgmm_torch.train.cv cross --pth best_ptbxl.pth \\
-            [--data-dir ./data]   # default: the synthetic cohort
-    """
+def build_parser():
+    """The argument parser of `main` (also how `tools/bench_cv.sh`'s
+    command lines are checked)."""
     import argparse
-    import json
-
-    from ecgmm_torch.data import synthetic
-    from ecgmm_torch.workloads.run import (_device, apply_train_overrides,
-                                           build_model_and_task, get_preset)
 
     p = argparse.ArgumentParser(
         description=main.__doc__,
@@ -383,6 +369,28 @@ def main(argv=None):
     p.add_argument("--n-model", type=int, default=None,
                    help="model-axis size of the torchrun ranks' mesh "
                         "(sequential fits only)")
+    return p
+
+
+def main(argv=None):
+    """The reference's `python train_kfold.py` (nested 5 x 3 CV,
+    train_kfold.py:135-178), `python train_exhausted.py` (every (test,
+    val) pair, train_exhausted.py:165-217) and `python
+    evaluation_signal.py` (a trained signal model on another dataset,
+    evaluation_signal.py:171-219), on the card unless --device cpu:
+
+        python -m ecgmm_torch.train.cv nested --preset fusion
+        python -m ecgmm_torch.train.cv exhaustive --k 10 --max-pairs 10
+        python -m ecgmm_torch.train.cv cross --pth best_ptbxl.pth \\
+            [--data-dir ./data]   # default: the synthetic cohort
+    """
+    import json
+
+    from ecgmm_torch.data import synthetic
+    from ecgmm_torch.workloads.run import (_device, apply_train_overrides,
+                                           build_model_and_task, get_preset)
+
+    p = build_parser()
     args = p.parse_args(argv)
 
     if args.mode == "cross":

@@ -82,6 +82,31 @@ def find_best_threshold(y_true: np.ndarray,
     return float(thresholds[i]), float(scores[i])
 
 
+def find_best_threshold_multiclass(
+    y_true: np.ndarray, probs: np.ndarray, positive_class: int = 1
+) -> Tuple[float, float]:
+    """Multiclass variant: grid-search a decision threshold for one class
+    against argmax of the rest, maximising that class's F1. The cited
+    reference function (train_physionet_multi.py:208-218) is a
+    degenerate no-op — its y_pred ignores the threshold entirely, so it
+    always returns the first grid value; this implements the evident
+    intent (PARITY.md row). The first threshold of the best F1 wins."""
+    thresholds = np.arange(0.1, 0.9, 0.05)
+    others = np.delete(np.arange(probs.shape[1]), positive_class)
+    best_t, best_f1 = 0.5, -1.0
+    for t in thresholds:
+        preds = np.where(
+            probs[:, positive_class] >= t,
+            positive_class,
+            others[np.argmax(probs[:, others], axis=1)],
+        )
+        f1 = binary_f1((preds == positive_class).astype(np.int32),
+                       (np.asarray(y_true) == positive_class).astype(np.int32))
+        if f1 > best_f1:
+            best_t, best_f1 = float(t), f1
+    return best_t, best_f1
+
+
 def classification_report(
     preds: np.ndarray, labels: np.ndarray, num_classes: int,
     target_names: Optional[list] = None,

@@ -346,7 +346,10 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
         (_jpeg(img)[:300], "not a decodable image"),
         (b"GIF89a" + b"\x00" * 20, "GIF with no image"),
         (b"RIFF\x24\x00\x00\x00WEBPVP8 " + b"\x00" * 24,
-         "not a JPEG, PNG, GIF or BMP"),
+         "truncated WebP file"),
+        (b"RIFF\x20\x00\x00\x00WEBPVP8 " + b"\x00" * 24,
+         "chunk too short"),
+        (b"RIFF\x04\x00\x00\x00WEBPALPH", "not a JPEG, PNG, GIF, BMP or WebP"),
     ]
     three = bytearray(write_png(img[:, :, :1], 0, 0))
     ihdr = three.index(b"IHDR")
@@ -540,7 +543,9 @@ def test_committed_fixtures_decode_to_pillows_hashes():
     Pillow's decode of the committed files, here."""
     with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
         hashes = json.load(f)
-    assert set(hashes) == {"strip.jpg", "scene_exif6.jpg"}
+    assert set(hashes) == {"strip.jpg", "scene_exif6.jpg", "strip_q80.webp",
+                           "scene_exif6.webp", "strip_lossless_crop.webp",
+                           "strip_anim2.webp"}
     for name, want in hashes.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
@@ -919,3 +924,158 @@ def test_bmp_rle_bit_equal_to_pillow(rle4, seed, top_down):
         pillow(short)
     with pytest.raises(BadRequest, match="ends before the last pixel"):
         decode_upload(short)
+
+
+# Valid JPEG files of the kinds the port refuses, written here (Pillow
+# writes none of them): lossless (SOF3), 12-bit (SOF1) and arithmetic-
+# coded (SOF9).
+_ANNEX_K_DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+class _BitWriter:
+    """Huffman-coded scan data: bits MSB first, 0xFF stuffed with 0x00,
+    the last byte padded with ones."""
+
+    def __init__(self):
+        self.bits = []
+
+    def put(self, value: int, n: int) -> None:
+        self.bits += [(value >> i) & 1 for i in range(n - 1, -1, -1)]
+
+    def finish(self) -> bytes:
+        bits = self.bits + [1] * (-len(self.bits) % 8)
+        out = bytearray()
+        for i in range(0, len(bits), 8):
+            out.append(int("".join(map(str, bits[i:i + 8])), 2))
+            if out[-1] == 0xFF:
+                out.append(0)
+        return bytes(out)
+
+
+def _lossless_jpeg(gray: np.ndarray) -> bytes:
+    """SOF3, one component, predictor 1 (the left sample; the first row's
+    first sample predicted by 128, each row's first by the sample above),
+    the differences coded with the Annex K DC table."""
+    h, w = gray.shape
+    codes, code, k = {}, 0, 0
+    for length, count in enumerate(_ANNEX_K_DC_BITS, 1):
+        for _ in range(count):
+            codes[k] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    x = gray.astype(int).tolist()
+    out = _BitWriter()
+    for r in range(h):
+        for c in range(w):
+            pred = (128 if r == c == 0 else x[r - 1][c] if c == 0
+                    else x[r][c - 1])
+            d = x[r][c] - pred
+            size = abs(d).bit_length()
+            out.put(*codes[size])
+            out.put(d if d >= 0 else d - 1 + (1 << size), size)
+    return (b"\xff\xd8"
+            + _segment(0xC4, bytes([0x00, *_ANNEX_K_DC_BITS, *range(12)]))
+            + _segment(0xC3, struct.pack(">BHHB", 8, h, w, 1) + b"\x01\x11\x00")
+            + _segment(0xDA, b"\x01\x01\x00\x01\x00\x00")  # Ss 1: predictor 1
+            + out.finish() + b"\xff\xd9")
+
+
+def _twelve_bit_jpeg() -> bytes:
+    """SOF1 at 12-bit precision: one flat 8x8 block (DC difference 0,
+    then end of block; an AC table whose one code "0" is EOB)."""
+    out = _BitWriter()
+    out.put(0b00, 2)  # DC size 0 (Annex K)
+    out.put(0b0, 1)   # EOB
+    tables = (bytes([0x00, *_ANNEX_K_DC_BITS, *range(12)])
+              + bytes([0x10, 1] + [0] * 15 + [0x00]))
+    return (b"\xff\xd8" + _segment(0xDB, b"\x00" + bytes([1] * 64))
+            + _segment(0xC4, tables)
+            + _segment(0xC1, struct.pack(">BHHB", 12, 8, 8, 1) + b"\x01\x11\x00")
+            + _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00")
+            + out.finish() + b"\xff\xd9")
+
+
+def _arithmetic_jpeg() -> bytes:
+    """SOF9: one flat 8x8 block, its DC difference 1 (quantised by 16),
+    then end of block. The four decisions (T.81 F.1.4: the difference is
+    not zero, its sign, its magnitude category, end of block at k = 1)
+    each use a context of their own, so each is coded in the QM coder's
+    first state (Qe 0x5A1D, MPS 0): T.81 Annex D's encoder (libjpeg's
+    `jcarith.c`) for that state, without the carry and 0xFF handling
+    these decisions never need (asserted), zero bytes written at once."""
+    qe = 0x5A1D
+    a, c, ct, buffer, out = 0x10000, 0, 11, -1, bytearray()
+
+    def emit_byte(temp):  # D.1.6's byte out, with no carry or 0xFF run
+        nonlocal buffer
+        assert temp < 0xFF
+        if buffer >= 0:
+            out.append(buffer)
+        buffer = temp
+
+    for decision in (1, 0, 0, 1):  # 1 is the LPS
+        a -= qe
+        if decision and a >= qe or not decision and a < 0x8000 and a < qe:
+            c, a = c + a, qe  # the conditional exchange
+        if not decision and a >= 0x8000:
+            continue
+        while True:  # renormalise
+            a, c, ct = a << 1, c << 1, ct - 1
+            if ct == 0:
+                emit_byte(c >> 19)
+                c, ct = c & 0x7FFFF, ct + 8
+            if a >= 0x8000:
+                break
+    temp = (a - 1 + c) & 0xFFFF0000  # D.1.8: the most trailing zeros
+    c = temp + 0x8000 if temp < c else temp
+    c <<= ct
+    assert not c & 0xF8000000
+    if buffer >= 0:
+        out.append(buffer)
+    if c & 0x7FFF800:
+        out.append((c >> 19) & 0xFF)
+        if c & 0x7F800:
+            out.append((c >> 11) & 0xFF)
+    assert 0xFF not in out
+    return (b"\xff\xd8" + _segment(0xDB, b"\x00" + bytes([16] * 64))
+            + _segment(0xC9, struct.pack(">BHHB", 8, 8, 8, 1) + b"\x01\x11\x00")
+            + _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00")
+            + bytes(out) + b"\xff\xd9")
+
+
+def test_valid_lossless_12bit_and_arithmetic_jpeg():
+    """Pillow 12.1 (libjpeg-turbo) decodes a lossless and an
+    arithmetic-coded JPEG, which the port refuses (open in ROADMAP.md);
+    it refuses a 12-bit one at open ("cannot handle 12-bit layers") and a
+    hierarchical one at load, as the port does."""
+    rng = np.random.default_rng(0)
+    img = np.clip(np.add.outer(np.arange(8) * 9, np.arange(12) * 7)
+                  + rng.integers(0, 20, (8, 12)), 0, 255).astype(np.uint8)
+    lossless = _lossless_jpeg(img)
+    np.testing.assert_array_equal(pillow(lossless),
+                                  np.repeat(img[:, :, None], 3, axis=2))
+    with pytest.raises(BadRequest, match="lossless JPEG .*not supported"):
+        decode_upload(lossless)
+    arithmetic = _arithmetic_jpeg()
+    np.testing.assert_array_equal(pillow(arithmetic), 130)
+    with pytest.raises(BadRequest,
+                       match="arithmetic-coded JPEG .*not supported"):
+        decode_upload(arithmetic)
+    twelve = _twelve_bit_jpeg()
+    with pytest.raises(Exception):
+        pillow(twelve)
+    with pytest.raises(BadRequest, match="12-bit JPEG"):
+        decode_upload(twelve)
+    # libjpeg-turbo refuses a hierarchical frame (SOF5-SOF7) on its marker
+    # alone, whatever follows it; so does the port
+    for marker in (0xC5, 0xC6, 0xC7):
+        hierarchical = _patched(_jpeg(img[:, :, None].repeat(3, axis=2)),
+                                b"\xff\xc0", 1, marker)
+        with pytest.raises(Exception):
+            pillow(hierarchical)
+        with pytest.raises(BadRequest, match="hierarchical JPEG"):
+            decode_upload(hierarchical)

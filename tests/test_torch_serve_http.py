@@ -135,10 +135,12 @@ def _assert_same_response(a, b):
     assert set(a) == set(b)
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP"])
 def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     """Both servers as they ship: each digitizes through its native
-    kernels, the port's a copy of JAX's, so the waveforms are equal."""
+    kernels, the port's a copy of JAX's, so the waveforms are equal. A
+    WebP upload (lossy, Pillow's default quality) decodes in the port
+    bit-equal to the JAX handler's Pillow."""
     jbase, base, _ = servers
     photo = _encoded(cohort.images[0], fmt)
     body, ctype = _body(photo, {"age": 71, "weight": 58, "gender": "1"},
