@@ -46,9 +46,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      clock), and a `host_kernels` JSON line;
   5. numbers: request latency;
   8. (run after phase 5) the front end: the upload decoder turns the
-     committed fixtures (JPEG and WebP: lossy, VP8X with EXIF, lossless,
-     animated) into Pillow's bytes (SHA-256), and each WebP fixture's
-     decode ms is printed beside the JPEG strip's; the HTTP server
+     committed fixtures (JPEG: baseline, arithmetic-coded sequential and
+     progressive, lossless, block-smoothed progressive; WebP: lossy, VP8X
+     with EXIF, lossless, animated) into Pillow's bytes (SHA-256) and
+     refuses the arithmetic-coded strip Pillow refuses (past the 64 KiB
+     it hands libjpeg at once), and each fixture's decode ms is printed
+     beside the JPEG strip's; the HTTP server
      (`serve(ServingPipeline.demo(device="cuda"), port=0,
      background=True)`) with the micro-batcher on (20 ms window, buckets
      1-16) answers 16 client threads posting the hammer's JPEG, then the
@@ -86,7 +89,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      epoch, 60 records: no val split) on the card through the kernels,
      checkpoints restore, the best/last test reports and the logged
      scalars (`VarLoss/Val`, `AttentionWeights/*` for fusion) have their
-     keys, and the launch counters equal the batch plan; `run_pipeline`
+     keys, the TensorBoard event file beside each metrics.jsonl has valid
+     TFRecord CRCs and one scalar event per logged value (parsed here,
+     `check_event_file`), and the launch counters equal the batch plan;
+     `run_pipeline`
      (one epoch a stage, 96 records, cached) warm-starts stage 4 from
      each stage's best under the three filters, and its launches equal
      each stage's plan;
@@ -226,6 +232,7 @@ from ecgmm_torch.serve import pipeline as serve_pipeline  # noqa: E402
 from ecgmm_torch.serve import request as request_host  # noqa: E402
 from ecgmm_torch.serve.imdecode import (  # noqa: E402
     decode_image, decode_upload)
+from ecgmm_torch.serve.wire import BadRequest  # noqa: E402
 from ecgmm_torch.serve.pipeline import ServingPipeline  # noqa: E402
 from ecgmm_torch.serve.report import rule_based_report  # noqa: E402
 from ecgmm_torch.serve.wire import ENDPOINT  # noqa: E402
@@ -1197,14 +1204,27 @@ WEBP_STRIP = os.path.join(FIXTURES, "strip_q80.webp")
 
 def check_decoder(smi):
     """The upload decoder where the script runs: each committed fixture
-    (JPEG and WebP) decodes to the SHA-256 that Pillow's decode gave where
-    the fixtures were made; decode time of the hammer's JPEG strip and of
-    each WebP fixture (host clock, median of 20). Returns {file: ms}."""
+    (JPEG: baseline, arithmetic-coded sequential and progressive, lossless,
+    block-smoothed progressive; WebP) decodes to the SHA-256 that Pillow's
+    decode gave where the fixtures were made, and the one Pillow refuses
+    (an arithmetic-coded scan past the 64 KiB Pillow hands libjpeg at
+    once) is refused with BadRequest; decode time of the hammer's JPEG
+    strip and of each other fixture (host clock, median of 20). Returns
+    {file: ms}."""
     with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
         hashes = json.load(f)
     for name, want in hashes.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
+        if want.get("refused"):
+            try:
+                decode_upload(data)
+            except BadRequest as e:
+                print(f"decode {name} ({len(data)} bytes): refused as Pillow "
+                      f"refuses it: {e}", flush=True)
+                continue
+            raise AssertionError(f"{name}: decoded, where Pillow refuses it "
+                                 f"({want['refused']})")
         rgb = decode_upload(data)
         got = hashlib.sha256(rgb.tobytes()).hexdigest()
         print(f"decode {name}: {rgb.shape} sha256 {got}", flush=True)
@@ -1212,8 +1232,9 @@ def check_decoder(smi):
             raise AssertionError(f"{name}: the decode differs from Pillow's "
                                  f"(sha256 {want['rgb_sha256']})")
     out = {}
-    for name in ["strip.jpg"] + sorted(n for n in hashes
-                                       if n.endswith(".webp")):
+    for name in ["strip.jpg"] + sorted(n for n in hashes if n != "strip.jpg"
+                                       and n != "scene_exif6.jpg"
+                                       and not hashes[n].get("refused")):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
         times = []
@@ -2540,6 +2561,111 @@ def launch_plan(name: str, t, data, epochs: int) -> dict:
             "fused_attention_fusion_backward": 0}
 
 
+def _crc32c(data: bytes) -> int:
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+    return c ^ 0xFFFFFFFF
+
+
+def _masked_crc32c(data: bytes) -> int:
+    c = _crc32c(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """(field, wire type, value) of a protobuf message: varints as ints,
+    fixed64/fixed32 as their 8/4 bytes, length-delimited as bytes."""
+    pos, out = 0, []
+    while pos < len(buf):
+        key, shift = 0, 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            key |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                break
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            val, shift = 0, 0
+            while True:
+                b = buf[pos]
+                pos += 1
+                val |= (b & 0x7F) << shift
+                shift += 7
+                if b < 0x80:
+                    break
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            val, pos = buf[pos:pos + n], pos + n
+        elif wire == 2:
+            n, shift = 0, 0
+            while True:
+                b = buf[pos]
+                pos += 1
+                n |= (b & 0x7F) << shift
+                shift += 7
+                if b < 0x80:
+                    break
+            val, pos = buf[pos:pos + n], pos + n
+        else:
+            raise AssertionError(f"protobuf wire type {wire}")
+        out.append((field, wire, val))
+    return out
+
+
+def check_event_file(log_dir: str, logged) -> None:
+    """The run's TensorBoard event file (`events.out.tfevents.*` beside
+    metrics.jsonl), read with this script's own TFRecord and protobuf
+    parsing: every record's length and data CRC-32C (masked) hold, the
+    first event is the file version, and the scalar events are, in order,
+    each metrics.jsonl line's values (tag, step, float32 value)."""
+    names = [n for n in os.listdir(log_dir)
+             if n.startswith("events.out.tfevents.")]
+    if len(names) != 1:
+        raise AssertionError(f"{log_dir}: {len(names)} event files")
+    with open(os.path.join(log_dir, names[0]), "rb") as f:
+        data = f.read()
+    events, pos = [], 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        body = data[pos + 12:pos + 12 + n]
+        if struct.unpack("<I", data[pos + 8:pos + 12])[0] != \
+                _masked_crc32c(header) or struct.unpack(
+                    "<I", data[pos + 12 + n:pos + 16 + n])[0] != \
+                _masked_crc32c(body):
+            raise AssertionError(f"{names[0]}: bad CRC at byte {pos}")
+        events.append(_proto_fields(body))
+        pos += 16 + n
+    if not any(f == 3 and v == b"brain.Event:2" for f, _, v in events[0]):
+        raise AssertionError(f"{names[0]}: no file version first")
+    got = []
+    for ev in events[1:]:
+        step = next((v for f, _, v in ev if f == 2), 0)
+        for f, _, summary in ev:
+            if f != 5:
+                continue
+            for _, _, value in _proto_fields(summary):
+                fields = {vf: vv for vf, _, vv in _proto_fields(value)}
+                got.append((fields[1].decode(), step,
+                            np.frombuffer(fields[2], "<f4")[0]))
+    with np.errstate(over="ignore"):  # float32, as the writer rounds
+        want = [(k, rec["step"], np.float32(v)) for rec in logged
+                for k, v in rec.items() if k not in ("step", "time")]
+    if len(got) != len(want) or any(
+            (a[0], a[1]) != (b[0], b[1]) or not (
+                a[2] == b[2] or (np.isnan(a[2]) and np.isnan(b[2])))
+            for a, b in zip(got, want)):
+        raise AssertionError(f"{names[0]}: scalar events {got[:4]}... do not "
+                             f"match metrics.jsonl {want[:4]}...")
+    print(f"{names[0]}: {len(events)} records, CRCs valid, {len(got)} scalar "
+          f"events = the metrics.jsonl values", flush=True)
+
+
 def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     """Phase 6b: `run()` on the card, as `python -m
     ecgmm_torch.workloads.run --preset <name>` runs it, with the launch
@@ -2583,6 +2709,7 @@ def run_training(tmp: str, name: str, n_synth: int, epochs: int):
     if len(logged) != epochs or not all(
             np.isfinite(rec[k]) for rec in logged for k in log_keys):
         raise AssertionError(f"{name}: bad metric log {logged}")
+    check_event_file(os.path.dirname(log_path), logged)
     if name in ("fusion", "fusion_cached") and not (
             logged[-1]["Loss/Train"] < logged[0]["Loss/Train"]):
         raise AssertionError(f"{name}: the bf16 train loss did not fall: "

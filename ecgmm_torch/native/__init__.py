@@ -50,11 +50,17 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> (argument types, result type)
 _SIGNATURES = {
-    "ecgmm_jpeg_decode_scan":
-        ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
-    "ecgmm_jpeg_decode_progressive_scan":
-        ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-          _P], _I),
+    "ecgmm_jpeg_huffman_scan":
+        ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+          _I, _P], _I),
+    "ecgmm_jpeg_arith_scan":
+        ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+          _P, _P], _I),
+    "ecgmm_jpeg_aritab": ([_P], _I),
+    "ecgmm_jpeg_lossless_scan":
+        ([_P, _L, _L, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+    "ecgmm_jpeg_smooth":
+        ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "ecgmm_jpeg_idct": ([_P, _P, _I, _I, _P], _I),
     "ecgmm_jpeg_upsample": ([_P, _L, _L, _I, _I, _P], _I),
     "ecgmm_jpeg_ycc_rgb": ([_P, _P, _P, _L, _P], _I),

@@ -1,7 +1,8 @@
-// Host kernels of the upload decoder (ecgmm_torch/serve/imdecode.py): the
-// Huffman entropy decoding of a baseline JPEG scan, libjpeg's accurate
-// integer inverse DCT (jidctint.c, "ISLOW", with its post-IDCT range
-// limit), its fancy upsampling (jdsample.c) and YCbCr->RGB conversion
+// Host kernels of the upload decoder (ecgmm_torch/serve/imdecode.py):
+// libjpeg-turbo's accurate integer inverse DCT ("ISLOW", as its SIMD code
+// computes it),
+// the block smoothing of an incomplete progressive image, its fancy
+// upsampling (jdsample.c) and YCbCr->RGB conversion
 // (jdcolor.c), PNG's row unfiltering, GIF's LZW codes and BMP's RLE8 and
 // RLE4 runs (as Pillow's decoders read them). Plain C interface, loaded with
 // ctypes; the Python side parses the markers and chunks and checks every
@@ -17,303 +18,122 @@
 
 namespace {
 
-enum {
-  ERR_BAD_HUFFMAN_TABLE = -1,
-  ERR_BAD_HUFFMAN_CODE = -2,
+enum {  // -1, -7, -8 are the JPEG scan decoders' (jpegscan.cpp)
   ERR_BAD_PNG_FILTER = -3,
   ERR_BAD_LZW_CODE = -4,
   ERR_TRUNCATED_LZW = -5,
   ERR_TRUNCATED_RLE_DELTA = -6,
 };
 
-// zigzag position -> natural (row-major) position; the 16 extra entries
-// absorb a run past the 63rd coefficient in corrupt data, as libjpeg's
-// jpeg_natural_order does
-const int kNatural[64 + 16] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
-    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-constexpr int kLookBits = 9;
-
-struct Huffman {
-  // canonical decoding per code length l (1..16): codes in
-  // [mincode[l], maxcode[l]] map to vals[valptr[l] + code - mincode[l]]
-  int32_t mincode[17];
-  int32_t maxcode[18];
-  int32_t valptr[17];
-  uint8_t vals[256];
-  // the first kLookBits bits -> (length << 8 | value), 0 where longer
-  uint16_t look[1 << kLookBits];
-
-  bool build(const uint8_t* bits, const uint8_t* huffval) {
-    int n = 0;
-    for (int l = 1; l <= 16; ++l) n += bits[l];
-    if (n > 256) return false;
-    std::memcpy(vals, huffval, 256);
-    std::memset(look, 0, sizeof(look));
-    int32_t code = 0;
-    int k = 0;
-    for (int l = 1; l <= 16; ++l) {
-      // libjpeg refuses a table whose codes of a length run out (the
-      // all-ones code is reserved); checked before `look` is filled, so
-      // an over-subscribed table never indexes past it
-      if (code + bits[l] >= (1 << l)) return false;
-      valptr[l] = k;
-      mincode[l] = code;
-      for (int i = 0; i < bits[l]; ++i, ++k, ++code) {
-        if (l <= kLookBits) {
-          int shift = kLookBits - l;
-          for (int j = 0; j < (1 << shift); ++j)
-            look[(code << shift) | j] = uint16_t((l << 8) | vals[k]);
-        }
-      }
-      maxcode[l] = bits[l] ? code - 1 : -1;
-      code <<= 1;
-    }
-    maxcode[17] = 0x7fffffff;
-    return true;
-  }
-};
-
-// Entropy-coded data: byte-stuffed 0xFF00 is a data 0xFF; a marker ends
-// the data, after which zero bits are fed (libjpeg's fill_bit_buffer does
-// the same for data that ends early).
-struct BitReader {
-  const uint8_t* buf;
-  int64_t len;
-  int64_t pos;
-  uint64_t acc = 0;
-  int nbits = 0;
-  bool at_marker = false;
-
-  void fill() {
-    while (nbits <= 56) {
-      uint32_t byte = 0;
-      if (!at_marker && pos < len) {
-        byte = buf[pos];
-        if (byte == 0xFF) {
-          int64_t p = pos + 1;
-          while (p < len && buf[p] == 0xFF) ++p;  // fill bytes
-          if (p < len && buf[p] == 0x00) {
-            pos = p + 1;
-          } else {
-            at_marker = true;
-            byte = 0;
-          }
-        } else {
-          ++pos;
-        }
-      }
-      acc |= uint64_t(byte) << (56 - nbits);
-      nbits += 8;
-    }
-  }
-  uint32_t peek(int n) {
-    if (nbits < n) fill();
-    return uint32_t(acc >> (64 - n));
-  }
-  void skip(int n) {
-    acc <<= n;
-    nbits -= n;
-  }
-  uint32_t get(int n) {
-    if (n == 0) return 0;
-    uint32_t v = peek(n);
-    skip(n);
-    return v;
-  }
-  // Discard the buffered bits and consume a restart marker (RST0-7), as
-  // libjpeg's process_restart does for well-formed data.
-  void restart() {
-    acc = 0;
-    nbits = 0;
-    at_marker = false;
-    while (pos < len && buf[pos] != 0xFF) ++pos;
-    while (pos < len && buf[pos] == 0xFF) ++pos;
-    if (pos < len && buf[pos] >= 0xD0 && buf[pos] <= 0xD7) {
-      ++pos;
-    } else if (pos > 0) {
-      --pos;  // not a restart marker: leave it for the marker parser
-    }
-  }
-  // Byte offset just after the scan's data (the next marker).
-  int64_t end() const {
-    int64_t p = pos;
-    while (p < len && !(buf[p] == 0xFF && p + 1 < len && buf[p + 1] != 0x00))
-      ++p;
-    return p;
-  }
-};
-
-inline int decode(BitReader& br, const Huffman& h, int* err) {
-  uint32_t look = br.peek(kLookBits);
-  uint16_t e = h.look[look];
-  if (e) {
-    br.skip(e >> 8);
-    return e & 0xFF;
-  }
-  int l = kLookBits + 1;
-  int32_t code = int32_t(br.peek(l));
-  while (l <= 16 && code > h.maxcode[l]) {
-    ++l;
-    code = int32_t(br.peek(l));
-  }
-  if (l > 16) {
-    *err = ERR_BAD_HUFFMAN_CODE;
-    br.skip(16);
-    return 0;
-  }
-  br.skip(l);
-  return h.vals[h.valptr[l] + code - h.mincode[l]];
-}
-
-inline int extend(uint32_t v, int s) {
-  return int(v) < (1 << (s - 1)) ? int(v) - (1 << s) + 1 : int(v);
-}
-
-// ---- libjpeg's jidctint.c (jpeg_idct_islow), 8-bit samples ----
+// ---- libjpeg-turbo's accurate integer IDCT ("ISLOW") as its SIMD code
+// computes it (jidctint-sse2.asm; the AVX2 version computes the same),
+// the version Pillow runs on x86. It is jidctint.c's algorithm in 16-bit
+// lanes: the dequantised coefficients are 16-bit products (pmullw),
+// in0 +- in4 and the odd part's z3 and z4 are 16-bit sums, the products
+// by the constants are exact 32-bit pairs (pmaddwd) summed in 32 bits, each
+// pass's results saturate to 16 bits (packssdw) and the samples to
+// [-128, 127] before the +128 (packsswb, paddb). A block whose rows 1-7
+// are all zero takes pass 1's DC shortcut: (in0 * q0) << 2 in 16 bits.
+// For coefficients a valid image holds this equals jidctint.c bit for
+// bit; for the large ones of corrupt data it is what Pillow gives.
+// idct_islow is that arithmetic in scalar C++, whose shortcuts give what
+// the full pass gives.
 constexpr int CONST_BITS = 13;
 constexpr int PASS1_BITS = 2;
-constexpr int64_t FIX_0_298631336 = 2446;
-constexpr int64_t FIX_0_390180644 = 3196;
-constexpr int64_t FIX_0_541196100 = 4433;
-constexpr int64_t FIX_0_765366865 = 6270;
-constexpr int64_t FIX_0_899976223 = 7373;
-constexpr int64_t FIX_1_175875602 = 9633;
-constexpr int64_t FIX_1_501321110 = 12299;
-constexpr int64_t FIX_1_847759065 = 15137;
-constexpr int64_t FIX_1_961570560 = 16069;
-constexpr int64_t FIX_2_053119869 = 16819;
-constexpr int64_t FIX_2_562915447 = 20995;
-constexpr int64_t FIX_3_072711026 = 25172;
+constexpr int F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433, F_0_765 = 6270,
+              F_0_899 = 7373, F_1_175 = 9633, F_1_501 = 12299,
+              F_1_847 = 15137, F_1_961 = 16069, F_2_053 = 16819,
+              F_2_562 = 20995, F_3_072 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t(1) << (n - 1))) >> n;
+inline int16_t w16(int32_t x) { return int16_t(uint16_t(uint32_t(x))); }
+inline int16_t sat16(int32_t x) {
+  return int16_t(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
 }
 
-// libjpeg's post-IDCT range limit: sample = table[v & 1023], which
-// clamps to [0, 255] for |v| up to 512 and wraps beyond (corrupt data)
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int k = 0; k < 1024; ++k) {
-      int v = k < 512 ? k : k - 1024;  // the signed value with these bits
-      int s = v + 128;
-      if (k >= 128 && k < 512) s = 255;
-      if (k >= 512 && k < 896) s = 0;
-      t[k] = uint8_t(s);
-    }
-  }
-};
-const RangeLimit kRange;
+// One 8-point pass over in0..in7 into o[0..7], descaled by `shift`
+// (before any saturation). jidctint.c's formulas: the SIMD code's
+// products by constant pairs are the same exact integers, and no sum
+// here leaves 32 bits (the largest, tmp10 + tmp3, stays below 1.7e9);
+// only the three 16-bit sums differ from C.
+inline void idct_pass(int32_t in0, int32_t in1, int32_t in2, int32_t in3,
+                      int32_t in4, int32_t in5, int32_t in6, int32_t in7,
+                      int shift, int32_t* o) {
+  // even part
+  const int32_t z1e = (in2 + in6) * F_0_541;
+  const int32_t tmp2 = z1e - in6 * F_1_847;
+  const int32_t tmp3 = z1e + in2 * F_0_765;
+  const int32_t tmp0 = int32_t(w16(in0 + in4)) * (1 << CONST_BITS);
+  const int32_t tmp1 = int32_t(w16(in0 - in4)) * (1 << CONST_BITS);
+  const int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  // odd part: tmp0..3 of jidctint.c are in7, in5, in3, in1
+  const int32_t z1 = (in7 + in1) * -F_0_899;
+  const int32_t z2 = (in5 + in3) * -F_2_562;
+  const int32_t z3w = w16(in7 + in3), z4w = w16(in5 + in1);
+  const int32_t z5 = (z3w + z4w) * F_1_175;
+  const int32_t z3 = z3w * -F_1_961 + z5, z4 = z4w * -F_0_390 + z5;
+  const int32_t o0 = in7 * F_0_298 + z1 + z3;
+  const int32_t o1 = in5 * F_2_053 + z2 + z4;
+  const int32_t o2 = in3 * F_3_072 + z2 + z3;
+  const int32_t o3 = in1 * F_1_501 + z1 + z4;
+  const int32_t round = int32_t(1) << (shift - 1);
+  o[0] = (tmp10 + o3 + round) >> shift;
+  o[7] = (tmp10 - o3 + round) >> shift;
+  o[1] = (tmp11 + o2 + round) >> shift;
+  o[6] = (tmp11 - o2 + round) >> shift;
+  o[2] = (tmp12 + o1 + round) >> shift;
+  o[5] = (tmp12 - o1 + round) >> shift;
+  o[3] = (tmp13 + o0 + round) >> shift;
+  o[4] = (tmp13 - o0 + round) >> shift;
+}
+
+inline uint8_t sample(int32_t v) {  // packsswb's saturation, then +128
+  return uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+}
 
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
                 int64_t stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
+  int32_t ws[64];  // pass 1's output, saturated to 16 bits
+  // the SIMD code's shortcut for a block with no AC rows: (in0 * q0) << 2
+  // in 16 bits, wrapping
+  bool ac_rows = false;
+  for (int k = 8; k < 64 && !ac_rows; ++k) ac_rows = in[k] != 0;
+  for (int c = 0; c < 8; ++c) {  // columns
     const int16_t* ip = in + c;
     const int16_t* qp = q + c;
-    int* wp = ws + c;
+    const int32_t d0 = w16(int32_t(ip[0]) * qp[0]);
+    if (!ac_rows) {
+      const int32_t v = w16(d0 * (1 << PASS1_BITS));
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+      continue;
+    }
     if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
         !ip[56]) {
-      int dc = int(ip[0]) * int(qp[0]) * (1 << PASS1_BITS);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      // what the pass gives for d0 alone: (d0 << 13 + 2^10) >> 11
+      const int32_t v = sat16(d0 * (1 << PASS1_BITS));
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
       continue;
     }
-    int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int64_t(ip[0]) * qp[0];
-    z3 = int64_t(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t(1) << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (int64_t(1) << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(ip[56]) * qp[56];
-    tmp1 = int64_t(ip[40]) * qp[40];
-    tmp2 = int64_t(ip[24]) * qp[24];
-    tmp3 = int64_t(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = CONST_BITS - PASS1_BITS;
-    wp[0] = int(descale(tmp10 + tmp3, n));
-    wp[56] = int(descale(tmp10 - tmp3, n));
-    wp[8] = int(descale(tmp11 + tmp2, n));
-    wp[48] = int(descale(tmp11 - tmp2, n));
-    wp[16] = int(descale(tmp12 + tmp1, n));
-    wp[40] = int(descale(tmp12 - tmp1, n));
-    wp[24] = int(descale(tmp13 + tmp0, n));
-    wp[32] = int(descale(tmp13 - tmp0, n));
+    int32_t o[8];
+    idct_pass(d0, w16(int32_t(ip[8]) * qp[8]), w16(int32_t(ip[16]) * qp[16]),
+              w16(int32_t(ip[24]) * qp[24]), w16(int32_t(ip[32]) * qp[32]),
+              w16(int32_t(ip[40]) * qp[40]), w16(int32_t(ip[48]) * qp[48]),
+              w16(int32_t(ip[56]) * qp[56]), CONST_BITS - PASS1_BITS, o);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(o[r]);
   }
-  for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+  for (int r = 0; r < 8; ++r) {  // rows
+    const int32_t* wp = ws + 8 * r;
     uint8_t* op = out + r * stride;
     if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t dc = kRange.t[descale(wp[0], PASS1_BITS + 3) & 1023];
-      for (int c = 0; c < 8; ++c) op[c] = dc;
+      // the pass for w0 alone: (w0 << 13 + 2^17) >> 18 = (w0 + 16) >> 5
+      std::memset(op, sample((wp[0] + 16) >> 5), 8);
       continue;
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (int64_t(1) << CONST_BITS);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (int64_t(1) << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = CONST_BITS + PASS1_BITS + 3;
-    op[0] = kRange.t[descale(tmp10 + tmp3, n) & 1023];
-    op[7] = kRange.t[descale(tmp10 - tmp3, n) & 1023];
-    op[1] = kRange.t[descale(tmp11 + tmp2, n) & 1023];
-    op[6] = kRange.t[descale(tmp11 - tmp2, n) & 1023];
-    op[2] = kRange.t[descale(tmp12 + tmp1, n) & 1023];
-    op[5] = kRange.t[descale(tmp12 - tmp1, n) & 1023];
-    op[3] = kRange.t[descale(tmp13 + tmp0, n) & 1023];
-    op[4] = kRange.t[descale(tmp13 - tmp0, n) & 1023];
+    int32_t row[8];
+    idct_pass(wp[0], wp[1], wp[2], wp[3], wp[4], wp[5], wp[6], wp[7],
+              CONST_BITS + PASS1_BITS + 3, row);
+    for (int c = 0; c < 8; ++c) op[c] = sample(row[c]);
   }
 }
 
@@ -330,206 +150,154 @@ inline int paeth(int a, int b, int c) {
 
 extern "C" {
 
-// Decode one baseline (sequential, Huffman) scan into the quantised
-// coefficients of its components, natural order, 64 int16 per block.
-//   buf, len, pos: the file and the offset of the scan's first data byte
-//   n_comp: components in the scan (1 to 4)
-//   comp: per component 5 ints: h, v (blocks per MCU; 1, 1 in a
-//     single-component scan), DC table, AC table (0-3), blocks per row of
-//     its coefficient plane
-//   coef, coef_off: the int16 coefficient buffer and each component's
-//     offset (in int16 elements) into it
-//   mcus_x, mcus_y: MCUs across and down the scan
-//   restart_interval: MCUs between restart markers (0: none)
-//   huff_bits: 8 tables (DC 0-3, AC 0-3) x 17 code-length counts (index 0
-//     unused); huff_vals: 8 x 256 symbols
-//   end_pos: out, the offset of the marker that ends the scan
-int ecgmm_jpeg_decode_scan(const uint8_t* buf, int64_t len, int64_t pos,
-                           int n_comp, const int32_t* comp, int16_t* coef,
-                           const int64_t* coef_off, int mcus_x, int mcus_y,
-                           int restart_interval, const uint8_t* huff_bits,
-                           const uint8_t* huff_vals, int64_t* end_pos) {
-  Huffman tables[8];
-  bool used[8] = {false};
-  for (int c = 0; c < n_comp; ++c) {
-    used[comp[5 * c + 2]] = true;
-    used[4 + comp[5 * c + 3]] = true;
-  }
-  for (int t = 0; t < 8; ++t)
-    if (used[t] && !tables[t].build(huff_bits + 17 * t, huff_vals + 256 * t))
-      return ERR_BAD_HUFFMAN_TABLE;
-  BitReader br{buf, len, pos};
-  int pred[4] = {0, 0, 0, 0};
-  int err = 0;
-  int64_t mcu = 0;
-  for (int my = 0; my < mcus_y; ++my) {
-    for (int mx = 0; mx < mcus_x; ++mx, ++mcu) {
-      if (restart_interval && mcu > 0 && mcu % restart_interval == 0) {
-        br.restart();
-        for (int c = 0; c < 4; ++c) pred[c] = 0;
-      }
-      for (int c = 0; c < n_comp; ++c) {
-        const int32_t* cp = comp + 5 * c;
-        const int h = cp[0], v = cp[1], stride = cp[4];
-        const Huffman& dc = tables[cp[2]];
-        const Huffman& ac = tables[4 + cp[3]];
-        for (int by = 0; by < v; ++by) {
-          for (int bx = 0; bx < h; ++bx) {
-            int64_t row = int64_t(my) * v + by;
-            int64_t col = int64_t(mx) * h + bx;
-            int16_t* blk = coef + coef_off[c] + (row * stride + col) * 64;
-            std::memset(blk, 0, 64 * sizeof(int16_t));
-            int s = decode(br, dc, &err);
-            int diff = s ? extend(br.get(s), s) : 0;
-            pred[c] += diff;
-            blk[0] = int16_t(pred[c]);
-            for (int k = 1; k < 64; ++k) {
-              int rs = decode(br, ac, &err);
-              int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                blk[kNatural[k]] = int16_t(extend(br.get(s), s));
-              } else {
-                if (r != 15) break;  // end of block
-                k += 15;             // a run of 16 zeros
-              }
-            }
-            if (err) return err;
-          }
+// libjpeg-turbo 3.1's block smoothing of a progressive image's component
+// (jdcoefct.c decompress_smooth_data), which its output pass runs when the
+// scans leave some of the first ten zigzag coefficients incomplete: each
+// block of the image's height_in_blocks x width_in_blocks gets estimates
+// of its AC coefficients 1-9 (zigzag) from the DC values of its 5x5
+// neighbourhood, where a coefficient is still 0 and not known in full
+// (the latch of each zigzag position's Al, -1 where no scan coded it),
+// each clamped below 1 << Al; with no AC coefficient coded at all the DC
+// value too is smoothed. At the image's edges the rows are libjpeg's
+// (counted with the last iMCU row's own block count) and the columns
+// repeat the edge column.
+// coef (blocks_y x blocks_x blocks, as for ecgmm_jpeg_idct) is copied to
+// out, the estimates in the copy; q is the component's quantisation table
+// (natural order, 16-bit values in int16s); v_samp is its vertical
+// sampling factor and imcu_rows the frame's iMCU rows; bits and
+// prev_bits (zigzag 0-9) are the latches of this component's coefficient
+// bits after the last scan and before it: iMCU rows after last_good (the
+// last scan ran out of data before them) are smoothed with prev_bits.
+int ecgmm_jpeg_smooth(const int16_t* coef, const int16_t* q16, int blocks_y,
+                      int blocks_x, int height_in_blocks, int width_in_blocks,
+                      int v_samp, int imcu_rows, const int32_t* bits,
+                      const int32_t* prev_bits, int last_good,
+                      int16_t* out) {
+  std::memcpy(out, coef, size_t(blocks_y) * blocks_x * 64 * sizeof(int16_t));
+  const uint16_t* q = reinterpret_cast<const uint16_t*>(q16);
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9],
+                Q02 = q[2], Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  auto dc = [&](int64_t row, int64_t col) {
+    return int(coef[(row * blocks_x + col) * 64]);
+  };
+  // an estimate num / (Q << 8), rounded, its magnitude below 1 << Al
+  auto estimate = [](int64_t num, int64_t qv, int al) {
+    int pred;
+    if (num >= 0) {
+      pred = int(((qv << 7) + num) / (qv << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = int(((qv << 7) - num) / (qv << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return int16_t(pred);
+  };
+  const int64_t last_col = width_in_blocks - 1;
+  for (int o = 0; o < imcu_rows; ++o) {
+    const int32_t* coef_bits = o > last_good ? prev_bits : bits;
+    bool change_dc = true;
+    for (int k = 1; k <= 9; ++k) change_dc = change_dc && coef_bits[k] == -1;
+    int block_rows = v_samp;
+    if (o == imcu_rows - 1) {
+      block_rows = height_in_blocks % v_samp;
+      if (block_rows == 0) block_rows = v_samp;
+    }
+    // libjpeg counts the image's block rows with this iMCU row's count
+    const int64_t image_block_rows = int64_t(block_rows) * imcu_rows;
+    for (int b = 0; b < block_rows; ++b) {
+      const int64_t ibr = int64_t(o) * block_rows + b;
+      const int64_t cur = int64_t(o) * v_samp + b;
+      const int64_t prev = ibr > 0 ? cur - 1 : cur;
+      const int64_t pprev = ibr > 1 ? cur - 2 : prev;
+      const int64_t next = ibr < image_block_rows - 1 ? cur + 1 : cur;
+      const int64_t nnext = ibr < image_block_rows - 2 ? cur + 2 : next;
+      const int64_t rows[5] = {pprev, prev, cur, next, nnext};
+      for (int64_t col = 0; col <= last_col; ++col) {
+        int16_t* w = out + (cur * blocks_x + col) * 64;
+        // the 5x5 DC neighbourhood, DC01..DC25 row by row, the columns
+        // past the image's edges repeating its edge column
+        int dcv[26];
+        for (int r = 0; r < 5; ++r)
+          for (int k = 0; k < 5; ++k)
+            dcv[1 + 5 * r + k] =
+                dc(rows[r], std::min(std::max(col + k - 2, int64_t(0)),
+                                     last_col));
+        const int DC01 = dcv[1], DC02 = dcv[2], DC03 = dcv[3], DC04 = dcv[4],
+                  DC05 = dcv[5], DC06 = dcv[6], DC07 = dcv[7], DC08 = dcv[8],
+                  DC09 = dcv[9], DC10 = dcv[10], DC11 = dcv[11],
+                  DC12 = dcv[12], DC13 = dcv[13], DC14 = dcv[14],
+                  DC15 = dcv[15], DC16 = dcv[16], DC17 = dcv[17],
+                  DC18 = dcv[18], DC19 = dcv[19], DC20 = dcv[20],
+                  DC21 = dcv[21], DC22 = dcv[22], DC23 = dcv[23],
+                  DC24 = dcv[24], DC25 = dcv[25];
+        int al;
+        if ((al = coef_bits[1]) != 0 && w[1] == 0) {  // AC01
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+               13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+               3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+               DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          w[1] = estimate(num, Q01, al);
+        }
+        if ((al = coef_bits[2]) != 0 && w[8] == 0) {  // AC10
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+               13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+               13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          w[8] = estimate(num, Q10, al);
+        }
+        if ((al = coef_bits[3]) != 0 && w[16] == 0) {  // AC20
+          const int64_t num = Q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+               14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+               DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+          w[16] = estimate(num, Q20, al);
+        }
+        if ((al = coef_bits[4]) != 0 && w[9] == 0) {  // AC11
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+               DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+               DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+          w[9] = estimate(num, Q11, al);
+        }
+        if ((al = coef_bits[5]) != 0 && w[2] == 0) {  // AC02
+          const int64_t num = Q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+               14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+               2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+          w[2] = estimate(num, Q02, al);
+        }
+        if (change_dc) {
+          if ((al = coef_bits[6]) != 0 && w[3] == 0)  // AC03
+            w[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 -
+                                   DC19), Q03, al);
+          if ((al = coef_bits[7]) != 0 && w[10] == 0)  // AC12
+            w[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                    3 * DC18 - DC19), Q12, al);
+          if ((al = coef_bits[8]) != 0 && w[17] == 0)  // AC21
+            w[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                    DC17 - DC19), Q21, al);
+          if ((al = coef_bits[9]) != 0 && w[24] == 0)  // AC30
+            w[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                    2 * DC18 - DC19), Q30, al);
+          const int64_t num = Q00 *
+              (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+               6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+               8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+               6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+               2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+          w[0] = estimate(num, Q00, 0);  // the DC, unclamped
         }
       }
     }
   }
-  *end_pos = br.end();
-  return 0;
-}
-
-// Decode one scan of a progressive JPEG (jdphuff.c) into the coefficients
-// of its components, which earlier scans of the image have filled in
-// part. Arguments as for ecgmm_jpeg_decode_scan, plus the scan's spectral
-// band ss..se (zigzag positions) and successive approximation ah, al:
-//   ss == 0: a DC scan, interleaved over its components; ah == 0 decodes
-//     the DC difference (shifted left by al), ah != 0 appends bit al;
-//   ss > 0: an AC scan of one component (mcus_x, mcus_y: its blocks);
-//     ah == 0 decodes the band's first bits (shifted left by al) with
-//     end-of-band runs, ah != 0 refines: one correction bit per nonzero
-//     coefficient the band passes, newly nonzero ones +-(1 << al).
-// The end-of-band run and the DC predictions restart at each restart
-// marker, as in libjpeg.
-int ecgmm_jpeg_decode_progressive_scan(
-    const uint8_t* buf, int64_t len, int64_t pos, int n_comp,
-    const int32_t* comp, int16_t* coef, const int64_t* coef_off, int mcus_x,
-    int mcus_y, int restart_interval, int ss, int se, int ah, int al,
-    const uint8_t* huff_bits, const uint8_t* huff_vals, int64_t* end_pos) {
-  Huffman tables[8];
-  bool used[8] = {false};
-  for (int c = 0; c < n_comp; ++c) {
-    if (ss == 0 && ah == 0) used[comp[5 * c + 2]] = true;
-    if (ss > 0) used[4 + comp[5 * c + 3]] = true;
-  }
-  for (int t = 0; t < 8; ++t)
-    if (used[t] && !tables[t].build(huff_bits + 17 * t, huff_vals + 256 * t))
-      return ERR_BAD_HUFFMAN_TABLE;
-  BitReader br{buf, len, pos};
-  int pred[4] = {0, 0, 0, 0};
-  int64_t eobrun = 0;
-  int err = 0;
-  const int p1 = 1 << al, m1 = -(1 << al);
-  int64_t mcu = 0;
-  for (int my = 0; my < mcus_y; ++my) {
-    for (int mx = 0; mx < mcus_x; ++mx, ++mcu) {
-      if (restart_interval && mcu > 0 && mcu % restart_interval == 0) {
-        br.restart();
-        for (int c = 0; c < 4; ++c) pred[c] = 0;
-        eobrun = 0;
-      }
-      for (int c = 0; c < n_comp; ++c) {
-        const int32_t* cp = comp + 5 * c;
-        const int h = cp[0], v = cp[1], stride = cp[4];
-        for (int by = 0; by < v; ++by) {
-          for (int bx = 0; bx < h; ++bx) {
-            int64_t row = int64_t(my) * v + by;
-            int64_t col = int64_t(mx) * h + bx;
-            int16_t* blk = coef + coef_off[c] + (row * stride + col) * 64;
-            if (ss == 0) {  // DC
-              if (ah == 0) {
-                int s = decode(br, tables[cp[2]], &err);
-                int diff = s ? extend(br.get(s), s) : 0;
-                pred[c] += diff;
-                blk[0] = int16_t(uint32_t(pred[c]) << al);
-              } else if (br.get(1)) {
-                blk[0] = int16_t(blk[0] | p1);
-              }
-            } else if (ah == 0) {  // AC, first bits
-              if (eobrun > 0) {
-                --eobrun;
-              } else {
-                const Huffman& ac = tables[4 + cp[3]];
-                for (int k = ss; k <= se; ++k) {
-                  int rs = decode(br, ac, &err);
-                  int r = rs >> 4, s = rs & 15;
-                  if (s) {
-                    k += r;
-                    blk[kNatural[k]] =
-                        int16_t(uint32_t(extend(br.get(s), s)) << al);
-                  } else if (r == 15) {
-                    k += 15;
-                  } else {
-                    eobrun = int64_t(1) << r;
-                    if (r) eobrun += br.get(r);
-                    --eobrun;
-                    break;
-                  }
-                }
-              }
-            } else {  // AC, refinement
-              const Huffman& ac = tables[4 + cp[3]];
-              int k = ss;
-              // a nonzero coefficient's correction bit raises its
-              // magnitude by p1 unless that bit is set already
-              auto correct = [&](int16_t* coefp) {
-                if (br.get(1) && (*coefp & p1) == 0)
-                  *coefp = int16_t(*coefp >= 0 ? *coefp + p1 : *coefp + m1);
-              };
-              if (eobrun == 0) {
-                for (; k <= se; ++k) {
-                  int rs = decode(br, ac, &err);
-                  int r = rs >> 4, s = rs & 15;
-                  if (s) {
-                    s = br.get(1) ? p1 : m1;  // the size is always 1
-                  } else if (r != 15) {
-                    eobrun = int64_t(1) << r;
-                    if (r) eobrun += br.get(r);
-                    break;  // the rest of the band is the EOB logic's
-                  }
-                  do {
-                    int16_t* coefp = blk + kNatural[k];
-                    if (*coefp != 0) {
-                      correct(coefp);
-                    } else if (--r < 0) {
-                      break;  // the zero the new coefficient lands on
-                    }
-                    ++k;
-                  } while (k <= se);
-                  if (s) blk[kNatural[k]] = int16_t(s);
-                }
-              }
-              if (eobrun > 0) {
-                for (; k <= se; ++k) {
-                  int16_t* coefp = blk + kNatural[k];
-                  if (*coefp != 0) correct(coefp);
-                }
-                --eobrun;
-              }
-            }
-            if (err) return err;
-          }
-        }
-      }
-    }
-  }
-  *end_pos = br.end();
   return 0;
 }
 

@@ -7,15 +7,28 @@ It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 aims to be bit-equal to them; the machines the port serves on have no
 Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 
-- baseline, extended sequential and progressive JPEG (Huffman-coded,
-  8-bit samples), 1, 3 or 4 components (CMYK and YCCK, converted to RGB
-  as Pillow converts them), any integral sampling factors,
-  restart markers; the Annex K Huffman tables where the file defines none
-  before its first scan, as libjpeg-turbo fills them in; the accurate
-  integer inverse DCT ("ISLOW"); fancy (triangle) upsampling of 2x1, 1x2
-  and 2x2 chroma, replication otherwise; libjpeg's integer YCbCr->RGB
+- baseline, extended sequential and progressive JPEG, Huffman- or
+  arithmetic-coded (SOF0-2, SOF9-10; DAC conditioning), and lossless JPEG
+  (SOF3: predictors 1-7, point transform), 8-bit samples, 1, 3 or 4
+  components (CMYK and YCCK, converted to RGB as Pillow converts them),
+  any integral sampling factors, restart markers; the Annex K Huffman
+  tables where the file defines none before its first scan, as
+  libjpeg-turbo fills them in; the accurate integer inverse DCT ("ISLOW")
+  as libjpeg-turbo's SIMD code computes it; libjpeg's block smoothing of a
+  progressive image whose scans leave its first coefficients incomplete;
+  fancy (triangle) upsampling of 2x1, 1x2 and 2x2 chroma, replication
+  otherwise (and always in lossless mode); libjpeg's integer YCbCr->RGB
   arithmetic; the colour space from the JFIF marker, the Adobe APP14
-  transform flag or the component ids, as libjpeg guesses it;
+  transform flag or the component ids, as libjpeg guesses it (lossless:
+  RGB or CMYK only, as libjpeg converts no colour there); cut and
+  corrupt files as libjpeg answers them under Pillow: its Huffman bit
+  reader (a code past 16 bits decodes as 0; past a marker, the rest of
+  the restart interval stays as it was; a scan that runs past the end of
+  the file before a marker is refused), restart resynchronisation, its
+  marker reader's refusals, an arithmetic-coded scan that must lie in the
+  64 KiB blocks Pillow has handed libjpeg when the scan starts, a
+  multi-scan image that must reach its EOI, and a single-scan image's
+  trailer, read only as far as the file goes;
 - PNG of every bit depth (1, 2, 4, 8 and 16): gray, gray+alpha, RGB, RGBA
   and palette, the five row filters and Adam7 interlacing, converted as
   Pillow converts them (gray of 1, 2 and 4 bits scaled to 0-255, 16-bit
@@ -37,14 +50,16 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   else of the XMP packet, applied as `ImageOps.exif_transpose` applies
   its 8 cases.
 
-The Huffman decoding, the inverse DCT, the upsampling, the colour
-conversion, the PNG row filters, GIF's LZW and BMP's run lengths are C++
-(`ecgmm_torch/native/imdecode.cpp`), and so are WebP's bitstreams
-(`ecgmm_torch/native/webpdec.cpp`; both built by g++ at first use); the
-markers and chunks are parsed here. Anything else (arithmetic-coded,
-lossless or hierarchical JPEG, 12-bit samples, a DNL marker, a
-progressive JPEG whose scans leave libjpeg to smooth its blocks, TIFF
-and the other formats) raises `BadRequest` naming what it met.
+The JPEG scans (`ecgmm_torch/native/jpegscan.cpp`: Huffman-coded,
+arithmetic-coded and lossless), the inverse DCT, the block
+smoothing, the upsampling, the colour conversion, the PNG row filters,
+GIF's LZW and BMP's run lengths (`imdecode.cpp`) and WebP's bitstreams
+(`webpdec.cpp`) are C++, built by g++ at first use; the markers and
+chunks are parsed here, with libjpeg's marker reader's refusals.
+Anything else (hierarchical or lossless arithmetic-coded JPEG, 12-bit
+samples, a height set by a DNL marker, all of which Pillow refuses too,
+TIFF and the other formats Pillow reads) raises `BadRequest` naming what
+it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -76,22 +91,37 @@ MAX_TEXT_MEMORY = 64 * MAX_TEXT_CHUNK
 _NOT_DECODABLE = "'file' is not a decodable image"
 _UNSUPPORTED = ("is not supported by the port's upload decoder (ROADMAP.md "
                 "section 3)")
-_NATIVE_ERRORS = {-1: "bad Huffman table", -2: "bad Huffman code",
-                  -3: "bad PNG row filter"}
+_NATIVE_ERRORS = {-1: "bad Huffman table", -3: "bad PNG row filter",
+                  -7: "truncated JPEG (its scan runs past the end; Pillow: "
+                      "image file is truncated)",
+                  -8: "a progressive JPEG's DC value overflows"}
 # zigzag position -> natural (row-major) position of an 8x8 block
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# the frames the decoder reads: SOF marker -> (entropy coding, progressive)
+_SOF_CODING = {0xC0: ("huffman", False), 0xC1: ("huffman", False),
+               0xC2: ("huffman", True), 0xC3: ("lossless", False),
+               0xC9: ("arithmetic", False), 0xCA: ("arithmetic", True)}
+# the frames it refuses, as libjpeg-turbo 3.1 (so Pillow) refuses them
 _SOF_KINDS = {
-    0xC3: "lossless JPEG",
     0xC5: "hierarchical JPEG", 0xC6: "hierarchical JPEG",
-    0xC7: "hierarchical JPEG", 0xC9: "arithmetic-coded JPEG",
-    0xCA: "arithmetic-coded JPEG", 0xCB: "arithmetic-coded JPEG",
-    0xCC: "arithmetic-coded JPEG", 0xCD: "arithmetic-coded JPEG",
-    0xCE: "arithmetic-coded JPEG", 0xCF: "arithmetic-coded JPEG",
+    0xC7: "hierarchical JPEG",
+    0xCB: "lossless arithmetic-coded JPEG (libjpeg-turbo has no decoder "
+          "for it either)",
+    0xCD: "hierarchical arithmetic-coded JPEG",
+    0xCE: "hierarchical arithmetic-coded JPEG",
+    0xCF: "hierarchical arithmetic-coded JPEG",
 }
+# marker codes libjpeg's marker reader refuses (JERR_UNKNOWN_MARKER, a
+# second SOI): the reserved 0x02-0xBF, JPG, DHP, EXP and JPG0-JPG13
+_JPEG_UNKNOWN = frozenset(range(0x02, 0xC0)) | {0xC8, 0xD8, 0xDE, 0xDF} | \
+    frozenset(range(0xF0, 0xFE))
+_NO_QUANT = np.zeros(64, np.int16)
+# PIL.ImageFile.MAXBLOCK: the bytes Pillow hands its decoder a call
+_PILLOW_MAXBLOCK = 65536
 _XMP_ORIENTATION = rb'tiff:Orientation(="|>)([0-9])'
 _TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
                   b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
@@ -133,7 +163,7 @@ def _check(status: int) -> None:
 
 
 def _decode(data: bytes):
-    if data[:2] == b"\xff\xd8":
+    if data[:3] == b"\xff\xd8\xff":  # Pillow's JPEG signature
         return _decode_jpeg(data)
     if data[:8] == PNG_SIGNATURE:
         return _decode_png(data)
@@ -696,8 +726,10 @@ def _decode_webp(data: bytes, alpha: bool = False):
 
 
 def decode_upload(data: bytes) -> np.ndarray:
-    """An uploaded JPEG, PNG, GIF, BMP or WebP file as an upright (H, W, 3)
-    uint8 RGB array."""
+    """An uploaded JPEG (Huffman- or arithmetic-coded: baseline, extended,
+    progressive; or lossless), PNG, GIF, BMP or WebP file as an upright
+    (H, W, 3) uint8 RGB array; `BadRequest` for what Pillow would refuse
+    and for the other formats Pillow reads (ROADMAP.md section 3)."""
     rgb, exif, xmp = _decode(data)
     orientation = _orientation(exif, xmp)
     if orientation in _TRANSPOSE:
@@ -789,17 +821,20 @@ def _decode_jpeg(data: bytes):
     huff_bits = np.zeros((8, 17), np.uint8)
     huff_vals = np.zeros((8, 256), np.uint8)
     huff_defined = set()
+    # DAC's conditioning tables, as SOI leaves them: L, U (DC) and Kx (AC)
+    arith = np.array([[0] * 16, [1] * 16, [5] * 16], np.uint8)
     restart = 0
-    frame = None
+    frame = coding = None
     progressive = False
-    coef_bits = None  # progressive: per component, each coefficient's Al
-    planes = None  # per component: (coefficient offset, blocks_y, blocks_x)
-    coef = None
+    prog = None  # a progressive image's state (_Progression)
+    planes = None  # per component: (offset, rows, columns) of its plane
+    coef = None  # the coefficients (lossy) or the samples (lossless)
     comp_q = {}
+    in_scan = set()
     jfif = adobe = False
     adobe_transform = None
     exif = xmp = None
-    scanned = False
+    multi_scan = eoi = False
     lib = native.library()
     while True:
         while pos < n and buf[pos] != 0xFF:  # libjpeg skips stray bytes
@@ -807,90 +842,156 @@ def _decode_jpeg(data: bytes):
         while pos < n and buf[pos] == 0xFF:
             pos += 1
         if pos >= n:
-            if scanned:
-                break  # no EOI: libjpeg ends the image there
-            raise _bad("truncated JPEG")
+            break  # no EOI: libjpeg ends the image there (see below)
         marker = int(buf[pos])
         pos += 1
         if marker == 0xD9:
+            eoi = True
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            continue
-        if pos + 2 > n:
-            raise _bad("truncated JPEG")
-        (length,) = struct.unpack(">H", data[pos:pos + 2])
-        seg = data[pos + 2:pos + length]
-        if length < 2 or len(seg) < length - 2:
-            raise _bad("truncated JPEG marker segment")
-        pos += length
+        if marker in _JPEG_UNKNOWN or (marker == 0x01 and not in_scan):
+            # libjpeg's read_markers refuses these; Pillow's own header
+            # parser refuses TEM too, ahead of the first scan
+            raise _bad(f"JPEG marker 0x{marker:02X} is not readable")
+        if 0xD0 <= marker <= 0xD7 or marker in (0x00, 0x01):
+            continue  # 0x00: a stuffed 0xFF00, which next_marker skips
+        # what libjpeg refuses on the marker alone, before its segment
         if marker in _SOF_KINDS:
             raise _unsupported(_SOF_KINDS[marker])
-        if marker in (0xC0, 0xC1, 0xC2):
-            if frame is not None:
-                raise _bad("two frame headers")
+        if marker in _SOF_CODING and frame is not None:
+            raise _bad("two frame headers")
+        if marker == 0xDA and frame is None:
+            raise _bad("scan before the frame header")
+        (length,) = struct.unpack(">H", data[pos:pos + 2].rjust(2, b"\0"))
+        if marker == 0xDD and pos + 2 <= n and length != 4:
+            raise _bad("bad restart interval")  # get_dri, before reading
+        seg = data[pos + 2:pos + length]
+        if pos + 2 > n or length < 2 or len(seg) < length - 2:
+            if in_scan and not multi_scan and not _libjpeg_refuses_part(
+                    marker, length, data[pos + 2:] if pos + 2 <= n else None,
+                    frame):
+                # libjpeg has output every row; past them it only looks
+                # for EOI and, out of data, suspends: Pillow keeps the image
+                break
+            raise _bad("truncated JPEG marker segment")
+        pos += length
+        if marker in _SOF_CODING:
+            coding, progressive = _SOF_CODING[marker]
             frame = _parse_sof(seg)
-            planes, coef = _allocate_planes(frame)
-            progressive = marker == 0xC2
-            coef_bits = np.full((len(frame[2]), 64), -1, np.int64)
+            if coding == "lossless":
+                planes, coef = _allocate_samples(frame)
+            else:
+                planes, coef = _allocate_planes(frame)
+            prog = _Progression(len(frame[2])) if progressive else None
         elif marker == 0xC4:
             _parse_dht(seg, huff_bits, huff_vals, huff_defined)
+        elif marker == 0xCC:
+            _parse_dac(seg, arith)
         elif marker == 0xDB:
             _parse_dqt(seg, qtables)
         elif marker == 0xDD:
-            if len(seg) < 2:
-                raise _bad("bad restart interval")
             (restart,) = struct.unpack(">H", seg[:2])
-        elif marker == 0xDC:
-            raise _unsupported("a JPEG whose height is set by a DNL marker")
         elif marker == 0xDA:
-            if frame is None:
-                raise _bad("scan before the frame header")
-            if not scanned:
-                _default_huffman_tables(lib, huff_bits, huff_vals,
-                                        huff_defined)
-            pos = _decode_scan(lib, buf, pos, seg, frame, planes, coef,
-                               qtables, comp_q, restart, huff_bits,
-                               huff_vals, huff_defined,
-                               coef_bits if progressive else None)
-            scanned = True
-        elif not scanned and marker == 0xE0:
+            if in_scan and not multi_scan:
+                raise _bad("a second scan in a single-scan JPEG (libjpeg "
+                           "expects its EOI)")
+            if not in_scan:
+                if coding == "huffman" and not progressive:
+                    # jdhuff.c fills them in; jdphuff.c and jdlhuff.c not
+                    _default_huffman_tables(lib, huff_bits, huff_vals,
+                                            huff_defined)
+                # libjpeg buffers the whole image when its first scan
+                # leaves components out, or the image is progressive
+                multi_scan = (progressive or not seg
+                              or seg[0] < len(frame[2]))
+            pos = _decode_scan(
+                lib, buf, pos, seg, frame, coding, planes, coef, qtables,
+                comp_q, in_scan, restart, huff_bits, huff_vals, huff_defined,
+                arith, prog)
+        elif not in_scan and marker == 0xE0:
             jfif = jfif or (seg[:5] == b"JFIF\x00" and len(seg) >= 14)
-        elif not scanned and marker == 0xEE:
+        elif not in_scan and marker == 0xEE:
             if seg[:5] == b"Adobe" and len(seg) >= 12:
                 adobe, adobe_transform = True, seg[11]
-        elif not scanned and marker == 0xE1:
+        elif not in_scan and marker == 0xE1:
             if seg.startswith(b"Exif\x00\x00"):
                 exif = seg if exif is None else exif + seg[6:]
             elif seg.startswith(b"http://ns.adobe.com/xap/1.0/\x00"):
                 xmp = seg.split(b"\x00", 1)[1]
-    if frame is None or not scanned:
-        raise _bad("JPEG without image data")
-    if progressive and _block_smoothing(coef_bits, frame[2], comp_q):
-        raise _unsupported("a progressive JPEG whose scans leave its first "
-                           "coefficients incomplete (libjpeg smooths its "
-                           "blocks)")
+    if frame is None or not in_scan:
+        raise _bad("truncated JPEG" if frame is None else
+                   "JPEG without image data")
+    if multi_scan and not eoi:
+        # libjpeg reads a buffered image to its EOI before it outputs a
+        # row; Pillow, out of data before that, calls the file truncated
+        raise _bad("truncated JPEG (a multi-scan image without its EOI)")
     height, width, comps = frame
-    samples = []
+    if coding == "lossless" and any(c[0] not in in_scan for c in comps):
+        # libjpeg leaves such a component's sample buffer unwritten
+        raise _bad("a component of a lossless JPEG is in no scan")
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
-    for (cid, h, v, _), (off, by, bx) in zip(comps, planes):
-        if cid not in comp_q:
-            raise _bad(f"component {cid} is in no scan")
-        plane = np.empty((by * 8, bx * 8), np.uint8)
-        _check(lib.ecgmm_jpeg_idct(coef[off:].ctypes.data,
-                                   comp_q[cid].ctypes.data, by, bx,
-                                   plane.ctypes.data))
-        dh = -(-height * v // vmax)
-        dw = -(-width * h // hmax)
-        full = _upsample(lib, plane[:dh, :dw], hmax // h, vmax // v)
-        samples.append(full[:height, :width])
+    if coding == "lossless":
+        samples = _lossless_samples(coef, planes, frame, jfif, adobe,
+                                    adobe_transform)
+    else:
+        smooth = progressive and _block_smoothing(prog.bits, comps, comp_q)
+        samples = []
+        for ci, ((cid, h, v, _), (off, by, bx)) in enumerate(zip(comps,
+                                                                planes)):
+            dh = -(-height * v // vmax)
+            dw = -(-width * h // hmax)
+            plane_coef = coef[off:off + by * bx * 64]
+            if smooth:
+                smoothed = np.empty_like(plane_coef)
+                bits, prev = prog.latches(ci)
+                _check(lib.ecgmm_jpeg_smooth(
+                    plane_coef.ctypes.data, comp_q[cid].ctypes.data, by, bx,
+                    -(-dh // 8), -(-dw // 8), v, -(-height // (8 * vmax)),
+                    bits.ctypes.data, prev.ctypes.data, prog.last_good,
+                    smoothed.ctypes.data))
+                plane_coef = smoothed
+            plane = np.empty((by * 8, bx * 8), np.uint8)
+            # a component no scan named has no coefficients and, for
+            # libjpeg, an all-zero dequantisation table: samples of 128
+            q = comp_q.get(cid, _NO_QUANT)
+            _check(lib.ecgmm_jpeg_idct(plane_coef.ctypes.data, q.ctypes.data,
+                                       by, bx, plane.ctypes.data))
+            full = _upsample(lib, plane[:dh, :dw], hmax // h, vmax // v)
+            samples.append(full[:height, :width])
     if len(comps) == 1:
         return np.repeat(samples[0][:, :, None], 3, axis=2), exif, xmp
     if len(comps) == 4:
         return _cmyk_to_rgb(lib, samples, adobe, adobe_transform), exif, xmp
-    if _jpeg_is_rgb(comps, jfif, adobe, adobe_transform):
+    if coding == "lossless" or _jpeg_is_rgb(comps, jfif, adobe,
+                                            adobe_transform):
         return np.stack(samples, axis=2), exif, xmp
     return _ycc_to_rgb(lib, *samples), exif, xmp
+
+
+def _lossless_samples(samples, planes, frame, jfif, adobe, adobe_transform):
+    """A lossless image's component planes at full size, upsampled by
+    replication (libjpeg's fancy upsampling needs a DCT block size above
+    1), in the colour space libjpeg reads: lossless decoding converts no
+    colour (jdcolor.c refuses it), so a 3-component image must be RGB (no
+    JFIF marker, an Adobe transform of 0 if any; libjpeg takes unknown
+    component ids as RGB here) and a 4-component one CMYK."""
+    height, width, comps = frame
+    if len(comps) == 3 and (jfif or (adobe and adobe_transform != 0)):
+        raise _bad("a lossless JPEG in YCbCr (libjpeg converts no colour "
+                   "in lossless mode)")
+    if len(comps) == 4 and adobe and adobe_transform != 0:
+        raise _bad("a lossless JPEG in YCCK (libjpeg converts no colour "
+                   "in lossless mode)")
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    out = []
+    for (_, h, v, _), (off, rows, stride) in zip(comps, planes):
+        plane = samples[off:off + rows * stride].reshape(rows, stride)
+        plane = plane[:-(-height * v // vmax), :-(-width * h // hmax)]
+        full = np.repeat(np.repeat(plane, vmax // v, axis=0), hmax // h,
+                         axis=1)
+        out.append(np.ascontiguousarray(full[:height, :width]))
+    return out
 
 
 def _parse_sof(seg: bytes):
@@ -906,14 +1007,15 @@ def _parse_sof(seg: bytes):
     _check_pixels(width, height)
     if nf not in (1, 3, 4):
         raise _unsupported(f"{nf}-component JPEG")
-    if len(seg) < 6 + 3 * nf:
+    if len(seg) != 6 + 3 * nf:  # libjpeg's get_sof wants the exact length
         raise _bad("bad frame header")
     comps = []
     for i in range(nf):
         cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
         h, v = hv >> 4, hv & 15
-        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+        if not (1 <= h <= 4 and 1 <= v <= 4):
             raise _bad("bad frame header")
+        # tq is checked where a scan latches the table (lossless uses none)
         comps.append((cid, h, v, tq))
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
@@ -939,6 +1041,22 @@ def _allocate_planes(frame):
     return planes, np.zeros(off, np.int16)
 
 
+def _allocate_samples(frame):
+    """A lossless image's sample buffer: each component's plane covers
+    whole MCUs of the interleaved layout (an MCU is h x v samples), all
+    planes with the full-size plane's row length."""
+    height, width, comps = frame
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    stride = -(-width // hmax) * hmax
+    planes, off = [], 0
+    for _, _, v, _ in comps:
+        rows = -(-height // vmax) * v
+        planes.append((off, rows, stride))
+        off += rows * stride
+    return planes, np.zeros(off, np.uint8)
+
+
 def _parse_dht(seg, huff_bits, huff_vals, defined):
     i = 0
     while i < len(seg):
@@ -950,8 +1068,6 @@ def _parse_dht(seg, huff_bits, huff_vals, defined):
         vals = seg[i + 17:i + 17 + total]
         if tc > 1 or th > 3 or total > 256 or len(vals) < total:
             raise _bad("bad Huffman table")
-        if tc == 0 and any(s > 15 for s in vals):
-            raise _bad("bad Huffman table")
         t = 4 * tc + th
         huff_bits[t] = 0
         huff_bits[t, 1:] = counts
@@ -961,10 +1077,95 @@ def _parse_dht(seg, huff_bits, huff_vals, defined):
         i += 17 + total
 
 
+def _libjpeg_refuses_part(marker, length, avail, frame) -> bool:
+    """Whether libjpeg's marker reader raises on a segment the file ends
+    inside (`avail`: its bytes after the length field, None where the
+    length field itself is cut), before it runs out of data and suspends:
+    jdmarker.c's get_dht, get_dqt, get_dac and get_sos check as they read."""
+    if avail is None:
+        return False
+    left = length - 2
+    if marker == 0xC4:  # get_dht
+        i = 0
+        while left > 16:
+            if len(avail) < i + 17:
+                return False
+            index, count = avail[i], sum(avail[i + 1:i + 17])
+            left -= 17
+            if count > 256 or count > left:
+                return True
+            if len(avail) < i + 17 + count:
+                return False
+            left -= count
+            if (index & 0x10 and index - 0x10 >= 4) or (
+                    not index & 0x10 and index >= 4):
+                return True
+            i += 17 + count
+        return left != 0
+    if marker == 0xDB:  # get_dqt
+        i = 0
+        while left > 0:
+            if len(avail) <= i:
+                return False
+            prec, tq = avail[i] >> 4, avail[i] & 15
+            left -= 1
+            if tq >= 4:
+                return True
+            size = 128 if prec else 64
+            if len(avail) < i + 1 + size:
+                return False
+            left -= size
+            i += 1 + size
+        return left != 0
+    if marker == 0xCC:  # get_dac
+        i = 0
+        while left > 0:
+            if len(avail) < i + 2:
+                return False
+            index, value = avail[i], avail[i + 1]
+            left -= 2
+            if index >= 32 or (index < 16 and value & 15 > value >> 4):
+                return True
+            i += 2
+        return left != 0
+    if marker == 0xDA:  # get_sos, then "EOI expected" in a single scan
+        if not avail:
+            return False
+        ns = avail[0]
+        if length != 2 * ns + 6 or not 1 <= ns <= 4:
+            return True
+        ids = {c[0] for c in frame[2]}
+        for j in range(ns):
+            if len(avail) < 3 + 2 * j:
+                return False
+            if avail[1 + 2 * j] not in ids:
+                return True
+        return len(avail) >= 2 * ns + 4
+    return False
+
+
+def _parse_dac(seg, arith):
+    """jdmarker.c get_dac: (index, value) pairs; index 0-15 sets a DC
+    table's L (low nibble) and U (high nibble), L <= U; 16-31 an AC
+    table's Kx."""
+    if len(seg) % 2:
+        raise _bad("bad arithmetic conditioning table")
+    for index, value in zip(seg[::2], seg[1::2]):
+        if index >= 32:
+            raise _bad("bad arithmetic conditioning table")
+        if index >= 16:
+            arith[2, index - 16] = value
+        else:
+            if value & 15 > value >> 4:
+                raise _bad("bad arithmetic conditioning table")
+            arith[0, index], arith[1, index] = value & 15, value >> 4
+
+
 def _default_huffman_tables(lib, huff_bits, huff_vals, defined):
-    """libjpeg-turbo's std_huff_tables at the start of decompression: the
-    tables DC 0, DC 1, AC 0 and AC 1 that no DHT marker before the first
-    scan defined are the Annex K tables (Motion-JPEG frames omit them)."""
+    """libjpeg-turbo's std_huff_tables at the start of a sequential
+    Huffman decompression: the tables DC 0, DC 1, AC 0 and AC 1 that no DHT
+    marker before the first scan defined are the Annex K tables
+    (Motion-JPEG frames omit them)."""
     for slot, t in enumerate((0, 1, 4, 5)):
         if t not in defined:
             _check(lib.ecgmm_jpeg_std_huffman(slot, huff_bits[t].ctypes.data,
@@ -972,9 +1173,37 @@ def _default_huffman_tables(lib, huff_bits, huff_vals, defined):
             defined.add(t)
 
 
+class _Progression:
+    """A progressive image's state as libjpeg keeps it: `bits`, each
+    component's coefficients' Al so far (-1: not coded), and `prev`, the
+    same before the last scan that coded them (jdphuff.c's and jdarith.c's
+    start_pass, over zigzag min(Ss, 1)..max(Se, 9)); the scans read; and
+    `last_good`, the last iMCU row in which the last scan began an MCU
+    with data left."""
+
+    def __init__(self, n_comp: int):
+        self.bits = np.full((n_comp, 64), -1, np.int64)
+        self.prev = np.zeros((n_comp, 64), np.int64)
+        self.scans = 0
+        self.last_good = -1
+
+    def start(self, ci: int, ss: int, se: int, al: int) -> None:
+        lo, hi = min(ss, 1), max(se, 9) + 1
+        self.prev[ci, lo:hi] = self.bits[ci, lo:hi] if self.scans > 1 else 0
+        self.bits[ci, ss:se + 1] = al
+
+    def latches(self, ci: int):
+        """jdcoefct.c smoothing_ok's latches of zigzag 0-9: now, and before
+        the last scan (-1 after a single scan)."""
+        bits = self.bits[ci, :10].astype(np.int32)
+        prev = (self.prev[ci, :10] if self.scans > 1
+                else np.full(10, -1)).astype(np.int32)
+        return bits, prev
+
+
 def _block_smoothing(coef_bits, comps, comp_q) -> bool:
-    """Whether libjpeg's output pass would smooth a progressive image's
-    blocks (jdcoefct.c smoothing_ok): every component's DC is known, its
+    """Whether libjpeg's output pass smooths a progressive image's blocks
+    (jdcoefct.c smoothing_ok): every component's DC is known, its
     quantisation table has no zero among the first coefficients, and
     some component still misses bits of a coefficient among zigzag
     positions 1-9."""
@@ -989,26 +1218,31 @@ def _block_smoothing(coef_bits, comps, comp_q) -> bool:
     return useful
 
 
-def _check_code_space(bits) -> None:
+def _check_huffman_table(bits, vals, dc_limit=None) -> None:
     """libjpeg's check of a Huffman table a scan uses
     (`jpeg_make_d_derived_tbl`): the codes of each length fit in the code
-    space the shorter ones leave, the all-ones code reserved. The native
-    decoder checks it too, before it fills its lookup table."""
+    space the shorter ones leave, the all-ones code reserved, and a DC
+    table's symbols are at most `dc_limit` (15, or 16 in lossless mode).
+    The native decoders check the code space too, before they fill their
+    lookup tables."""
     code = 0
     for length in range(1, 17):
         code += int(bits[length])
         if code >= 1 << length:
             raise _bad("bad Huffman table")
         code <<= 1
+    total = int(bits.sum(dtype=np.int64))
+    if dc_limit is not None and np.any(vals[:total] > dc_limit):
+        raise _bad("bad Huffman table")
 
 
 def _parse_dqt(seg, qtables):
     i = 0
     while i < len(seg):
         pq, tq = seg[i] >> 4, seg[i] & 15
-        size = 128 if pq else 64
+        size = 128 if pq else 64  # libjpeg: any precision but 0 is 16-bit
         body = seg[i + 1:i + 1 + size]
-        if tq > 3 or pq > 1 or len(body) < size:
+        if tq > 3 or len(body) < size:
             raise _bad("bad quantisation table")
         zz = np.frombuffer(body, ">u2" if pq else np.uint8).astype(np.int64)
         q = np.zeros(64, np.int64)
@@ -1018,76 +1252,130 @@ def _parse_dqt(seg, qtables):
         i += 1 + size
 
 
-def _decode_scan(lib, buf, pos, seg, frame, planes, coef, qtables, comp_q,
-                 restart, huff_bits, huff_vals, defined,
-                 coef_bits=None) -> int:
-    """Decode one scan into `coef`; `coef_bits` (each component's
-    successive-approximation state, updated here) marks a progressive
-    image."""
+def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
+                 comp_q, in_scan, restart, huff_bits, huff_vals, defined,
+                 arith, prog=None) -> int:
+    """Decode one scan into `coef` (the samples of a lossless image);
+    `prog` (a `_Progression`, updated here) marks a progressive image.
+    Returns the offset where the marker reader resumes."""
     height, width, comps = frame
     if not seg:
         raise _bad("bad scan header")
     ns = seg[0]
-    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+    # libjpeg's get_sos wants the exact length
+    if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
         raise _bad("bad scan header")
     ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
     ah, al = ahl >> 4, ahl & 15
-    if coef_bits is not None and (
+    if prog is not None and (
             (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
             or (ah != 0 and al != ah - 1) or al > 13):
         raise _bad("bad progression parameters")
+    if prog is not None:
+        prog.scans += 1
+    if coding == "lossless" and not (1 <= ss <= 7 and se == 0 and ah == 0
+                                     and al < 8):
+        raise _bad("bad lossless scan parameters")
     index = {c[0]: i for i, c in enumerate(comps)}
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
+    if ns > 1 and sum(comps[index[cid]][1] * comps[index[cid]][2]
+                      for cid in seg[1:1 + 2 * ns:2] if cid in index) > 10:
+        raise _bad("an MCU of more than 10 blocks (libjpeg's "
+                   "D_MAX_BLOCKS_IN_MCU)")
     params, offsets = [], []
     for j in range(ns):
         cid, tables = seg[1 + 2 * j], seg[2 + 2 * j]
         if cid not in index:
             raise _bad(f"scan names unknown component {cid}")
-        _, h, v, tq = comps[index[cid]]
+        ci = index[cid]
+        _, h, v, tq = comps[ci]
         td, ta = tables >> 4, tables & 15
         # the tables this scan decodes with: a progressive scan uses the
         # DC table for a first DC scan, the AC table for an AC scan and
-        # none for a DC refinement, which reads raw bits
-        dc_used = coef_bits is None or (ss == 0 and ah == 0)
-        ac_used = coef_bits is None or ss > 0
-        if coef_bits is not None:
-            coef_bits[index[cid], ss:se + 1] = al
-        if (dc_used and (td > 3 or td not in defined)) or (
-                ac_used and (ta > 3 or 4 + ta not in defined)):
-            raise _bad("scan uses an undefined Huffman table")
-        for t in [td] * dc_used + [4 + ta] * ac_used:
-            _check_code_space(huff_bits[t])
-        if tq not in qtables:
-            raise _bad("component uses an undefined quantisation table")
-        comp_q.setdefault(cid, qtables[tq])  # latched at its first scan
-        off, _, bx = planes[index[cid]]
+        # none for a DC refinement; a lossless scan only a DC table
+        dc_used = prog is None or (ss == 0 and ah == 0)
+        ac_used = coding != "lossless" and (prog is None or ss > 0)
+        if prog is not None:
+            prog.start(ci, ss, se, al)
+        if coding != "arithmetic":  # its 16 tables are always defined
+            if (dc_used and (td > 3 or td not in defined)) or (
+                    ac_used and (ta > 3 or 4 + ta not in defined)):
+                raise _bad("scan uses an undefined Huffman table")
+            if dc_used:
+                _check_huffman_table(huff_bits[td], huff_vals[td],
+                                     16 if coding == "lossless" else 15)
+            if ac_used:
+                _check_huffman_table(huff_bits[4 + ta], huff_vals[4 + ta])
+        in_scan.add(cid)
+        if coding != "lossless":
+            if tq not in qtables:
+                raise _bad("component uses an undefined quantisation table")
+            comp_q.setdefault(cid, qtables[tq])  # latched at its first scan
+        off = planes[ci][0]
+        if coding == "lossless":
+            params += [h, v, td, -(-width * h // hmax), -(-height * v // vmax),
+                       off]
+            continue
+        _, _, bx = planes[ci]
         if ns == 1:
             h = v = 1
         params += [h, v, td, ta, bx]
         offsets.append(off)
     if ns == 1:
         _, h, v, _ = comps[index[seg[1]]]
-        mcus_x = -(-(-(-width * h // hmax)) // 8)
-        mcus_y = -(-(-(-height * v // vmax)) // 8)
+        mcus_x = -(-width * h // hmax)
+        mcus_y = -(-height * v // vmax)
+        if coding != "lossless":
+            mcus_x, mcus_y = -(-mcus_x // 8), -(-mcus_y // 8)
+    elif coding == "lossless":
+        mcus_x, mcus_y = -(-width // hmax), -(-height // vmax)
     else:
         mcus_x = -(-width // (8 * hmax))
         mcus_y = -(-height // (8 * vmax))
+    if coding == "lossless":
+        if restart % mcus_x:
+            raise _bad(f"restart interval {restart} is not a multiple of "
+                       f"the {mcus_x} MCUs of an MCU row (lossless JPEG)")
+        params = np.array(params, np.int64)
+        out = np.zeros(1, np.int64)
+        _check(lib.ecgmm_jpeg_lossless_scan(
+            buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
+            coef.ctypes.data, planes[0][2], mcus_x, -(-height // vmax),
+            restart, ss, al, huff_bits.ctypes.data, huff_vals.ctypes.data,
+            out.ctypes.data))
+        return int(out[0])
     params = np.array(params, np.int32)
     offsets = np.array(offsets, np.int64)
-    end = np.zeros(1, np.int64)
-    if coef_bits is None:
-        _check(lib.ecgmm_jpeg_decode_scan(
+    if coding == "arithmetic":
+        out = np.zeros(2, np.int64)
+        _check(lib.ecgmm_jpeg_arith_scan(
             buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
             coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
-            huff_bits.ctypes.data, huff_vals.ctypes.data, end.ctypes.data))
-    else:
-        _check(lib.ecgmm_jpeg_decode_progressive_scan(
-            buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
-            coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
-            ss, se, ah, al, huff_bits.ctypes.data, huff_vals.ctypes.data,
-            end.ctypes.data))
-    return int(end[0])
+            int(prog is not None), ss, se, ah, al, arith[0].ctypes.data,
+            arith[1].ctypes.data, arith[2].ctypes.data, out.ctypes.data))
+        # Pillow hands libjpeg 64 KiB more a call; libjpeg reads a scan's
+        # header in the first call that holds all of it and decodes the
+        # scan in that call, and its arithmetic decoder cannot suspend
+        # for more data (jdarith.c get_byte): it fails, and Pillow refuses
+        held = min(len(buf), -(-pos // _PILLOW_MAXBLOCK) * _PILLOW_MAXBLOCK)
+        if out[1] > held:
+            raise _bad(f"an arithmetic-coded scan reads to byte {out[1]}, "
+                       f"past the {held} Pillow has handed libjpeg (its "
+                       "arithmetic decoder cannot wait for more)")
+        if prog is not None:  # jdarith.c never runs out of data
+            prog.last_good = -(-height // (8 * vmax)) - 1
+        return int(out[0])
+    out = np.zeros(2, np.int64)
+    imcu_v = comps[index[seg[1]]][2] if ns == 1 else 1
+    _check(lib.ecgmm_jpeg_huffman_scan(
+        buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
+        coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
+        int(prog is not None), ss, se, ah, al, huff_bits.ctypes.data,
+        huff_vals.ctypes.data, imcu_v, out.ctypes.data))
+    if prog is not None:
+        prog.last_good = int(out[1])
+    return int(out[0])
 
 
 def _jpeg_is_rgb(comps, jfif, adobe, adobe_transform) -> bool:

@@ -27,7 +27,7 @@ from PIL import Image, ImageOps
 from ecgmm_tpu.data import synthetic as jax_synthetic
 from ecgmm_torch import native
 from ecgmm_torch.serve import imdecode
-from ecgmm_torch.serve.imdecode import decode_upload
+from ecgmm_torch.serve.imdecode import decode_image, decode_upload
 from ecgmm_torch.serve.wire import BadRequest
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
@@ -329,19 +329,27 @@ def _first_scans(data: bytes, n: int) -> bytes:
 def test_unsupported_and_undecodable_raise_bad_request(photo):
     """Progressive JPEG, 16-bit PNG and CMYK JPEG, once refused here,
     decode now (test_progressive_jpeg_bit_equal_to_pillow,
-    test_png_bit_depths, test_cmyk_jpeg_bit_equal_to_pillow); a
+    test_png_bit_depths, test_cmyk_jpeg_bit_equal_to_pillow); so do a
     progressive JPEG whose scans stop before its first coefficients are
-    whole takes libjpeg's block smoothing, which the port refuses, and so
-    are lossless, hierarchical and DNL-height JPEG."""
+    whole (libjpeg's block smoothing) and a Huffman stream under an
+    arithmetic frame header (SOF9), once refused too: bit-equal to Pillow
+    (more in test_torch_jpeg_arith_lossless.py). The same stream under
+    SOF3 is refused by both (its scan header is no lossless one), and so
+    are 12-bit, hierarchical and DNL-height JPEG."""
     img = photo[:40, :90]
     partial = _first_scans(_jpeg(img, progressive=True), 2)
-    pillow(partial)  # Pillow decodes it, smoothing the blocks
+    relabelled = _patched(_jpeg(img), b"\xff\xc0", 1, 0xC9)
+    for data in (partial, relabelled):
+        assert_bit_equal(data)
+        np.testing.assert_array_equal(
+            decode_image(data), np.asarray(Image.open(io.BytesIO(
+                data)).convert("RGB")))
+    lossless = _patched(_jpeg(img), b"\xff\xc0", 1, 0xC3)
+    with pytest.raises(Exception):
+        pillow(lossless)
     cases = [
-        (partial, "first coefficients incomplete"),
-        (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC9),
-         "arithmetic-coded JPEG"),
+        (lossless, "bad lossless scan parameters"),
         (_patched(_jpeg(img), b"\xff\xc0", 4, 12), "12-bit JPEG"),
-        (_patched(_jpeg(img), b"\xff\xc0", 1, 0xC3), "lossless JPEG"),
         (b"not an image", "not a decodable image"),
         (_jpeg(img)[:300], "not a decodable image"),
         (b"GIF89a" + b"\x00" * 20, "GIF with no image"),
@@ -364,7 +372,7 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
     for data, want in cases:
         with pytest.raises(BadRequest, match=want):
             decode_upload(data)
-    for data, want in cases[:4] + cases[-2:]:
+    for data, want in cases[1:2] + cases[-2:]:
         assert "ROADMAP" in _message(data)
 
 
@@ -489,12 +497,12 @@ def test_native_scan_decoder_refuses_oversubscribed_tables(table, n1):
     comp = np.array([1, 1, table % 4, 3 if table else 0, 1], np.int32)
     coef = np.zeros(64, np.int16)
     offsets = np.zeros(1, np.int64)
-    end = np.zeros(1, np.int64)
+    out = np.zeros(2, np.int64)
     buf = np.zeros(16, np.uint8)
-    status = lib.ecgmm_jpeg_decode_scan(
+    status = lib.ecgmm_jpeg_huffman_scan(
         buf.ctypes.data, len(buf), 0, 1, comp.ctypes.data, coef.ctypes.data,
-        offsets.ctypes.data, 1, 1, 0, bits.ctypes.data, vals.ctypes.data,
-        end.ctypes.data)
+        offsets.ctypes.data, 1, 1, 0, 0, 0, 63, 0, 0, bits.ctypes.data,
+        vals.ctypes.data, 1, out.ctypes.data)
     assert status == -1
 
 
@@ -545,10 +553,18 @@ def test_committed_fixtures_decode_to_pillows_hashes():
         hashes = json.load(f)
     assert set(hashes) == {"strip.jpg", "scene_exif6.jpg", "strip_q80.webp",
                            "scene_exif6.webp", "strip_lossless_crop.webp",
-                           "strip_anim2.webp"}
+                           "strip_anim2.webp", "strip_arith.jpg",
+                           "strip_arith_prog.jpg", "strip_lossless_crop.jpg",
+                           "strip_smoothed.jpg", "strip_arith_whole.jpg"}
     for name, want in hashes.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
+        if want.get("refused"):  # an upload both refuse
+            with pytest.raises(Exception):
+                pillow(data)
+            with pytest.raises(BadRequest):
+                decode_upload(data)
+            continue
         for rgb in (pillow(data), decode_upload(data)):
             assert list(rgb.shape) == want["shape"]
             assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
@@ -1049,22 +1065,20 @@ def _arithmetic_jpeg() -> bytes:
 
 def test_valid_lossless_12bit_and_arithmetic_jpeg():
     """Pillow 12.1 (libjpeg-turbo) decodes a lossless and an
-    arithmetic-coded JPEG, which the port refuses (open in ROADMAP.md);
-    it refuses a 12-bit one at open ("cannot handle 12-bit layers") and a
-    hierarchical one at load, as the port does."""
+    arithmetic-coded JPEG, and so does the port now, bit-equal (it
+    refused both before); Pillow refuses a 12-bit one at open ("cannot
+    handle 12-bit layers") and a hierarchical one at load, as the port
+    does."""
     rng = np.random.default_rng(0)
     img = np.clip(np.add.outer(np.arange(8) * 9, np.arange(12) * 7)
                   + rng.integers(0, 20, (8, 12)), 0, 255).astype(np.uint8)
     lossless = _lossless_jpeg(img)
     np.testing.assert_array_equal(pillow(lossless),
                                   np.repeat(img[:, :, None], 3, axis=2))
-    with pytest.raises(BadRequest, match="lossless JPEG .*not supported"):
-        decode_upload(lossless)
+    assert_bit_equal(lossless)
     arithmetic = _arithmetic_jpeg()
     np.testing.assert_array_equal(pillow(arithmetic), 130)
-    with pytest.raises(BadRequest,
-                       match="arithmetic-coded JPEG .*not supported"):
-        decode_upload(arithmetic)
+    assert_bit_equal(arithmetic)
     twelve = _twelve_bit_jpeg()
     with pytest.raises(Exception):
         pillow(twelve)

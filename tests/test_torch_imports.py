@@ -11,7 +11,8 @@ bundle (`serve/export.py`) and the tools (`tools/flax_msgpack.py`,
 `convert_pth`, `export_pth`, `trace_report`, `digitize_batch`,
 `digitize_envelope`, `eda`, `ocr`, `rows_cap_probe`, `train/profiler.py`)
 among them. The msgpack package is refused as well: the port reads and
-writes flax's format with its own codec."""
+writes flax's format with its own codec; so are tensorboard and
+tensorflow, since the port writes TensorBoard's event files itself."""
 
 import ast
 import os
@@ -27,7 +28,7 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ecgmm_tpu", "PIL",
              "pandas", "matplotlib", "openpyxl", "wfdb", "sklearn",
-             "msgpack")
+             "msgpack", "tensorboard", "tensorflow")
 XAI_MODULES = ("deep_shap", "gradcam", "lime_fusion", "run_xai",
                "shap_fusion", "tabnet_masks")
 REAL_DATA_MODULES = ("data.sources", "data.align", "data.pipeline",
@@ -124,7 +125,8 @@ def test_train_cli_runs_on_cpu_with_jax_blocked(tmp_path):
     """`python -m ecgmm_torch.workloads.run --preset ptbxl_af --device cpu
     --epochs 1 --n-synth 48` trains the full-width model on the CPU, with
     JAX and the JAX package blocked, and writes its checkpoints, metric
-    log and best/last reports, the confusion and ROC PNGs among them."""
+    log (metrics.jsonl and a TensorBoard event file) and best/last
+    reports, the confusion and ROC PNGs among them."""
     code = textwrap.dedent(f"""
         import runpy, sys
         for name in {FORBIDDEN!r}:
@@ -146,6 +148,9 @@ def test_train_cli_runs_on_cpu_with_jax_blocked(tmp_path):
                  "output/r/report_best.txt", "output/r/report_last.txt",
                  "output/r/confusion_best.png", "output/r/roc_last.png"):
         assert (tmp_path / path).is_file(), path
+    # the TensorBoard event file beside the metric log, as JAX's run
+    # writes one
+    assert len(list((tmp_path / "runs/r").glob("events.out.tfevents.*"))) == 1
 
 
 def test_train_cli_defaults_to_the_card():

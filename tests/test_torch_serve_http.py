@@ -135,14 +135,22 @@ def _assert_same_response(a, b):
     assert set(a) == set(b)
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "ARITHMETIC"])
 def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     """Both servers as they ship: each digitizes through its native
     kernels, the port's a copy of JAX's, so the waveforms are equal. A
     WebP upload (lossy, Pillow's default quality) decodes in the port
-    bit-equal to the JAX handler's Pillow."""
+    bit-equal to the JAX handler's Pillow, and so does an arithmetic-coded
+    JPEG (the committed `strip_arith.jpg`, half a cohort strip)."""
     jbase, base, _ = servers
-    photo = _encoded(cohort.images[0], fmt)
+    if fmt == "ARITHMETIC":
+        with open(os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "ecgmm_torch", "serve",
+                "fixtures", "strip_arith.jpg"), "rb") as f:
+            photo = f.read()
+        fmt = "JPEG"
+    else:
+        photo = _encoded(cohort.images[0], fmt)
     body, ctype = _body(photo, {"age": 71, "weight": 58, "gender": "1"},
                         name=f"photo.{fmt.lower()}")
     want = _post(jbase, body, ctype)
@@ -190,14 +198,15 @@ def test_contract_and_heatmap_formats(servers, cohort):
 
 def test_client_errors_are_400(servers, cohort):
     """`tests/test_serve.py::test_http_endpoint_client_errors_are_400`'s
-    cases, a non-numeric age, and an arithmetic-coded JPEG the port's
-    decoder refuses (its progressive JPEG decodes since the decoder
-    learned SOF2)."""
+    cases, a non-numeric age, and a JPEG both decoders refuse: a lossless
+    arithmetic-coded frame (SOF11), which libjpeg-turbo cannot decode
+    either. (An arithmetic-coded JPEG, SOF9, was this case until the
+    decoder learned it: test_same_upload_same_response_as_jax.)"""
     _, base, _ = servers
     good = _encoded(np.zeros((20, 40, 3), np.uint8))
     blank = _encoded(np.full((250, 500, 3), 245, np.uint8))
     arith = bytearray(good)
-    arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF9
+    arith[arith.index(b"\xff\xc0") + 1] = 0xCB  # SOF11
     cases = [
         (encode_multipart({"notfile": (None, b"x")}),
          "missing multipart field 'file'"),
@@ -221,7 +230,7 @@ def test_client_errors_are_400(servers, cohort):
                            "questionnaire": (None, b'{"age": "sixty"}')}),
          "must be numeric"),
         (encode_multipart({"file": ("f.jpg", bytes(arith))}),
-         "arithmetic-coded JPEG"),
+         "lossless arithmetic-coded JPEG"),
     ]
     for (body, ctype), want in cases:
         with pytest.raises(urllib.error.HTTPError) as e:
