@@ -48,7 +48,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   8. (run after phase 5) the front end: the upload decoder turns the
      committed fixtures (JPEG: baseline, arithmetic-coded sequential and
      progressive, lossless, block-smoothed progressive; WebP: lossy, VP8X
-     with EXIF, lossless, animated) into Pillow's bytes (SHA-256) and
+     with EXIF, lossless, animated; TIFF: YCbCr 2x2 JPEG-in-TIFF, Group 4,
+     tiled LZW with predictor 2; PPM) into Pillow's bytes (SHA-256) and
      refuses the arithmetic-coded strip Pillow refuses (past the 64 KiB
      it hands libjpeg at once), and each fixture's decode ms is printed
      beside the JPEG strip's; the HTTP server
@@ -57,7 +58,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      1-16) answers 16 client threads posting the hammer's JPEG, then the
      same strip as WebP, every response checked, with the launch counters
      equal to dispatches x (3 SE forwards, 3 fusion forwards, 2 fusion
-     backwards), coalescence above 1 in /stats and /metrics parsed; a
+     backwards), then one request posting the strip as JPEG-in-TIFF
+     (checked, one dispatch of the plan), coalescence above 1 in /stats
+     and /metrics parsed; a
      b=16 dispatch matches the CPU with TF32 at torch's defaults (and a
      TF32 control is read); requests/s and p50/p90 at 1, 4 and 16 clients
      batched and unbatched, device ms per bucket, the busy share; a drain
@@ -1200,16 +1203,18 @@ SERVE_PLAN = {"fused_se": 3, "fused_attention_fusion": 3,
 
 
 WEBP_STRIP = os.path.join(FIXTURES, "strip_q80.webp")
+TIFF_STRIP = os.path.join(FIXTURES, "strip_ycbcr22.tif")
 
 
 def check_decoder(smi):
     """The upload decoder where the script runs: each committed fixture
     (JPEG: baseline, arithmetic-coded sequential and progressive, lossless,
-    block-smoothed progressive; WebP) decodes to the SHA-256 that Pillow's
-    decode gave where the fixtures were made, and the one Pillow refuses
-    (an arithmetic-coded scan past the 64 KiB Pillow hands libjpeg at
-    once) is refused with BadRequest; decode time of the hammer's JPEG
-    strip and of each other fixture (host clock, median of 20). Returns
+    block-smoothed progressive; WebP; TIFF; PPM) decodes to the SHA-256
+    that Pillow's decode gave where the fixtures were made, and the one
+    Pillow refuses (an arithmetic-coded scan past the 64 KiB Pillow hands
+    libjpeg at once) is refused with BadRequest; decode time of the
+    hammer's JPEG strip and of each other fixture (host clock, median of
+    20). Returns
     {file: ms}."""
     with open(os.path.join(FIXTURES, "pillow_rgb_sha256.json")) as f:
         hashes = json.load(f)
@@ -1743,7 +1748,8 @@ def run_front_end(smi):
     1-16) under 16 client threads posting the hammer's JPEG, then the
     same strip as WebP, every response checked, with the launch counters
     equal to dispatches times the plan (3 SE forwards, 3 fusion forwards,
-    2 fusion backwards); /stats and /metrics; a b=16 dispatch against the
+    2 fusion backwards); one request posting the strip as YCbCr 2x2
+    JPEG-in-TIFF, checked; /stats and /metrics; a b=16 dispatch against the
     CPU; requests/s and latency at 1, 4 and 16 clients batched and
     unbatched; device ms per bucket; the drain. Returns the launches of
     the two batched HTTP runs by path."""
@@ -1792,6 +1798,23 @@ def run_front_end(smi):
                              for k, n in SERVE_PLAN.items()}:
             raise AssertionError("the WebP uploads did not run through the "
                                  "kernels' plan per dispatch")
+        before = pipe.stats()["batching"]["dispatches"]
+        _zero_launch_counts()
+        body, ctype = serve_hammer.request_body(photo=TIFF_STRIP)
+        t = time.perf_counter()
+        tiff_resp = json.loads(serve_hammer._post(url, body, ctype))
+        tiff_ms = (time.perf_counter() - t) * 1e3
+        check_response(tiff_resp, "png")
+        tiff_launches = _launch_counts()
+        tiff_dispatches = pipe.stats()["batching"]["dispatches"] - before
+        print(f"http posting {os.path.basename(TIFF_STRIP)} (YCbCr 2x2 "
+              f"JPEG-in-TIFF): {tiff_ms:.3f} ms, {tiff_dispatches} "
+              f"dispatch, launches {tiff_launches}, label "
+              f"{tiff_resp['label']} p {tiff_resp['probability']:.4f} "
+              f"({smi})", flush=True)
+        if tiff_dispatches != 1 or tiff_launches != SERVE_PLAN:
+            raise AssertionError("the TIFF upload did not run through the "
+                                 "kernels' plan in one dispatch")
         busy = profiled_busy(url, 16, 2.0, smi)
         cpu_pipe = _cpu_twin(pipe)
         tf32 = compare_batched_with_cpu(pipe, cpu_pipe)
@@ -1822,6 +1845,7 @@ def run_front_end(smi):
         pipe.close_batching()
     print(json.dumps({"front_end": {
         "device": smi, "decode_ms": decode_ms, "busy_share_16": busy,
+        "tiff_request_ms": tiff_ms,
         "webp_batched_16": {k: webp16[k] for k in (
             "req_per_sec", "latency_median_ms", "latency_p90_ms",
             "device_program_share", "requests", "dispatches")},
@@ -1832,7 +1856,8 @@ def run_front_end(smi):
             "device_program_share", "requests", "dispatches")}
             for c, r in by.items()} for mode, by in served.items()}}}),
         flush=True)
-    return {"serve_http_batched": launches, "serve_http_webp": webp_launches}
+    return {"serve_http_batched": launches, "serve_http_webp": webp_launches,
+            "serve_http_tiff": tiff_launches}
 
 
 def _on(arrays, device):

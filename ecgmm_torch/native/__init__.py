@@ -82,6 +82,10 @@ _SIGNATURES = {
     "ecgmm_jpeg_std_huffman": ([_I, _P, _P], _I),
     "ecgmm_webp_vp8": ([_P, _L, _P, _L, _I, _I, _P, _L, _P, _L], _I),
     "ecgmm_webp_vp8l": ([_P, _L, _I, _I, _P, _L, _P, _L], _I),
+    "ecgmm_pnm_plain": ([_P, _L, _P, _L, _P], _L),
+    "ecgmm_tiff_packbits": ([_P, _L, _P, _L], _I),
+    "ecgmm_tiff_lzw": ([_P, _L, _P, _L], _I),
+    "ecgmm_tiff_fax": ([_P, _L, _I, _L, _I, _L, _L, _L, _P, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -3,13 +3,15 @@
 // computes it),
 // the block smoothing of an incomplete progressive image, its fancy
 // upsampling (jdsample.c) and YCbCr->RGB conversion
-// (jdcolor.c), PNG's row unfiltering, GIF's LZW codes and BMP's RLE8 and
-// RLE4 runs (as Pillow's decoders read them). Plain C interface, loaded with
+// (jdcolor.c), PNG's row unfiltering, GIF's LZW codes, BMP's RLE8 and
+// RLE4 runs (as Pillow's decoders read them) and plain PNM's decimal
+// samples. Plain C interface, loaded with
 // ctypes; the Python side parses the markers and chunks and checks every
 // size before it passes a pointer.
 //
-// Every entry point returns 0 on success and a negative code otherwise
-// (ERR_* below); imdecode.py maps the codes to messages.
+// Every entry point but ecgmm_pnm_plain (which returns a count) returns 0
+// on success and a negative code otherwise (ERR_* below); imdecode.py maps
+// the codes to messages.
 
 #include <algorithm>
 #include <cstdint>
@@ -584,6 +586,48 @@ int ecgmm_bmp_rle(const uint8_t* data, int64_t n, int64_t base, int rle4,
   }
   *written = std::min(o, n_out);
   return status;
+}
+
+// A plain PNM block's samples (PpmPlainDecoder._decode_blocks after its
+// comments are taken out): the whitespace-separated tokens of `s`, each
+// written to `values` (at most `cap`). Stops at the first token that is
+// not 1 to 10 decimal digits, whose offset goes to state[0] (else -1),
+// the Python side then reading the block as Pillow does; state[1] is
+// where a last token that runs to the end of the block begins (else n),
+// which the block after it completes. Returns the number written.
+int64_t ecgmm_pnm_plain(const uint8_t* s, int64_t n, int64_t* values,
+                        int64_t cap, int64_t* state) {
+  auto space = [](uint8_t c) {
+    return c == ' ' || (c >= '\t' && c <= '\r');
+  };
+  int64_t count = 0, i = 0;
+  state[0] = -1;
+  state[1] = n;
+  while (i < n) {
+    while (i < n && space(s[i])) ++i;
+    if (i >= n) break;
+    int64_t j = i;
+    while (j < n && !space(s[j])) ++j;
+    if (j == n) {  // a token the block may cut
+      state[1] = i;
+      break;
+    }
+    if (j - i > 10 || count >= cap) {
+      state[0] = i;
+      break;
+    }
+    int64_t v = 0;
+    for (int64_t k = i; k < j; ++k) {
+      if (s[k] < '0' || s[k] > '9') {
+        state[0] = i;
+        return count;
+      }
+      v = v * 10 + (s[k] - '0');
+    }
+    values[count++] = v;
+    i = j;
+  }
+  return count;
 }
 
 }  // extern "C"

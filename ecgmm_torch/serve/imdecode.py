@@ -1,5 +1,5 @@
-"""The upload decoder: JPEG, PNG, GIF, BMP and WebP bytes -> an (H, W, 3)
-uint8 RGB array, turned upright by the EXIF orientation.
+"""The upload decoder: JPEG, PNG, GIF, BMP, WebP, TIFF and PNM bytes -> an
+(H, W, 3) uint8 RGB array, turned upright by the EXIF orientation.
 
 It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 (`ecgmm_tpu/serve/http.py:101-112`),
@@ -45,6 +45,21 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   (VP8), lossless (VP8L), alpha (ALPH, decoded and dropped), extended
   (VP8X) files and an animation's first frame on its canvas, with
   libwebp's demuxer rules for which files it refuses (`_decode_webp`);
+- TIFF and BigTIFF as Pillow's `TiffImagePlugin` reads the first page
+  and libtiff 4.7 decodes it under Pillow (`serve/tiff.py`): strips and
+  tiles, planar configurations 1 and 2, fill order 2; uncompressed (by
+  Pillow's raw decoder), PackBits, LZW (and libtiff's old-style codes),
+  Deflate, horizontal differencing at 8 and 16 bits, CCITT RLE, Group 3
+  (1-D and 2-D) and Group 4, and JPEG (each strip or tile a JPEG after the
+  JPEGTables tag's tables, YCbCr converted by libjpeg; YCbCr otherwise
+  by libtiff's RGBA reader); bilevel, grey of 1 to 16 bits, 32-bit
+  integers and floats, palettes, RGB and RGBA (associated alpha
+  unpremultiplied) of 8 and 16 bits, CMYK, converted as Pillow converts
+  each mode; the IFD's orientation applied once, inside the load, as
+  Pillow applies it;
+- PNM as `PpmImagePlugin` reads it (`_decode_pnm`): P1-P6 (plain and
+  binary, maxval 1 to 65535, rescaled as Pillow's decoders round), Pf,
+  and Pillow's own P0CMYK, PyP, PyRGBA and PyCMYK;
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf`, WebP `EXIF` or ImageMagick's "Raw profile type exif" text),
   else of the XMP packet, applied as `ImageOps.exif_transpose` applies
@@ -53,19 +68,22 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
 The JPEG scans (`ecgmm_torch/native/jpegscan.cpp`: Huffman-coded,
 arithmetic-coded and lossless), the inverse DCT, the block
 smoothing, the upsampling, the colour conversion, the PNG row filters,
-GIF's LZW and BMP's run lengths (`imdecode.cpp`) and WebP's bitstreams
-(`webpdec.cpp`) are C++, built by g++ at first use; the markers and
-chunks are parsed here, with libjpeg's marker reader's refusals.
-Anything else (hierarchical or lossless arithmetic-coded JPEG, 12-bit
-samples, a height set by a DNL marker, all of which Pillow refuses too,
-TIFF and the other formats Pillow reads) raises `BadRequest` naming what
-it met.
+GIF's LZW, BMP's run lengths and plain PNM's samples (`imdecode.cpp`),
+WebP's bitstreams (`webpdec.cpp`) and TIFF's PackBits, LZW and CCITT
+codecs (`tiffdec.cpp`) are C++, built by g++ at first use; the markers,
+chunks and directories are parsed here, with libjpeg's marker reader's
+refusals. Anything else (hierarchical or lossless arithmetic-coded JPEG,
+12-bit samples, a height set by a DNL marker, all of which Pillow
+refuses too; the TIFF compressions and layouts `serve/tiff.py` names as
+unsupported; AVIF, JPEG 2000 and the other formats Pillow reads) raises
+`BadRequest` naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
 refused before anything is allocated, the PNG image data is inflated only
-as far as the header's size needs, and a PNG text chunk inflates to at
-most `MAX_TEXT_CHUNK` bytes, `MAX_TEXT_MEMORY` in all.
+as far as the header's size needs, a TIFF strip or tile only to the
+size libtiff gives it, and a PNG text chunk inflates to at most
+`MAX_TEXT_CHUNK` bytes, `MAX_TEXT_MEMORY` in all.
 """
 
 from __future__ import annotations
@@ -73,7 +91,6 @@ from __future__ import annotations
 import re
 import struct
 import zlib
-from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
@@ -125,12 +142,6 @@ _PILLOW_MAXBLOCK = 65536
 _XMP_ORIENTATION = rb'tiff:Orientation(="|>)([0-9])'
 _TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
                   b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
-# the EXIF value types Pillow's TIFF reader loads: type -> (bytes a value,
-# the struct code of a value, None where Pillow's value is bytes or text)
-_EXIF_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
-               5: (8, "LL"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
-               9: (4, "l"), 10: (8, "ll"), 11: (4, "f"), 12: (8, "d"),
-               13: (4, "L"), 16: (8, "Q")}
 # ImageOps.exif_transpose: orientation -> the transposition that undoes it
 _TRANSPOSE = {
     2: lambda a: a[:, ::-1],                      # FLIP_LEFT_RIGHT
@@ -163,18 +174,332 @@ def _check(status: int) -> None:
 
 
 def _decode(data: bytes):
-    if data[:3] == b"\xff\xd8\xff":  # Pillow's JPEG signature
-        return _decode_jpeg(data)
-    if data[:8] == PNG_SIGNATURE:
-        return _decode_png(data)
+    """(RGB as stored, EXIF block, XMP packet) of an upload, trying the
+    formats in the order Image.open reaches their plugins (BMP, GIF, JPEG,
+    PPM, PNG, then TIFF and WebP among the rest); their signatures do not
+    overlap."""
     if data[:2] == b"BM":
         return _decode_bmp(data), None, None
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return _decode_gif(data), None, None
+    if data[:3] == b"\xff\xd8\xff":  # Pillow's JPEG signature
+        return _decode_jpeg(data)
+    if data[:1] == b"P" and data[1:2] in _PNM_MAGIC:
+        return _decode_pnm(data), None, None
+    if data[:8] == PNG_SIGNATURE:
+        return _decode_png(data)
+    if data[:4] in _TIFF_PREFIXES:
+        from ecgmm_torch.serve import tiff
+        rgb, orientation, xmp = tiff.decode_tiff(data)
+        if orientation is None and xmp is not None:
+            if not isinstance(xmp, bytes):
+                raise _bad("a TIFF XMP packet that is not bytes")
+            m = re.search(_XMP_ORIENTATION, xmp)
+            orientation = int(m.group(2)) if m else None
+        # TiffImageFile.load_end turns the image itself and drops the tag,
+        # so `Image.open(f).convert("RGB")` gives it upright too
+        if _hashable(orientation) and orientation in _TRANSPOSE:
+            rgb = _TRANSPOSE[orientation](rgb)
+        return rgb, None, None
     if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
             and data[12:16] in _WEBP_FIRST):
         return _decode_webp(data)
-    raise _bad("not a JPEG, PNG, GIF, BMP or WebP file")
+    raise _bad("not a JPEG, PNG, GIF, BMP, PNM, TIFF or WebP file")
+
+
+def _hashable(value) -> bool:
+    try:
+        hash(value)
+    except TypeError:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------- PNM
+
+# PpmImagePlugin._accept's second byte, and its magic numbers -> mode
+_PNM_MAGIC = {bytes([c]) for c in b"0123456fy"}
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
+              b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+              b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_PNM_BANDS = {"1": 1, "L": 1, "I": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4,
+              "CMYK": 4}
+_PNM_WHITESPACE = b" \t\n\x0b\x0c\r"
+_SAFEBLOCK = 1024 * 1024  # PIL.ImageFile.SAFEBLOCK: a plain decoder's read
+
+
+class _PnmHeader:
+    """PpmImageFile._open's reads: the magic number, then tokens."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def read(self) -> bytes:
+        c = self.data[self.pos:self.pos + 1]
+        self.pos += len(c)
+        return c
+
+    def magic(self) -> bytes:
+        magic = b""
+        for _ in range(6):
+            c = self.read()
+            if not c or c in _PNM_WHITESPACE:
+                break
+            magic += c
+        return magic
+
+    def token(self) -> bytes:
+        token = b""
+        while len(token) <= 10:
+            c = self.read()
+            if not c:
+                break
+            if c in _PNM_WHITESPACE:
+                if not token:
+                    continue
+                break
+            if c == b"#":  # to the end of the line, CR or LF (or the file)
+                while self.read() not in b"\r\n":
+                    pass
+                continue
+            token += c
+        if not token:
+            raise _bad("PNM header ends early")
+        if len(token) > 10:
+            raise _bad("a PNM header token longer than 10 bytes")
+        return token
+
+    def integer(self) -> int:
+        try:
+            return int(self.token())
+        except ValueError:
+            raise _bad("a PNM header field that is no integer") from None
+
+
+def _decode_pnm(data: bytes) -> np.ndarray:
+    """PBM, PGM, PPM and PFM (P1-P6, Pf) and Pillow's own P0CMYK, PyP,
+    PyRGBA and PyCMYK as `PpmImagePlugin` reads them and
+    `.convert("RGB")` converts them: binary samples unpacked as stored
+    when maxval is 255 (or 65535 for grey, as I;16B), else rescaled by
+    Pillow's `ppm` decoder; the plain formats by its `ppm_plain` decoder;
+    grey of a maxval above 255 held as mode I (clipped at 255 in RGB); a
+    float map bottom-up, its byte order the scale's sign."""
+    head = _PnmHeader(data)
+    magic = head.magic()
+    if magic not in _PNM_MODES:
+        raise _bad("not a PNM file")
+    mode = _PNM_MODES[magic]
+    width, height = head.integer(), head.integer()
+    if width <= 0 or height <= 0:
+        raise _bad("PNM of no pixels")
+    _check_pixels(width, height)
+    plain = magic in (b"P1", b"P2", b"P3")
+    if mode == "1":
+        if plain:
+            return _mode_to_rgb("1", _pnm_bitonal(data, head.pos, width,
+                                                  height))
+        stride = (width + 7) // 8
+        rows = _pnm_raw(data, head.pos, stride, height)
+        bits = np.unpackbits(rows, axis=1)[:, :width]
+        return _mode_to_rgb("1", (1 - bits) * np.uint8(255))
+    if mode == "F":
+        try:
+            scale = float(head.token())
+        except ValueError:
+            raise _bad("a PFM scale that is no number") from None
+        if scale == 0.0 or not np.isfinite(scale):
+            raise _bad("a PFM scale that is 0 or not finite")
+        rows = _pnm_raw(data, head.pos, 4 * width, height)
+        f = rows.view("<f4" if scale < 0 else ">f4")[::-1]
+        return _mode_to_rgb("F", f)
+    maxval = head.integer()
+    if not 0 < maxval < 65536:
+        raise _bad(f"PNM maxval {maxval} is not in 1..65535")
+    if maxval > 255 and mode == "L":
+        mode = "I"
+    bands = _PNM_BANDS[mode]
+    if plain:
+        values = _pnm_plain(data, head.pos, width * height * bands, maxval,
+                            65535 if mode == "I" else 255)
+    elif maxval == 65535 and mode == "I":
+        rows = _pnm_raw(data, head.pos, 2 * width, height)
+        values = rows.view(">u2")
+    elif maxval == 255:
+        values = _pnm_raw(data, head.pos, bands * width, height)
+    else:  # Pillow's "ppm" decoder: each sample rescaled, rounded
+        size = 1 if maxval < 256 else 2
+        n = width * height * bands
+        raw = data[head.pos:head.pos + size * n]
+        if len(raw) < size * n:
+            raise _bad("truncated PNM image data (Pillow: not enough image "
+                       "data)")
+        v = np.frombuffer(raw, np.uint8 if size == 1 else ">u2")
+        top = 65535 if mode == "I" else 255
+        values = np.minimum(top, np.round(v / maxval * top))
+    pixels = np.asarray(values).reshape(height, width, bands)
+    return _mode_to_rgb(mode, pixels)
+
+
+def _pnm_raw(data: bytes, pos: int, row_bytes: int, height: int):
+    if pos + row_bytes * height > len(data):
+        raise _bad("truncated PNM image data (Pillow: image file is "
+                   "truncated)")
+    return np.frombuffer(data, np.uint8, row_bytes * height,
+                         pos).reshape(height, row_bytes)
+
+
+def _comment_end(block: bytes, start: int = 0) -> int:
+    """PpmPlainDecoder._find_comment_end, its quirk included."""
+    a = block.find(b"\n", start)
+    b = block.find(b"\r", start)
+    return min(a, b) if a * b > 0 else max(a, b)
+
+
+class _PnmBlocks:
+    """PpmPlainDecoder's reads: 1 MiB blocks from the image data, the
+    comments (# to CR or LF, across blocks too) taken out."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos, self.spans = data, pos, False
+
+    def next(self) -> bytes:
+        block = self.data[self.pos:self.pos + _SAFEBLOCK]
+        self.pos += len(block)
+        if self.spans:
+            while block:
+                end = _comment_end(block)
+                if end != -1:
+                    block = block[end + 1:]
+                    break
+                block = self.data[self.pos:self.pos + _SAFEBLOCK]
+                self.pos += len(block)
+        self.spans = False
+        while True:
+            start = block.find(b"#")
+            if start == -1:
+                break
+            end = _comment_end(block, start)
+            if end != -1:
+                block = block[:start] + block[end + 1:]
+            else:
+                block = block[:start]
+                self.spans = True
+                break
+        return block
+
+    def raw_next(self) -> bytes:
+        """The next block before comments are taken out (empty at EOF)."""
+        return self.data[self.pos:self.pos + 1]
+
+
+def _pnm_bitonal(data: bytes, pos: int, width: int, height: int):
+    """_decode_bitonal: every byte but whitespace must be 0 or 1."""
+    blocks = _PnmBlocks(data, pos)
+    total = width * height
+    out = bytearray()
+    while len(out) != total:
+        if not blocks.raw_next():
+            break
+        tokens = b"".join(blocks.next().split())
+        if tokens.strip(b"01"):
+            raise _bad("a plain PBM byte other than 0 and 1")
+        out = (out + tokens)[:total]
+    if len(out) < total:
+        raise _bad("truncated PNM image data (Pillow: not enough image data)")
+    bits = np.frombuffer(bytes(out), np.uint8).reshape(height, width)
+    return np.where(bits == ord("0"), 255, 0).astype(np.uint8)
+
+
+def _pnm_plain(data: bytes, pos: int, total: int, maxval: int,
+               top: int) -> np.ndarray:
+    """_decode_blocks: decimal samples, each rounded to
+    round(value / maxval * top); one longer than 10 bytes, negative or above
+    maxval is refused. A block of plain digits is read in C++
+    (`ecgmm_pnm_plain`), one holding anything else as Pillow reads it."""
+    blocks = _PnmBlocks(data, pos)
+    lib = native.library()
+    out = []
+    got = 0
+    half = b""
+    while got != total:
+        if not blocks.raw_next():
+            if not half:
+                break
+            block = b" "
+        else:
+            block = blocks.next()
+        if half:
+            block = half + block
+            half = b""
+        if block and not block[-1:].isspace():  # Pillow's half token
+            cut = max(block.rfind(bytes([c])) for c in _PNM_WHITESPACE) + 1
+            half = block[cut:]
+            if len(half) > 10:
+                raise _bad("a plain PNM sample longer than 10 bytes")
+            block = block[:cut]
+        v = _pnm_block(lib, block, total - got)
+        if np.any(v > maxval):
+            raise _bad("a plain PNM sample past maxval (Pillow: channel "
+                       "value too large)")
+        out.append(np.round(v / maxval * top))
+        got += len(v)
+    if got < total:
+        raise _bad("truncated PNM image data (Pillow: not enough image data)")
+    return np.concatenate(out)
+
+
+def _pnm_block(lib, block: bytes, need: int) -> np.ndarray:
+    """The first `need` samples of a block that ends in whitespace."""
+    values = np.empty(max(need, 1), np.int64)
+    state = np.zeros(2, np.int64)
+    n = lib.ecgmm_pnm_plain(block, len(block), values.ctypes.data, need,
+                            state.ctypes.data)
+    if state[0] < 0 or n >= need:
+        return values[:n]
+    tokens = block.split()[:need]  # an odd token among those needed
+    if any(len(t) > 10 for t in tokens):
+        raise _bad("a plain PNM sample longer than 10 bytes")
+    try:
+        v = np.array([int(t) for t in tokens], np.int64)
+    except ValueError:
+        raise _bad("a plain PNM sample that is no integer") from None
+    if np.any(v < 0):
+        raise _bad("a plain PNM sample below 0 (Pillow: channel value is "
+                   "negative)")
+    return v
+
+
+def _mode_to_rgb(mode: str, pixels: np.ndarray,
+                 palette: Optional[np.ndarray] = None) -> np.ndarray:
+    """`.convert("RGB")` of an image of a Pillow mode (`Convert.c`): 1, L
+    and LA their grey repeated; I and I;16 clipped at 255; F truncated and
+    clipped (NaN 0); P and PA through `palette` (256 x 3; without one,
+    every index reads as black); CMYK by cmyk2rgb, each of R, G and B
+    nk - MULDIV255(c, nk) with nk = 255 - K and MULDIV255(a, b) =
+    ((a*b + 128) >> 8 + a*b + 128) >> 8; any other mode its first three
+    bands."""
+    if pixels.ndim == 3 and pixels.shape[2] == 1:
+        pixels = pixels[:, :, 0]
+    first = pixels if pixels.ndim == 2 else pixels[..., 0]
+    if mode in ("P", "PA"):
+        if palette is None:
+            return np.zeros(first.shape + (3,), np.uint8)
+        return palette[first]
+    if mode in ("1", "L", "LA"):
+        grey = first.astype(np.uint8)
+    elif mode.startswith("I"):
+        grey = np.clip(pixels.astype(np.int64), 0, 255).astype(np.uint8)
+    elif mode == "F":
+        v = np.nan_to_num(pixels.astype(np.float64), nan=0.0, posinf=255.0,
+                          neginf=0.0)
+        grey = np.clip(np.trunc(v), 0, 255).astype(np.uint8)
+    elif mode == "CMYK":
+        nk = 255 - pixels[..., 3:4].astype(np.int32)
+        t = pixels[..., :3].astype(np.int32) * nk + 128
+        return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+    else:
+        return np.ascontiguousarray(pixels[..., :3], np.uint8)
+    return np.repeat(grey[:, :, None], 3, axis=2)
 
 
 # ---------------------------------------------------------------- GIF
@@ -727,9 +1052,10 @@ def _decode_webp(data: bytes, alpha: bool = False):
 
 def decode_upload(data: bytes) -> np.ndarray:
     """An uploaded JPEG (Huffman- or arithmetic-coded: baseline, extended,
-    progressive; or lossless), PNG, GIF, BMP or WebP file as an upright
-    (H, W, 3) uint8 RGB array; `BadRequest` for what Pillow would refuse
-    and for the other formats Pillow reads (ROADMAP.md section 3)."""
+    progressive; or lossless), PNG, GIF, BMP, WebP, TIFF (the first page)
+    or PNM file as an upright (H, W, 3) uint8 RGB array; `BadRequest` for
+    what Pillow would refuse and for the other formats and TIFF
+    compressions Pillow reads (ROADMAP.md section 3)."""
     rgb, exif, xmp = _decode(data)
     orientation = _orientation(exif, xmp)
     if orientation in _TRANSPOSE:
@@ -740,7 +1066,9 @@ def decode_upload(data: bytes) -> np.ndarray:
 def decode_image(data: bytes) -> np.ndarray:
     """An image file as stored, (H, W, 3) uint8 RGB, without the EXIF
     turn: Pillow's `Image.open(f).convert("RGB")`, as the training data's
-    image reader (`data/sources.load_images`) calls it."""
+    image reader (`data/sources.load_images`) calls it. (A TIFF's own
+    orientation is applied all the same: Pillow applies it while it
+    loads the image.)"""
     return np.ascontiguousarray(_decode(data)[0])
 
 
@@ -765,11 +1093,12 @@ def _orientation(exif: Optional[bytes], xmp) -> object:
 
 def _exif_orientation(exif: bytes) -> Tuple[bool, object]:
     """(whether IFD0 holds the orientation tag 0x0112, its value), read
-    from a TIFF-structured EXIF block as leniently as Pillow's reader: a
-    truncated directory ends the search; an entry of a type Pillow does
-    not know, of no values, or whose values lie past the block is
-    skipped; the last entry that remains gives the value, its first
-    number (a rational as a fraction; bytes and text are no number)."""
+    from a TIFF-structured EXIF block by the reader of TIFF directories
+    (`tiff.read_ifd`, Pillow's leniency): the tag's value as Pillow holds
+    it, whose first number (a rational as a Fraction) is the orientation
+    and bytes or text none."""
+    from ecgmm_torch.serve import tiff
+
     while exif.startswith(b"Exif\x00\x00"):
         exif = exif[6:]
     if not exif:
@@ -780,47 +1109,38 @@ def _exif_orientation(exif: bytes) -> Tuple[bool, object]:
         return False, None
     end = "<" if exif[:2] == b"II" else ">"
     (offset,) = struct.unpack(end + "L", exif[4:8])
-    if offset + 2 > len(exif):
+    tags = tiff.read_ifd(exif, offset, end, False)
+    if 0x0112 not in tags:
         return False, None
-    (n,) = struct.unpack(end + "H", exif[offset:offset + 2])
-    found, value = False, None
-    for i in range(n):
-        entry = exif[offset + 2 + 12 * i:offset + 14 + 12 * i]
-        if len(entry) < 12:
-            break
-        tag, typ, count = struct.unpack(end + "HHL", entry[:8])
-        if tag != 0x0112 or typ not in _EXIF_TYPES:
-            continue
-        unit, fmt = _EXIF_TYPES[typ]
-        size = count * unit
-        if size > 4:
-            (at,) = struct.unpack(end + "L", entry[8:12])
-            data = exif[at:at + size]
-        else:
-            data = entry[8:8 + size]
-        if len(data) != size or not data:
-            continue
-        found, value = True, None
-        if fmt is not None:
-            v = struct.unpack_from(end + fmt, data)
-            if len(fmt) == 2:  # Pillow's IFDRational
-                value = Fraction(v[0], v[1]) if v[1] else None
-            else:
-                value = v[0]
-    return found, value
+    typ, data = tags[0x0112]
+    return True, tiff.tag_value(end, 0x0112, typ, data)
 
 
 # ---------------------------------------------------------------- JPEG
 
 
-def _decode_jpeg(data: bytes):
+def jpeg_tables():
+    """Empty quantisation and Huffman tables: (qtables, huff_bits,
+    huff_vals, huff_defined)."""
+    return ({}, np.zeros((8, 17), np.uint8), np.zeros((8, 256), np.uint8),
+            set())
+
+
+def _decode_jpeg(data: bytes, libtiff=None):
+    """A JPEG file as Pillow decodes it: (RGB, EXIF block, XMP packet).
+    `libtiff` = (colour, check, tables): one strip or tile of a
+    JPEG-in-TIFF as libtiff reads it, whole in memory (no 64 KiB rule),
+    `check(frame)` called on its frame header, `tables` (`jpeg_tables()`)
+    the decompressor's tables, which its markers update and the next
+    strip starts from; its component samples returned as an (H, W, C)
+    array converted from YCbCr (`colour` "ycc") or as coded ("raw")."""
     buf = np.frombuffer(data, np.uint8)
     n = len(data)
     pos = 2
-    qtables = {}
-    huff_bits = np.zeros((8, 17), np.uint8)
-    huff_vals = np.zeros((8, 256), np.uint8)
-    huff_defined = set()
+    if libtiff is not None:  # libjpeg's tables outlive an image
+        qtables, huff_bits, huff_vals, huff_defined = libtiff[2]
+    else:
+        qtables, huff_bits, huff_vals, huff_defined = jpeg_tables()
     # DAC's conditioning tables, as SOI leaves them: L, U (DC) and Kx (AC)
     arith = np.array([[0] * 16, [1] * 16, [5] * 16], np.uint8)
     restart = 0
@@ -848,7 +1168,8 @@ def _decode_jpeg(data: bytes):
         if marker == 0xD9:
             eoi = True
             break
-        if marker in _JPEG_UNKNOWN or (marker == 0x01 and not in_scan):
+        if marker in _JPEG_UNKNOWN or (marker == 0x01 and not in_scan
+                                       and libtiff is None):
             # libjpeg's read_markers refuses these; Pillow's own header
             # parser refuses TEM too, ahead of the first scan
             raise _bad(f"JPEG marker 0x{marker:02X} is not readable")
@@ -877,6 +1198,8 @@ def _decode_jpeg(data: bytes):
         if marker in _SOF_CODING:
             coding, progressive = _SOF_CODING[marker]
             frame = _parse_sof(seg)
+            if libtiff is not None:
+                libtiff[1](frame)
             if coding == "lossless":
                 planes, coef = _allocate_samples(frame)
             else:
@@ -906,7 +1229,11 @@ def _decode_jpeg(data: bytes):
             pos = _decode_scan(
                 lib, buf, pos, seg, frame, coding, planes, coef, qtables,
                 comp_q, in_scan, restart, huff_bits, huff_vals, huff_defined,
-                arith, prog)
+                arith, prog, whole=libtiff is not None)
+            if libtiff is not None and not multi_scan:
+                # libtiff has read every row; jpeg_finish_decompress's
+                # marker reading after them fails harmlessly
+                break
         elif not in_scan and marker == 0xE0:
             jfif = jfif or (seg[:5] == b"JFIF\x00" and len(seg) >= 14)
         elif not in_scan and marker == 0xEE:
@@ -931,6 +1258,11 @@ def _decode_jpeg(data: bytes):
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     if coding == "lossless":
+        if libtiff is not None:
+            if libtiff[0] == "ycc":
+                raise _bad("a lossless JPEG in YCbCr (libjpeg converts no "
+                           "colour in lossless mode)")
+            jfif = adobe = False
         samples = _lossless_samples(coef, planes, frame, jfif, adobe,
                                     adobe_transform)
     else:
@@ -958,6 +1290,10 @@ def _decode_jpeg(data: bytes):
                                        by, bx, plane.ctypes.data))
             full = _upsample(lib, plane[:dh, :dw], hmax // h, vmax // v)
             samples.append(full[:height, :width])
+    if libtiff is not None:
+        if libtiff[0] == "ycc":
+            return _ycc_to_rgb(lib, *samples)
+        return np.stack(samples, axis=2)
     if len(comps) == 1:
         return np.repeat(samples[0][:, :, None], 3, axis=2), exif, xmp
     if len(comps) == 4:
@@ -1254,10 +1590,12 @@ def _parse_dqt(seg, qtables):
 
 def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
                  comp_q, in_scan, restart, huff_bits, huff_vals, defined,
-                 arith, prog=None) -> int:
+                 arith, prog=None, whole=False) -> int:
     """Decode one scan into `coef` (the samples of a lossless image);
-    `prog` (a `_Progression`, updated here) marks a progressive image.
-    Returns the offset where the marker reader resumes."""
+    `prog` (a `_Progression`, updated here) marks a progressive image;
+    `whole`: the data is all in memory (libtiff), not handed over by
+    Pillow 64 KiB at a time. Returns the offset where the marker reader
+    resumes."""
     height, width, comps = frame
     if not seg:
         raise _bad("bad scan header")
@@ -1359,7 +1697,7 @@ def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
         # scan in that call, and its arithmetic decoder cannot suspend
         # for more data (jdarith.c get_byte): it fails, and Pillow refuses
         held = min(len(buf), -(-pos // _PILLOW_MAXBLOCK) * _PILLOW_MAXBLOCK)
-        if out[1] > held:
+        if out[1] > held and not whole:
             raise _bad(f"an arithmetic-coded scan reads to byte {out[1]}, "
                        f"past the {held} Pillow has handed libjpeg (its "
                        "arithmetic decoder cannot wait for more)")
@@ -1395,18 +1733,15 @@ def _cmyk_to_rgb(lib, samples, adobe, adobe_transform) -> np.ndarray:
     when an Adobe marker's transform is not 0 (`default_decompress_parms`)
     and returns CMYK, the first three of YCCK as 255 minus libjpeg's
     YCbCr->RGB (`ycck_cmyk_convert`), K as stored. Pillow takes the result
-    inverted ("CMYK;I", the Adobe convention) and `convert("RGB")` gives,
-    with nk = 255 - K (`Convert.c` cmyk2rgb), each of R, G and B as
-    nk - MULDIV255(c, nk), MULDIV255(a, b) = ((a*b + 128) >> 8 + a*b + 128)
-    >> 8. After both inversions nk is the stored K and c is 255 minus the
-    stored C, M or Y, or for YCCK the R, G or B of its YCbCr."""
+    inverted ("CMYK;I", the Adobe convention) and converts that CMYK
+    (`_mode_to_rgb`): its C, M and Y are 255 minus the stored ones, or for
+    YCCK the R, G and B of its YCbCr, and its K 255 minus the stored K."""
     if adobe and adobe_transform != 0:
-        c = _ycc_to_rgb(lib, *samples[:3]).astype(np.int32)
+        cmy = _ycc_to_rgb(lib, *samples[:3])
     else:
-        c = 255 - np.stack(samples[:3], axis=2).astype(np.int32)
-    nk = samples[3].astype(np.int32)[:, :, None]
-    t = c * nk + 128
-    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+        cmy = 255 - np.stack(samples[:3], axis=2).astype(np.uint8)
+    k = 255 - samples[3].astype(np.uint8)
+    return _mode_to_rgb("CMYK", np.concatenate([cmy, k[:, :, None]], axis=2))
 
 
 def _upsample(lib, x: np.ndarray, fh: int, fv: int) -> np.ndarray:

@@ -357,7 +357,8 @@ def test_unsupported_and_undecodable_raise_bad_request(photo):
          "truncated WebP file"),
         (b"RIFF\x20\x00\x00\x00WEBPVP8 " + b"\x00" * 24,
          "chunk too short"),
-        (b"RIFF\x04\x00\x00\x00WEBPALPH", "not a JPEG, PNG, GIF, BMP or WebP"),
+        (b"RIFF\x04\x00\x00\x00WEBPALPH",
+         "not a JPEG, PNG, GIF, BMP, PNM, TIFF or WebP"),
     ]
     three = bytearray(write_png(img[:, :, :1], 0, 0))
     ihdr = three.index(b"IHDR")
@@ -555,7 +556,9 @@ def test_committed_fixtures_decode_to_pillows_hashes():
                            "scene_exif6.webp", "strip_lossless_crop.webp",
                            "strip_anim2.webp", "strip_arith.jpg",
                            "strip_arith_prog.jpg", "strip_lossless_crop.jpg",
-                           "strip_smoothed.jpg", "strip_arith_whole.jpg"}
+                           "strip_smoothed.jpg", "strip_arith_whole.jpg",
+                           "strip_ycbcr22.tif", "strip_g4.tif",
+                           "crop_lzw_tiled.tif", "crop.ppm"}
     for name, want in hashes.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()

@@ -135,20 +135,25 @@ def _assert_same_response(a, b):
     assert set(a) == set(b)
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "ARITHMETIC"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "ARITHMETIC",
+                                 "TIFF", "PPM"])
 def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     """Both servers as they ship: each digitizes through its native
     kernels, the port's a copy of JAX's, so the waveforms are equal. A
     WebP upload (lossy, Pillow's default quality) decodes in the port
-    bit-equal to the JAX handler's Pillow, and so does an arithmetic-coded
-    JPEG (the committed `strip_arith.jpg`, half a cohort strip)."""
+    bit-equal to the JAX handler's Pillow, and so do an arithmetic-coded
+    JPEG (the committed `strip_arith.jpg`, half a cohort strip), a
+    JPEG-in-TIFF strip (the committed `strip_ycbcr22.tif`: YCbCr at 2x2,
+    as scanners write it) and a PPM (P6, Pillow's writer)."""
     jbase, base, _ = servers
-    if fmt == "ARITHMETIC":
+    committed = {"ARITHMETIC": ("strip_arith.jpg", "JPEG"),
+                 "TIFF": ("strip_ycbcr22.tif", "TIFF")}
+    if fmt in committed:
+        name, fmt = committed[fmt]
         with open(os.path.join(os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))), "ecgmm_torch", "serve",
-                "fixtures", "strip_arith.jpg"), "rb") as f:
+                "fixtures", name), "rb") as f:
             photo = f.read()
-        fmt = "JPEG"
     else:
         photo = _encoded(cohort.images[0], fmt)
     body, ctype = _body(photo, {"age": 71, "weight": 58, "gender": "1"},
