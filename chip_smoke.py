@@ -1204,12 +1204,21 @@ SERVE_PLAN = {"fused_se": 3, "fused_attention_fusion": 3,
 
 WEBP_STRIP = os.path.join(FIXTURES, "strip_q80.webp")
 TIFF_STRIP = os.path.join(FIXTURES, "strip_ycbcr22.tif")
+# the uploads phase 8 posts one at a time: (launch path, file, what it is)
+SINGLE_UPLOADS = (
+    ("serve_http_tiff", TIFF_STRIP, "YCbCr 2x2 JPEG-in-TIFF"),
+    ("serve_http_ojpeg", os.path.join(FIXTURES, "strip_ojpeg.tif"),
+     "YCbCr 2x2 old-style JPEG TIFF"),
+    ("serve_http_tga", os.path.join(FIXTURES, "strip.tga"),
+     "run-length TGA"))
 
 
 def check_decoder(smi):
     """The upload decoder where the script runs: each committed fixture
     (JPEG: baseline, arithmetic-coded sequential and progressive, lossless,
-    block-smoothed progressive; WebP; TIFF; PPM) decodes to the SHA-256
+    block-smoothed progressive; WebP; TIFF: JPEG, Group 4, LZW, LZMA,
+    ZSTD, word-aligned RLE, ThunderScan, old-style JPEG; PPM; TGA; QOI;
+    PSD; DIB; ICO; CUR) decodes to the SHA-256
     that Pillow's decode gave where the fixtures were made, and the one
     Pillow refuses (an arithmetic-coded scan past the 64 KiB Pillow hands
     libjpeg at once) is refused with BadRequest; decode time of the
@@ -1748,8 +1757,9 @@ def run_front_end(smi):
     1-16) under 16 client threads posting the hammer's JPEG, then the
     same strip as WebP, every response checked, with the launch counters
     equal to dispatches times the plan (3 SE forwards, 3 fusion forwards,
-    2 fusion backwards); one request posting the strip as YCbCr 2x2
-    JPEG-in-TIFF, checked; /stats and /metrics; a b=16 dispatch against the
+    2 fusion backwards); one request each posting the strip as YCbCr 2x2
+    JPEG-in-TIFF, as old-style JPEG TIFF and as TGA, checked, each one
+    dispatch of the plan; /stats and /metrics; a b=16 dispatch against the
     CPU; requests/s and latency at 1, 4 and 16 clients batched and
     unbatched; device ms per bucket; the drain. Returns the launches of
     the two batched HTTP runs by path."""
@@ -1798,23 +1808,25 @@ def run_front_end(smi):
                              for k, n in SERVE_PLAN.items()}:
             raise AssertionError("the WebP uploads did not run through the "
                                  "kernels' plan per dispatch")
-        before = pipe.stats()["batching"]["dispatches"]
-        _zero_launch_counts()
-        body, ctype = serve_hammer.request_body(photo=TIFF_STRIP)
-        t = time.perf_counter()
-        tiff_resp = json.loads(serve_hammer._post(url, body, ctype))
-        tiff_ms = (time.perf_counter() - t) * 1e3
-        check_response(tiff_resp, "png")
-        tiff_launches = _launch_counts()
-        tiff_dispatches = pipe.stats()["batching"]["dispatches"] - before
-        print(f"http posting {os.path.basename(TIFF_STRIP)} (YCbCr 2x2 "
-              f"JPEG-in-TIFF): {tiff_ms:.3f} ms, {tiff_dispatches} "
-              f"dispatch, launches {tiff_launches}, label "
-              f"{tiff_resp['label']} p {tiff_resp['probability']:.4f} "
-              f"({smi})", flush=True)
-        if tiff_dispatches != 1 or tiff_launches != SERVE_PLAN:
-            raise AssertionError("the TIFF upload did not run through the "
-                                 "kernels' plan in one dispatch")
+        single = {}
+        for path, photo, what in SINGLE_UPLOADS:
+            before = pipe.stats()["batching"]["dispatches"]
+            _zero_launch_counts()
+            body, ctype = serve_hammer.request_body(photo=photo)
+            t = time.perf_counter()
+            resp = json.loads(serve_hammer._post(url, body, ctype))
+            ms = (time.perf_counter() - t) * 1e3
+            check_response(resp, "png")
+            single[path] = (_launch_counts(), ms)
+            dispatched = pipe.stats()["batching"]["dispatches"] - before
+            print(f"http posting {os.path.basename(photo)} ({what}): "
+                  f"{ms:.3f} ms, {dispatched} dispatch, launches "
+                  f"{single[path][0]}, label {resp['label']} p "
+                  f"{resp['probability']:.4f} ({smi})", flush=True)
+            if dispatched != 1 or single[path][0] != SERVE_PLAN:
+                raise AssertionError(f"the {what} upload did not run "
+                                     "through the kernels' plan in one "
+                                     "dispatch")
         busy = profiled_busy(url, 16, 2.0, smi)
         cpu_pipe = _cpu_twin(pipe)
         tf32 = compare_batched_with_cpu(pipe, cpu_pipe)
@@ -1845,7 +1857,7 @@ def run_front_end(smi):
         pipe.close_batching()
     print(json.dumps({"front_end": {
         "device": smi, "decode_ms": decode_ms, "busy_share_16": busy,
-        "tiff_request_ms": tiff_ms,
+        "single_request_ms": {p: v[1] for p, v in single.items()},
         "webp_batched_16": {k: webp16[k] for k in (
             "req_per_sec", "latency_median_ms", "latency_p90_ms",
             "device_program_share", "requests", "dispatches")},
@@ -1857,7 +1869,7 @@ def run_front_end(smi):
             for c, r in by.items()} for mode, by in served.items()}}}),
         flush=True)
     return {"serve_http_batched": launches, "serve_http_webp": webp_launches,
-            "serve_http_tiff": tiff_launches}
+            **{p: v[0] for p, v in single.items()}}
 
 
 def _on(arrays, device):

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "ecgmm_jpeg_huffman_scan":
         ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
           _I, _P], _I),
+    "ecgmm_jpeg_huffman_scan_strict":
+        ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+          _I, _P], _I),
     "ecgmm_jpeg_arith_scan":
         ([_P, _L, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
           _P, _P], _I),
@@ -86,6 +89,14 @@ _SIGNATURES = {
     "ecgmm_tiff_packbits": ([_P, _L, _P, _L], _I),
     "ecgmm_tiff_lzw": ([_P, _L, _P, _L], _I),
     "ecgmm_tiff_fax": ([_P, _L, _I, _L, _I, _L, _L, _L, _P, _P], _I),
+    "ecgmm_tiff_fax_rlew": ([_P, _L, _I, _L, _L, _L, _P, _L], _I),
+    "ecgmm_tiff_thunder": ([_P, _L, _L, _L, _L, _P], _I),
+    "ecgmm_ycbcr_blocks": ([_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P],
+                           _I),
+    "ecgmm_pil_packbits": ([_P, _L, _L, _L, _P, _P], _I),
+    "ecgmm_tga_rle": ([_P, _L, _I, _L, _L, _P], _I),
+    "ecgmm_qoi": ([_P, _L, _I, _L, _P], _I),
+    "ecgmm_zstd_strip": ([_P, _L, _P, _L, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -142,6 +142,9 @@ struct Source {
   int64_t marker_pos = -1;  // the 0xFF before unread_marker's code
   int next_restart_num = 0;
   bool dry = false;
+  // old-style JPEG-in-TIFF: libtiff's source answers a resynchronisation
+  // with an error, which ends the decoding like running dry
+  bool strict_resync = false;
 
   int byte() {
     if (pos >= len) {
@@ -196,6 +199,9 @@ struct Source {
     if (unread_marker == 0 && !next_marker()) return false;
     if (unread_marker == 0xD0 + next_restart_num) {
       unread_marker = 0;
+    } else if (strict_resync) {
+      dry = true;
+      return false;
     } else if (!resync(next_restart_num)) {
       return false;
     }
@@ -648,6 +654,8 @@ class LossyDecoder {
   // began with data left (the smoothing of rows after it uses the
   // coefficient bits of the scans before this one)
   int last_good = -1;
+  // the iMCU row in which the data ran out
+  int dry_row = -1;
 
   int run() {
     unsigned restarts_to_go = s_.restart_interval;
@@ -670,14 +678,20 @@ class LossyDecoder {
         }
         if (!br_.insufficient) last_good = my / s_.imcu_v;
         if (s_.restart_interval && restarts_to_go == 0) {
-          if (!br_.restart()) return ERR_RAN_DRY;
+          if (!br_.restart()) {
+            dry_row = my / s_.imcu_v;
+            return ERR_RAN_DRY;
+          }
           std::memset(last_dc_, 0, sizeof(last_dc_));
           eobrun_ = 0;
           restarts_to_go = s_.restart_interval;
         }
         mcu(blocks, comp_of);
         if (bad_dc_) return ERR_BAD_DC;
-        if (br_.dry) return ERR_RAN_DRY;
+        if (br_.dry) {
+          dry_row = my / s_.imcu_v;
+          return ERR_RAN_DRY;
+        }
         if (s_.restart_interval) --restarts_to_go;
       }
     }
@@ -867,6 +881,36 @@ void report(const Bits& br, int64_t* out) {
   out[0] = br.unread_marker ? br.marker_pos : br.pos;
 }
 
+int huffman_scan(const uint8_t* buf, int64_t len, int64_t pos, int n_comp,
+                 const int32_t* comp, int16_t* coef, const int64_t* coef_off,
+                 int mcus_x, int mcus_y, int restart_interval,
+                 int progressive, int ss, int se, int ah, int al,
+                 const uint8_t* huff_bits, const uint8_t* huff_vals,
+                 int imcu_v, int64_t* out, bool strict_resync) {
+  Table tables[8];
+  bool used[8] = {false};
+  for (int c = 0; c < n_comp; ++c) {
+    if (!progressive || (ss == 0 && ah == 0)) used[comp[5 * c + 2]] = true;
+    if (!progressive || ss > 0) used[4 + comp[5 * c + 3]] = true;
+  }
+  if (!build_tables(tables, huff_bits, huff_vals, used))
+    return ERR_BAD_HUFFMAN_TABLE;
+  int blocks = 0;
+  for (int c = 0; c < n_comp; ++c) blocks += comp[5 * c] * comp[5 * c + 1];
+  LossyScan s{n_comp,   comp, coef, coef_off, mcus_x, mcus_y,
+              restart_interval, progressive != 0, ss, se, ah, al, blocks,
+              imcu_v};
+  Bits br{buf, len, pos};
+  br.strict_resync = strict_resync;
+  LossyDecoder d(s, br, tables);
+  const int rc = d.run();
+  if (rc == ERR_RAN_DRY) out[1] = d.dry_row;
+  if (rc) return rc;
+  report(br, out);
+  out[1] = d.last_good;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -892,7 +936,8 @@ extern "C" {
 //     unused); huff_vals: 8 x 256 symbols
 //   imcu_v: MCU rows an iMCU row (a single-component scan's v, else 1)
 //   out: [0] the offset where the marker reader resumes, [1] the last
-//     iMCU row in which an MCU began with data left
+//     iMCU row in which an MCU began with data left (where the scan ran
+//     dry: the iMCU row it ran dry in)
 // Returns ERR_RAN_DRY where the scan needs bytes past the end of the file
 // (before a marker), ERR_BAD_DC where a progressive DC value leaves 32 bits.
 int ecgmm_jpeg_huffman_scan(const uint8_t* buf, int64_t len, int64_t pos,
@@ -902,26 +947,22 @@ int ecgmm_jpeg_huffman_scan(const uint8_t* buf, int64_t len, int64_t pos,
                             int se, int ah, int al, const uint8_t* huff_bits,
                             const uint8_t* huff_vals, int imcu_v,
                             int64_t* out) {
-  Table tables[8];
-  bool used[8] = {false};
-  for (int c = 0; c < n_comp; ++c) {
-    if (!progressive || (ss == 0 && ah == 0)) used[comp[5 * c + 2]] = true;
-    if (!progressive || ss > 0) used[4 + comp[5 * c + 3]] = true;
-  }
-  if (!build_tables(tables, huff_bits, huff_vals, used))
-    return ERR_BAD_HUFFMAN_TABLE;
-  int blocks = 0;
-  for (int c = 0; c < n_comp; ++c) blocks += comp[5 * c] * comp[5 * c + 1];
-  LossyScan s{n_comp,   comp, coef, coef_off, mcus_x, mcus_y,
-              restart_interval, progressive != 0, ss, se, ah, al, blocks,
-              imcu_v};
-  Bits br{buf, len, pos};
-  LossyDecoder d(s, br, tables);
-  const int rc = d.run();
-  if (rc) return rc;
-  report(br, out);
-  out[1] = d.last_good;
-  return 0;
+  return huffman_scan(buf, len, pos, n_comp, comp, coef, coef_off, mcus_x,
+                      mcus_y, restart_interval, progressive, ss, se, ah, al,
+                      huff_bits, huff_vals, imcu_v, out, false);
+}
+
+// The same, where a restart marker out of sequence fails as running dry
+// does (old-style JPEG-in-TIFF, whose libtiff source cannot resynchronise)
+int ecgmm_jpeg_huffman_scan_strict(
+    const uint8_t* buf, int64_t len, int64_t pos, int n_comp,
+    const int32_t* comp, int16_t* coef, const int64_t* coef_off, int mcus_x,
+    int mcus_y, int restart_interval, int progressive, int ss, int se, int ah,
+    int al, const uint8_t* huff_bits, const uint8_t* huff_vals, int imcu_v,
+    int64_t* out) {
+  return huffman_scan(buf, len, pos, n_comp, comp, coef, coef_off, mcus_x,
+                      mcus_y, restart_interval, progressive, ss, se, ah, al,
+                      huff_bits, huff_vals, imcu_v, out, true);
 }
 
 // Decode one lossless scan into 8-bit sample planes.

@@ -416,7 +416,8 @@ class Fax {
   }
 
   bool ok() const { return cur_ != nullptr; }
-  int decode_rle(uint8_t* buf, int64_t rows, int64_t rowbytes);
+  int decode_rle(uint8_t* buf, int64_t rows, int64_t rowbytes, bool word,
+                 int64_t base);
   int decode_1d(uint8_t* buf, int64_t rows, int64_t rowbytes);
   int decode_2d(uint8_t* buf, int64_t rows, int64_t rowbytes);
   int decode_g4(uint8_t* buf, int64_t rows, int64_t rowbytes);
@@ -671,7 +672,13 @@ eof2d:
   return kEof;
 }
 
-int Fax::decode_rle(uint8_t* buf, int64_t rows, int64_t rowbytes) {
+// Fax3DecodeRLE: each row ends on a byte (FAXMODE_BYTEALIGN, compression
+// 2) or a 16-bit word (FAXMODE_WORDALIGN, 32771): the bits left in the
+// word are dropped and, where none are left, a byte at an odd address is
+// stepped over. `base` is the parity of the strip's first byte in libtiff's
+// buffer, which is the file Pillow maps: the strip's offset.
+int Fax::decode_rle(uint8_t* buf, int64_t rows, int64_t rowbytes, bool word,
+                    int64_t base) {
   thisrun_ = cur_;
   for (int64_t r = 0; r < rows; ++r) {
     a0_ = 0;
@@ -681,7 +688,12 @@ int Fax::decode_rle(uint8_t* buf, int64_t rows, int64_t rowbytes) {
     if (res == kOverflow) return ERR_FAX;
     fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
     if (res == kEof) return ERR_FAX;
-    clr(avail_ - (avail_ & ~7));  // FAXMODE_BYTEALIGN
+    if (word) {
+      clr(avail_ - (avail_ & ~15));
+      if (avail_ == 0 && ((cp_ - start_) + base) & 1) ++cp_;
+    } else {
+      clr(avail_ - (avail_ & ~7));
+    }
     buf += rowbytes;
   }
   return 0;
@@ -758,6 +770,33 @@ int Fax::decode_g4(uint8_t* buf, int64_t rows, int64_t rowbytes) {
   return 0;
 }
 
+int fax_strip(const uint8_t* data, int64_t n, int compression,
+              int64_t t4options, int lsb_first, int64_t rowpixels,
+              int64_t rows, int64_t rowbytes, uint8_t* out, int32_t* no_eol,
+              int64_t base) {
+  const bool two_d = compression == 4 || (compression == 3 && (t4options & 1));
+  // Fax3SetupState: run arrays of roundup(rowpixels + 1, 32) runs, twice
+  // that with a reference line, twice again in all, a count that must fit
+  // a uint32_t; a row of more than INT_MAX pixels Pillow never asks for
+  if (rowpixels <= 0 || rowpixels > INT32_MAX) return ERR_FAX;
+  uint64_t nruns = (uint64_t(rowpixels) + 1 + 31) / 32 * 32;
+  if (two_d) nruns *= 2;
+  if (nruns * 2 > UINT32_MAX) return ERR_FAX;
+  Fax fax(data, n, !lsb_first, rowpixels, two_d, *no_eol != 0);
+  if (!fax.ok()) return ERR_FAX;  // _TIFFCheckMalloc's failure
+  int status;
+  if (compression == 2 || compression == 32771)
+    status = fax.decode_rle(out, rows, rowbytes, compression == 32771, base);
+  else if (compression == 4)
+    status = fax.decode_g4(out, rows, rowbytes);
+  else if (two_d)
+    status = fax.decode_2d(out, rows, rowbytes);
+  else
+    status = fax.decode_1d(out, rows, rowbytes);
+  *no_eol = fax.no_eol_;
+  return status;
+}
+
 }  // namespace
 
 extern "C" {
@@ -813,27 +852,123 @@ int ecgmm_tiff_fax(const uint8_t* data, int64_t n, int compression,
                    int64_t t4options, int lsb_first, int64_t rowpixels,
                    int64_t rows, int64_t rowbytes, uint8_t* out,
                    int32_t* no_eol) {
-  const bool two_d = compression == 4 || (compression == 3 && (t4options & 1));
-  // Fax3SetupState: run arrays of roundup(rowpixels + 1, 32) runs, twice
-  // that with a reference line, twice again in all, a count that must fit
-  // a uint32_t; a row of more than INT_MAX pixels Pillow never asks for
-  if (rowpixels <= 0 || rowpixels > INT32_MAX) return ERR_FAX;
-  uint64_t nruns = (uint64_t(rowpixels) + 1 + 31) / 32 * 32;
-  if (two_d) nruns *= 2;
-  if (nruns * 2 > UINT32_MAX) return ERR_FAX;
-  Fax fax(data, n, !lsb_first, rowpixels, two_d, *no_eol != 0);
-  if (!fax.ok()) return ERR_FAX;  // _TIFFCheckMalloc's failure
-  int status;
-  if (compression == 2)
-    status = fax.decode_rle(out, rows, rowbytes);
-  else if (compression == 4)
-    status = fax.decode_g4(out, rows, rowbytes);
-  else if (two_d)
-    status = fax.decode_2d(out, rows, rowbytes);
-  else
-    status = fax.decode_1d(out, rows, rowbytes);
-  *no_eol = fax.no_eol_;
-  return status;
+  return fax_strip(data, n, compression, t4options, lsb_first, rowpixels, rows,
+                   rowbytes, out, no_eol, 0);
+}
+
+// Compression 32771, modified Huffman RLE with each row word-aligned;
+// `base`: the parity of the strip's offset in the file.
+int ecgmm_tiff_fax_rlew(const uint8_t* data, int64_t n, int lsb_first,
+                        int64_t rowpixels, int64_t rows, int64_t rowbytes,
+                        uint8_t* out, int64_t base) {
+  int32_t no_eol = 0;
+  return fax_strip(data, n, 32771, 0, lsb_first, rowpixels, rows, rowbytes,
+                   out, &no_eol, base);
+}
+
+// tif_thunder.c ThunderDecodeRow: each row of `width` 4-bit pixels decoded
+// from where the last one ended (the last pixel reset to 0): runs of the
+// last pixel, 2- and 3-bit deltas, raw pixels; a run past the row's end
+// writes nothing. A row left short or overrun fails the strip, its bytes
+// past the last written zeroed.
+int ecgmm_tiff_thunder(const uint8_t* bp, int64_t cc, int64_t width,
+                       int64_t rows, int64_t rowbytes, uint8_t* out) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  for (int64_t r = 0; r < rows; ++r) {
+    uint8_t* op0 = out + r * rowbytes;
+    uint8_t* op = op0;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1)
+          *op++ |= uint8_t(lastpixel);
+        else
+          op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int n = *bp++;
+      --cc;
+      int delta;
+      switch (n & 0xc0) {
+        case 0x00:
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            ++npixels;
+            --n;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= width)
+            for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:
+          if ((delta = (n >> 4) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = (n >> 2) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = n & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          break;
+        case 0x80:
+          if ((delta = (n >> 3) & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + three[delta]));
+          if ((delta = n & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + three[delta]));
+          break;
+        default:
+          setpixel(unsigned(n));
+          break;
+      }
+    }
+    if (npixels != width) {
+      uint8_t* end = op0 + (width + 1) / 2;
+      if (end > op) std::memset(op, 0, size_t(end - op));
+      return ERR_FAX;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// TIFFYCbCrtoRGB over contiguous YCbCr sampling blocks (hs x vs luma
+// samples, then Cb and Cr; `across` blocks a block row, at least
+// ceil(width / hs)) into `rows` x `width` RGB bytes. The tables are
+// tif_color.c's (Y, Cr->R, Cb->B, Cr->G, Cb->G, 256 entries each, the
+// last two before their shift by 16).
+int ecgmm_ycbcr_blocks(const uint8_t* blocks, int64_t rows, int64_t width,
+                       int64_t across, int hs, int vs, const int64_t* y_tab,
+                       const int64_t* cr_r, const int64_t* cb_b,
+                       const int64_t* cr_g, const int64_t* cb_g,
+                       uint8_t* out) {
+  const int64_t per = int64_t(hs) * vs + 2;
+  auto clamp = [](int64_t v) -> uint8_t {
+    return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+  };
+  for (int64_t y = 0; y < rows; ++y) {
+    const uint8_t* brow = blocks + (y / vs) * across * per;
+    const int sy = int(y % vs);
+    uint8_t* o = out + y * width * 3;
+    for (int64_t x = 0; x < width; ++x) {
+      const uint8_t* b = brow + (x / hs) * per;
+      const int64_t yv = y_tab[b[sy * hs + x % hs]];
+      const int cb = b[hs * vs], cr = b[hs * vs + 1];
+      o[3 * x] = clamp(yv + cr_r[cr]);
+      o[3 * x + 1] = clamp(yv + ((cb_g[cb] + cr_g[cr]) >> 16));
+      o[3 * x + 2] = clamp(yv + cb_b[cb]);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

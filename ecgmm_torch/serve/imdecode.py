@@ -1,11 +1,16 @@
-"""The upload decoder: JPEG, PNG, GIF, BMP, WebP, TIFF and PNM bytes -> an
-(H, W, 3) uint8 RGB array, turned upright by the EXIF orientation.
+"""The upload decoder: image bytes -> an (H, W, 3) uint8 RGB array, turned
+upright by the EXIF orientation.
 
 It is the port's counterpart of the Pillow calls of the JAX HTTP handler
 (`ecgmm_tpu/serve/http.py:101-112`),
 `np.asarray(ImageOps.exif_transpose(Image.open(b)).convert("RGB"))`, and
 aims to be bit-equal to them; the machines the port serves on have no
-Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
+Pillow. An upload is identified as `Image.open` identifies it: the
+plugins in Pillow's order (`Image.ID`, `rasters.PLUGINS`), each one's
+`_accept` on the first 16 bytes, the next one tried where a plugin's
+`_open` steps past the file (`_decode`); the formats the port does not
+decode are refused there by name. It follows libjpeg's decoding defaults,
+which Pillow uses:
 
 - baseline, extended sequential and progressive JPEG, Huffman- or
   arithmetic-coded (SOF0-2, SOF9-10; DAC conditioning), and lossless JPEG
@@ -33,11 +38,13 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   and palette, the five row filters and Adam7 interlacing, converted as
   Pillow converts them (gray of 1, 2 and 4 bits scaled to 0-255, 16-bit
   gray clipped at 255, 16-bit colour by its high byte); the alpha channel
-  is dropped as `.convert("RGB")` drops it;
-- BMP: uncompressed at 16 (5-5-5), 24 and 32 bits and with 1-, 4- and
-  8-bit palettes, BI_BITFIELDS at 16 and 32 bits with the masks Pillow
-  reads, and RLE8 and RLE4 with the quirks of Pillow's run decoder;
-  bottom-up and top-down (`_decode_bmp`);
+  is dropped as `.convert("RGB")` drops it; the chunks after the image
+  data read as Pillow's `load_end` reads them;
+- BMP and DIB through Pillow's reading of the bitmap header
+  (`rasters.bitmap`): uncompressed at 16 (5-5-5), 24 and 32 bits and with
+  1-, 4- and 8-bit palettes (grey ones dropped as Pillow drops them),
+  BI_BITFIELDS with the masks Pillow reads, and RLE8 and RLE4 with the
+  quirks of Pillow's run decoder; bottom-up and top-down;
 - GIF87a and GIF89a: the first frame, its LZW codes, the global and
   local colour tables, interlacing, and the transparency index as the
   fill around a frame smaller than the screen (`_decode_gif`);
@@ -49,17 +56,19 @@ Pillow. It follows libjpeg's decoding defaults, which Pillow uses:
   and libtiff 4.7 decodes it under Pillow (`serve/tiff.py`): strips and
   tiles, planar configurations 1 and 2, fill order 2; uncompressed (by
   Pillow's raw decoder), PackBits, LZW (and libtiff's old-style codes),
-  Deflate, horizontal differencing at 8 and 16 bits, CCITT RLE, Group 3
-  (1-D and 2-D) and Group 4, and JPEG (each strip or tile a JPEG after the
+  Deflate, LZMA, ZSTD, horizontal differencing and the floating-point
+  predictor, CCITT RLE (byte- and word-aligned), Group 3 (1-D and 2-D)
+  and Group 4, ThunderScan, JPEG (each strip or tile a JPEG after the
   JPEGTables tag's tables, YCbCr converted by libjpeg; YCbCr otherwise
-  by libtiff's RGBA reader); bilevel, grey of 1 to 16 bits, 32-bit
-  integers and floats, palettes, RGB and RGBA (associated alpha
-  unpremultiplied) of 8 and 16 bits, CMYK, converted as Pillow converts
-  each mode; the IFD's orientation applied once, inside the load, as
-  Pillow applies it;
+  by libtiff's RGBA reader) and old-style JPEG (`serve/ojpeg.py`); bilevel,
+  grey of 1 to 16 bits, 32-bit integers and floats, palettes, RGB and
+  RGBA (associated alpha unpremultiplied) of 8 and 16 bits, CMYK,
+  converted as Pillow converts each mode; the IFD's orientation applied
+  once, inside the load, as Pillow applies it;
 - PNM as `PpmImagePlugin` reads it (`_decode_pnm`): P1-P6 (plain and
   binary, maxval 1 to 65535, rescaled as Pillow's decoders round), Pf,
   and Pillow's own P0CMYK, PyP, PyRGBA and PyCMYK;
+- ICO, CUR, TGA, PSD and QOI (`serve/rasters.py`);
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf`, WebP `EXIF` or ImageMagick's "Raw profile type exif" text),
   else of the XMP packet, applied as `ImageOps.exif_transpose` applies
@@ -69,14 +78,16 @@ The JPEG scans (`ecgmm_torch/native/jpegscan.cpp`: Huffman-coded,
 arithmetic-coded and lossless), the inverse DCT, the block
 smoothing, the upsampling, the colour conversion, the PNG row filters,
 GIF's LZW, BMP's run lengths and plain PNM's samples (`imdecode.cpp`),
-WebP's bitstreams (`webpdec.cpp`) and TIFF's PackBits, LZW and CCITT
-codecs (`tiffdec.cpp`) are C++, built by g++ at first use; the markers,
-chunks and directories are parsed here, with libjpeg's marker reader's
-refusals. Anything else (hierarchical or lossless arithmetic-coded JPEG,
-12-bit samples, a height set by a DNL marker, all of which Pillow
-refuses too; the TIFF compressions and layouts `serve/tiff.py` names as
-unsupported; AVIF, JPEG 2000 and the other formats Pillow reads) raises
-`BadRequest` naming what it met.
+WebP's bitstreams (`webpdec.cpp`), TIFF's PackBits, LZW, CCITT and
+ThunderScan codecs and its YCbCr conversion (`tiffdec.cpp`), Zstandard
+(`zstddec.cpp`) and the run decoders of PSD, TGA and QOI (`rasters.cpp`)
+are C++, built by g++ at first use; the markers, chunks, headers and
+directories are parsed here, with libjpeg's marker reader's refusals.
+Anything else (hierarchical or lossless arithmetic-coded JPEG, 12-bit
+samples, a height set by a DNL marker, all of which Pillow refuses too;
+the TIFF layouts `serve/tiff.py` names as unsupported; CIELAB, AVIF,
+JPEG 2000 and the other formats Pillow reads) raises `BadRequest`
+naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -91,7 +102,7 @@ from __future__ import annotations
 import re
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -154,6 +165,17 @@ _TRANSPOSE = {
 }
 
 
+# the errors ImageFile.__init__ turns into SyntaxError where a plugin's
+# `_open` raises them: Image.open then tries the next plugin
+STEPPED_PAST = (SyntaxError, IndexError, TypeError, KeyError, EOFError,
+                struct.error)
+
+
+class Decline(Exception):
+    """The plugin's `_open` does not take the file: Image.open tries the
+    next plugin."""
+
+
 def _bad(what: str) -> BadRequest:
     return BadRequest(f"{_NOT_DECODABLE}: {what}")
 
@@ -174,37 +196,44 @@ def _check(status: int) -> None:
 
 
 def _decode(data: bytes):
-    """(RGB as stored, EXIF block, XMP packet) of an upload, trying the
-    formats in the order Image.open reaches their plugins (BMP, GIF, JPEG,
-    PPM, PNG, then TIFF and WebP among the rest); their signatures do not
-    overlap."""
-    if data[:2] == b"BM":
-        return _decode_bmp(data), None, None
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return _decode_gif(data), None, None
-    if data[:3] == b"\xff\xd8\xff":  # Pillow's JPEG signature
-        return _decode_jpeg(data)
-    if data[:1] == b"P" and data[1:2] in _PNM_MAGIC:
-        return _decode_pnm(data), None, None
-    if data[:8] == PNG_SIGNATURE:
-        return _decode_png(data)
-    if data[:4] in _TIFF_PREFIXES:
-        from ecgmm_torch.serve import tiff
-        rgb, orientation, xmp = tiff.decode_tiff(data)
-        if orientation is None and xmp is not None:
-            if not isinstance(xmp, bytes):
-                raise _bad("a TIFF XMP packet that is not bytes")
-            m = re.search(_XMP_ORIENTATION, xmp)
-            orientation = int(m.group(2)) if m else None
-        # TiffImageFile.load_end turns the image itself and drops the tag,
-        # so `Image.open(f).convert("RGB")` gives it upright too
-        if _hashable(orientation) and orientation in _TRANSPOSE:
-            rgb = _TRANSPOSE[orientation](rgb)
-        return rgb, None, None
-    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
-            and data[12:16] in _WEBP_FIRST):
-        return _decode_webp(data)
-    raise _bad("not a JPEG, PNG, GIF, BMP, PNM, TIFF or WebP file")
+    """(RGB as stored, EXIF block, XMP packet) of an upload, from the first
+    plugin of Pillow's order (`rasters.PLUGINS`, `Image.ID`) whose
+    `_accept` takes the first 16 bytes and whose `_open` does not step
+    past the file. Each decoder raises `Decline` where its plugin's
+    `_open` would (its header step turns `STEPPED_PAST` into it); an
+    error while pixels load ends the open, as it does in Pillow."""
+    from ecgmm_torch.serve import rasters
+
+    prefix = data[:16]
+    for _, accept, open_ in rasters.PLUGINS:
+        try:
+            if not accept(prefix):
+                continue
+        except (IndexError, TypeError, struct.error):
+            continue  # Image.open steps past an _accept that raises these
+        try:
+            return open_(data)
+        except Decline:
+            continue
+    raise _bad("no image plugin identifies it (Pillow: cannot identify "
+               "image file)")
+
+
+def _decode_tiff(data: bytes):
+    """A TIFF, turned upright by its IFD's orientation (else its XMP
+    packet's), as TiffImageFile.load_end turns it."""
+    from ecgmm_torch.serve import tiff
+    rgb, orientation, xmp = tiff.decode_tiff(data)
+    if orientation is None and xmp is not None:
+        if not isinstance(xmp, bytes):
+            raise _bad("a TIFF XMP packet that is not bytes")
+        m = re.search(_XMP_ORIENTATION, xmp)
+        orientation = int(m.group(2)) if m else None
+    # TiffImageFile.load_end turns the image itself and drops the tag,
+    # so `Image.open(f).convert("RGB")` gives it upright too
+    if _hashable(orientation) and orientation in _TRANSPOSE:
+        rgb = _TRANSPOSE[orientation](rgb)
+    return rgb, None, None
 
 
 def _hashable(value) -> bool:
@@ -217,8 +246,7 @@ def _hashable(value) -> bool:
 
 # ---------------------------------------------------------------- PNM
 
-# PpmImagePlugin._accept's second byte, and its magic numbers -> mode
-_PNM_MAGIC = {bytes([c]) for c in b"0123456fy"}
+# PpmImagePlugin's magic numbers -> mode
 _PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
               b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
               b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
@@ -614,149 +642,8 @@ def _decode_gif(data: bytes) -> np.ndarray:
     return palette[canvas]
 
 
-# ---------------------------------------------------------------- BMP
-
-# the sizes of the Windows and OS/2 DIB headers Pillow's BmpImagePlugin
-# reads: BITMAPCOREHEADER (12 bytes, 16-bit sizes, 3-byte palette
-# entries) and BITMAPINFOHEADER and its extensions
-_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
-
-
-# BI_BITFIELDS masks Pillow reads (r, g, b[, a]) and the 32-bit layouts
-# among them; an all-zero 32-bit mask reads as B, G, R, A
-_BMP_MASKS_32 = ((0xFF0000, 0xFF00, 0xFF, 0x0),
-                 (0xFF000000, 0xFF0000, 0xFF00, 0x0),
-                 (0xFF000000, 0xFF00, 0xFF, 0x0),
-                 (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
-                 (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
-                 (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
-                 (0xFF000000, 0xFF00, 0xFF, 0xFF0000))
-_BMP_MASKS_16 = ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))
-_BMP_RLE = {1: 8, 2: 4}  # compression -> the bits a pixel it needs
-
-
-def _mask_channel(pixels: np.ndarray, mask: int) -> np.ndarray:
-    """The field `mask` of each pixel scaled to 0-255 as Pillow's
-    unpackers scale it (v * 255 // max)."""
-    shift = (mask & -mask).bit_length() - 1
-    top = mask >> shift
-    v = (pixels >> shift) & top
-    return (v * 255 // top).astype(np.uint8)
-
-
-def _decode_bmp(data: bytes) -> np.ndarray:
-    """BMP as Pillow's `.convert("RGB")` gives it: uncompressed (BI_RGB)
-    at 16 bits (5-5-5), 24 and 32 bits (B, G, R and an unused byte) or
-    with a 1-, 4- or 8-bit palette; BI_BITFIELDS at 16 bits (5-6-5 and
-    5-5-5), 24 and 32 bits with the masks Pillow reads; and RLE8 and RLE4
-    (the run decoding in C++, `ecgmm_bmp_rle`, with Pillow's quirks). Rows
-    bottom-up or, with a negative height, top-down, each padded to 4
-    bytes; an index beyond the palette is black. The pixel-count guard
-    runs before anything is read; a palette that runs into the pixel data
-    is refused."""
-    if len(data) < 26:
-        raise _bad("truncated BMP header")
-    offset, hsize = struct.unpack_from("<II", data, 10)
-    if hsize not in _BMP_HEADERS:
-        raise _unsupported(f"BMP with a {hsize}-byte header")
-    if len(data) < 14 + hsize:
-        raise _bad("truncated BMP header")
-    masks = None
-    if hsize == 12:
-        width, height, _, bpp = struct.unpack_from("<HHHH", data, 18)
-        compression, colors, entry = 0, 0, 3
-    else:
-        width, height, _, bpp, compression = struct.unpack_from(
-            "<iiHHI", data, 18)
-        colors = struct.unpack_from("<I", data, 46)[0] if hsize >= 40 \
-            else 0
-        entry = 4
-        if compression == 3:
-            at = 54 if hsize >= 52 else 14 + hsize
-            n = 4 if hsize >= 56 else 3
-            if len(data) < at + 4 * n:
-                raise _bad("truncated BMP header")
-            masks = struct.unpack_from(f"<{n}I", data, at) + (0,) * (4 - n)
-    top_down = height < 0
-    height = abs(height)
-    if compression not in (0, 1, 2, 3):
-        raise _unsupported(f"BMP with compression {compression}")
-    if bpp not in (1, 4, 8, 16, 24, 32):
-        raise _unsupported(f"{bpp}-bit BMP")
-    if compression in _BMP_RLE and bpp != _BMP_RLE[compression]:
-        raise _unsupported(f"{bpp}-bit BMP with compression {compression}")
-    if compression == 3:
-        ok = {32: masks in _BMP_MASKS_32 or masks == (0, 0, 0, 0),
-              24: masks[:3] == (0xFF0000, 0xFF00, 0xFF),
-              16: masks[:3] in _BMP_MASKS_16}.get(bpp, False)
-        if not ok:
-            raise _unsupported("BMP bitfields layout "
-                               f"{tuple(hex(m) for m in masks)}")
-    if width <= 0 or height <= 0:
-        raise _bad("BMP of no pixels")
-    _check_pixels(width, height)
-    if compression in _BMP_RLE:
-        index = _bmp_rle(data, offset, width, height, compression == 2)
-        rows = None
-    else:
-        stride = (width * bpp + 31) // 32 * 4
-        if offset + stride * height > len(data):
-            raise _bad("truncated BMP pixel data")
-        rows = np.frombuffer(data, np.uint8, stride * height,
-                             offset).reshape(height, stride)
-    if not top_down:
-        if rows is not None:
-            rows = rows[::-1]
-        else:
-            index = index[::-1]
-    if bpp == 16:
-        px = rows[:, :2 * width].view("<u2").astype(np.uint32)
-        r, g, b = masks[:3] if masks else _BMP_MASKS_16[1]
-        return np.stack([_mask_channel(px, m) for m in (r, g, b)], axis=2)
-    if bpp >= 24:
-        k = bpp // 8
-        if masks is None or bpp == 24 or masks == (0, 0, 0, 0):
-            return rows[:, :k * width].reshape(height, width, k)[..., 2::-1]
-        px = rows[:, :4 * width].view("<u4")
-        return np.stack([_mask_channel(px, m) for m in masks[:3]], axis=2)
-    n = colors or (1 << bpp)
-    start = 14 + hsize
-    if n > 256 or start + n * entry > offset:
-        raise _bad(f"BMP palette of {n} colours")
-    palette = np.zeros((256, 3), np.uint8)
-    palette[:n] = np.frombuffer(data, np.uint8, n * entry,
-                                start).reshape(n, entry)[:, 2::-1]
-    if rows is None:
-        pass
-    elif bpp == 8:
-        index = rows
-    elif bpp == 4:  # the high nibble is the left pixel
-        index = np.stack([rows >> 4, rows & 15], axis=2).reshape(height, -1)
-    else:  # the high bit is the left pixel
-        index = np.unpackbits(rows, axis=1)
-    return palette[index[:, :width]]
-
-
-def _bmp_rle(data: bytes, offset: int, width: int, height: int,
-             rle4: bool) -> np.ndarray:
-    """The (height, width) indices of RLE8 or RLE4 pixel data, in file
-    row order; skipped pixels are 0. A stream that ends before its last
-    pixel is refused, as Pillow refuses it ("not enough image data")."""
-    out = np.zeros(width * height, np.uint8)
-    written = np.zeros(1, np.int64)
-    body = data[offset:]
-    _check(native.library().ecgmm_bmp_rle(
-        body, len(body), offset, int(rle4), width, out.ctypes.data, out.size,
-        written.ctypes.data))
-    if written[0] < out.size:
-        raise _bad("BMP RLE data ends before the last pixel")
-    return out.reshape(height, width)
-
-
 # ---------------------------------------------------------------- WebP
 
-# Pillow opens a RIFF/WEBP file whose first chunk is one of these
-_WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
 _MAX_CHUNK_PAYLOAD = 0xFFFFFFFF - 8 - 1
 _MAX_IMAGE_AREA = 1 << 32
 # VP8X flags (libwebp's WebPFeatureFlags) and those it knows
@@ -1126,19 +1013,32 @@ def jpeg_tables():
             set())
 
 
-def _decode_jpeg(data: bytes, libtiff=None):
-    """A JPEG file as Pillow decodes it: (RGB, EXIF block, XMP packet).
-    `libtiff` = (colour, check, tables): one strip or tile of a
-    JPEG-in-TIFF as libtiff reads it, whole in memory (no 64 KiB rule),
-    `check(frame)` called on its frame header, `tables` (`jpeg_tables()`)
-    the decompressor's tables, which its markers update and the next
-    strip starts from; its component samples returned as an (H, W, C)
-    array converted from YCbCr (`colour` "ycc") or as coded ("raw")."""
+class InTiff(NamedTuple):
+    """How libtiff hands one strip or tile of a JPEG-in-TIFF to libjpeg,
+    whole in memory (no 64 KiB rule)."""
+    # its component samples as an (H, W, C) array converted from YCbCr
+    # ("ycc") or as coded ("raw"), or (old-style JPEG, "planes") each
+    # component's plane as libjpeg's raw data output gives it,
+    # downsampled, in whole blocks
+    colour: str
+    check: Callable  # called on the frame header
+    # `jpeg_tables()`: the decompressor's tables, which the strip's
+    # markers update and the next strip starts from
+    tables: tuple
+    # old-style JPEG: where a list, the iMCU row at which a sequential
+    # Huffman scan runs dry is appended to it (`_decode_scan`)
+    dry: Optional[list] = None
+
+
+def _decode_jpeg(data: bytes, libtiff: Optional[InTiff] = None):
+    """A JPEG file as Pillow decodes it: (RGB, EXIF block, XMP packet);
+    or, given `libtiff`, one strip or tile of a JPEG-in-TIFF as libtiff
+    reads it, its samples as `libtiff.colour` says."""
     buf = np.frombuffer(data, np.uint8)
     n = len(data)
     pos = 2
     if libtiff is not None:  # libjpeg's tables outlive an image
-        qtables, huff_bits, huff_vals, huff_defined = libtiff[2]
+        qtables, huff_bits, huff_vals, huff_defined = libtiff.tables
     else:
         qtables, huff_bits, huff_vals, huff_defined = jpeg_tables()
     # DAC's conditioning tables, as SOI leaves them: L, U (DC) and Kx (AC)
@@ -1199,7 +1099,7 @@ def _decode_jpeg(data: bytes, libtiff=None):
             coding, progressive = _SOF_CODING[marker]
             frame = _parse_sof(seg)
             if libtiff is not None:
-                libtiff[1](frame)
+                libtiff.check(frame)
             if coding == "lossless":
                 planes, coef = _allocate_samples(frame)
             else:
@@ -1229,7 +1129,8 @@ def _decode_jpeg(data: bytes, libtiff=None):
             pos = _decode_scan(
                 lib, buf, pos, seg, frame, coding, planes, coef, qtables,
                 comp_q, in_scan, restart, huff_bits, huff_vals, huff_defined,
-                arith, prog, whole=libtiff is not None)
+                arith, prog, whole=libtiff is not None,
+                dry=libtiff.dry if libtiff is not None else None)
             if libtiff is not None and not multi_scan:
                 # libtiff has read every row; jpeg_finish_decompress's
                 # marker reading after them fails harmlessly
@@ -1259,7 +1160,7 @@ def _decode_jpeg(data: bytes, libtiff=None):
     vmax = max(c[2] for c in comps)
     if coding == "lossless":
         if libtiff is not None:
-            if libtiff[0] == "ycc":
+            if libtiff.colour == "ycc":
                 raise _bad("a lossless JPEG in YCbCr (libjpeg converts no "
                            "colour in lossless mode)")
             jfif = adobe = False
@@ -1288,10 +1189,15 @@ def _decode_jpeg(data: bytes, libtiff=None):
             q = comp_q.get(cid, _NO_QUANT)
             _check(lib.ecgmm_jpeg_idct(plane_coef.ctypes.data, q.ctypes.data,
                                        by, bx, plane.ctypes.data))
+            if libtiff is not None and libtiff.colour == "planes":
+                samples.append(plane)  # libjpeg's raw data, whole blocks
+                continue
             full = _upsample(lib, plane[:dh, :dw], hmax // h, vmax // v)
             samples.append(full[:height, :width])
     if libtiff is not None:
-        if libtiff[0] == "ycc":
+        if libtiff.colour == "planes":
+            return samples
+        if libtiff.colour == "ycc":
             return _ycc_to_rgb(lib, *samples)
         return np.stack(samples, axis=2)
     if len(comps) == 1:
@@ -1590,12 +1496,15 @@ def _parse_dqt(seg, qtables):
 
 def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
                  comp_q, in_scan, restart, huff_bits, huff_vals, defined,
-                 arith, prog=None, whole=False) -> int:
+                 arith, prog=None, whole=False, dry=None) -> int:
     """Decode one scan into `coef` (the samples of a lossless image);
     `prog` (a `_Progression`, updated here) marks a progressive image;
     `whole`: the data is all in memory (libtiff), not handed over by
-    Pillow 64 KiB at a time. Returns the offset where the marker reader
-    resumes."""
+    Pillow 64 KiB at a time; `dry` (a list): a sequential Huffman scan
+    that runs past the end of the data, or meets a restart marker out of
+    sequence, appends the iMCU row where that happened and ends there
+    (old-style JPEG-in-TIFF: libtiff's source fails there). Returns the
+    offset where the marker reader resumes."""
     height, width, comps = frame
     if not seg:
         raise _bad("bad scan header")
@@ -1622,10 +1531,13 @@ def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
         raise _bad("an MCU of more than 10 blocks (libjpeg's "
                    "D_MAX_BLOCKS_IN_MCU)")
     params, offsets = [], []
+    named = set()
     for j in range(ns):
         cid, tables = seg[1 + 2 * j], seg[2 + 2 * j]
-        if cid not in index:
+        if cid not in index or cid in named:
+            # get_sos looks the id up among the components not yet named
             raise _bad(f"scan names unknown component {cid}")
+        named.add(cid)
         ci = index[cid]
         _, h, v, tq = comps[ci]
         td, ta = tables >> 4, tables & 15
@@ -1706,11 +1618,17 @@ def _decode_scan(lib, buf, pos, seg, frame, coding, planes, coef, qtables,
         return int(out[0])
     out = np.zeros(2, np.int64)
     imcu_v = comps[index[seg[1]]][2] if ns == 1 else 1
-    _check(lib.ecgmm_jpeg_huffman_scan(
+    scan = lib.ecgmm_jpeg_huffman_scan if dry is None else \
+        lib.ecgmm_jpeg_huffman_scan_strict
+    status = scan(
         buf.ctypes.data, len(buf), pos, ns, params.ctypes.data,
         coef.ctypes.data, offsets.ctypes.data, mcus_x, mcus_y, restart,
         int(prog is not None), ss, se, ah, al, huff_bits.ctypes.data,
-        huff_vals.ctypes.data, imcu_v, out.ctypes.data))
+        huff_vals.ctypes.data, imcu_v, out.ctypes.data)
+    if status == -7 and dry is not None and prog is None:
+        dry.append(int(out[1]))
+        return len(buf)
+    _check(status)
     if prog is not None:
         prog.last_good = int(out[1])
     return int(out[0])
@@ -1776,23 +1694,34 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 
 
 def _decode_png(data: bytes):
+    """PNG as PngImageFile reads it: the chunks before the image data
+    strictly (each whole, its CRC checked), the IDAT chunks until the
+    image is full, then the chunks after it as `load_end` reads them (no
+    CRC checked; a cut chunk header, a chunk type that is no four word
+    characters or IEND ends them; a cut chunk body is refused)."""
     pos = 8
     header = palette = None
-    idat = []
     exif = xmp = raw_exif = None
     text_bytes = 0
-    while True:
-        if pos + 8 > len(data):
+
+    def chunk(at: int, strict: bool):
+        if at + 8 > len(data):
             raise _bad("truncated PNG")
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) < length or len(crc) < 4:
+        length, ctype = struct.unpack(">I4s", data[at:at + 8])
+        body = data[at + 8:at + 8 + length]
+        crc = data[at + 8 + length:at + 12 + length]
+        if len(body) < length or (strict and len(crc) < 4):
             raise _bad("truncated PNG")
-        if ctype != b"IDAT" and zlib.crc32(ctype + body) != struct.unpack(
-                ">I", crc)[0]:
+        if strict and zlib.crc32(ctype + body) != struct.unpack(">I",
+                                                                crc)[0]:
             raise _bad(f"PNG chunk {ctype!r} fails its CRC")
-        pos += 12 + length
+        return ctype, body, at + 12 + length
+
+    while True:
+        if pos + 8 <= len(data) and data[pos + 4:pos + 8] == b"IDAT" and \
+                header is not None:
+            break
+        ctype, body, pos = chunk(pos, strict=True)
         if header is None and ctype != b"IHDR":
             raise _bad("PNG does not start with IHDR")
         if ctype == b"IHDR":
@@ -1800,23 +1729,11 @@ def _decode_png(data: bytes):
         elif ctype == b"PLTE":
             palette = np.frombuffer(body[:len(body) // 3 * 3],
                                     np.uint8).reshape(-1, 3)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"eXIf":
-            exif = b"Exif\x00\x00" + body
-        elif ctype in (b"tEXt", b"zTXt", b"iTXt"):
-            key, text = _png_text(ctype, body)
-            text_bytes += len(text or "")
-            if text_bytes > MAX_TEXT_MEMORY:
-                raise _bad(f"the PNG's text exceeds {MAX_TEXT_MEMORY} bytes")
-            if key == "Raw profile type exif":
-                raw_exif = text
-            elif key == "XML:com.adobe.xmp":
-                xmp = text
         elif ctype == b"IEND":
-            break
-    if exif is None and raw_exif is not None:
-        exif = bytes.fromhex("".join(raw_exif.split("\n")[3:]))
+            raise _bad("PNG without image data")
+        else:
+            text_bytes, exif, xmp, raw_exif = _png_ancillary(
+                ctype, body, text_bytes, exif, xmp, raw_exif)
     width, height, depth, color_type, interlace = header
     ch = _PNG_CHANNELS[color_type]
     passes = [p for p in (_pass_dims(width, height, p) for p in (
@@ -1826,14 +1743,36 @@ def _decode_png(data: bytes):
         return -(-pw * ch * depth // 8)
 
     need = sum(ph * (1 + row_bytes(pw)) for *_, pw, ph in passes)
-    try:
-        # no further than the image needs: what follows is ignored, as
-        # Pillow's decoder ends once the image is full
-        raw = zlib.decompressobj().decompress(b"".join(idat), need)
-    except zlib.error as e:
-        raise _bad(f"corrupt PNG image data ({e})")
-    if len(raw) < need:
-        raise _bad("truncated PNG image data")
+    # load_read: IDAT after IDAT (a cut one gives what it holds), inflated
+    # no further than the image needs; the rest of the chunk the image
+    # ends in is skipped
+    z = zlib.decompressobj()
+    parts, got = [], 0
+    while got < need:
+        if pos + 8 > len(data) or data[pos + 4:pos + 8] != b"IDAT":
+            raise _bad("truncated PNG image data")
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        try:
+            out = z.decompress(body, need - got)
+        except zlib.error as e:
+            raise _bad(f"corrupt PNG image data ({e})")
+        parts.append(out)
+        got += len(out)
+        if len(body) < length and got < need:
+            raise _bad("truncated PNG image data")
+    raw = b"".join(parts)
+    while pos + 8 <= len(data):  # load_end: a cut chunk header ends it
+        ctype = data[pos + 4:pos + 8]
+        if not re.fullmatch(rb"\w{4}", ctype) or ctype == b"IEND":
+            break
+        ctype, body, pos = chunk(pos, strict=False)
+        if ctype != b"IDAT":
+            text_bytes, exif, xmp, raw_exif = _png_ancillary(
+                ctype, body, text_bytes, exif, xmp, raw_exif)
+    if exif is None and raw_exif is not None:
+        exif = bytes.fromhex("".join(raw_exif.split("\n")[3:]))
     pixels = np.empty((height, width, ch),
                       np.uint16 if depth == 16 else np.uint8)
     lib = native.library()
@@ -1849,6 +1788,23 @@ def _decode_png(data: bytes):
         pixels[y0::dy, x0::dx] = _png_samples(out, pw, ch, depth)
         off += ph * (1 + rb)
     return _png_rgb(pixels, color_type, depth, palette), exif, xmp
+
+
+def _png_ancillary(ctype, body, text_bytes, exif, xmp, raw_exif):
+    """The EXIF and XMP an ancillary chunk carries, and the text read so
+    far (bounded by MAX_TEXT_MEMORY)."""
+    if ctype == b"eXIf":
+        exif = b"Exif\x00\x00" + body
+    elif ctype in (b"tEXt", b"zTXt", b"iTXt"):
+        key, text = _png_text(ctype, body)
+        text_bytes += len(text or "")
+        if text_bytes > MAX_TEXT_MEMORY:
+            raise _bad(f"the PNG's text exceeds {MAX_TEXT_MEMORY} bytes")
+        if key == "Raw profile type exif":
+            raw_exif = text
+        elif key == "XML:com.adobe.xmp":
+            xmp = text
+    return text_bytes, exif, xmp, raw_exif
 
 
 def _png_samples(rows: np.ndarray, pw: int, ch: int, depth: int
@@ -1895,6 +1851,10 @@ def _png_text(ctype: bytes, body: bytes):
         if ctype == b"tEXt":
             return key, rest.decode("latin-1")
         if ctype == b"zTXt":
+            if rest[:1] not in (b"", b"\x00"):
+                # chunk_zTXt raises SyntaxError on another method
+                raise _bad(f"unknown compression method {rest[0]} in a "
+                           "PNG zTXt chunk")
             return key, _inflate_text(rest[1:]).decode("latin-1")
         flag, method = rest[0], rest[1]
         _, _, rest = rest[2:].partition(b"\x00")  # language tag

@@ -12,18 +12,23 @@ interpretation, sample format, fill order, bits per sample and extra
 samples. Uncompressed strips and tiles it decodes with its own raw
 decoder (`_raw_tiles`); every other compression goes through libtiff,
 which reads the directory its own way (`_LibtiffDir`) and each strip or
-tile whole (`_libtiff_tiles`): PackBits, LZW (old-style codes too) and
-CCITT RLE, Group 3 and Group 4 in C++ (`native/tiffdec.cpp`), Deflate
-through zlib, horizontal differencing at 8, 16 and 32 bits and the
-floating-point predictor, fill order 2, and JPEG (compression 7) through
-the port's JPEG decoder, each strip or tile a JPEG image of its own
-after the tables of the JPEGTables tag, YCbCr converted to RGB by
-libjpeg's arithmetic. The samples are then unpacked and converted as
-Pillow's unpackers and `.convert("RGB")` treat each mode (`_unpack`,
-`imdecode._mode_to_rgb`).
+tile whole (`_libtiff_tiles`): PackBits, LZW (old-style codes too),
+CCITT RLE (byte- and word-aligned), Group 3, Group 4 and ThunderScan in
+C++ (`native/tiffdec.cpp`), ZSTD in C++ (`native/zstddec.cpp`, libzstd
+1.5's streaming rules), Deflate through zlib, LZMA through the liblzma
+Python's `lzma` module loads (driven as tif_lzma.c drives it),
+horizontal differencing at 8, 16 and 32 bits and the floating-point
+predictor, fill order 2, JPEG (compression 7) through the port's JPEG
+decoder, each strip or tile a JPEG image of its own after the tables of
+the JPEGTables tag, YCbCr converted to RGB by libjpeg's arithmetic, and
+old-style JPEG (compression 6, `serve/ojpeg.py`): one JPEG stream
+rebuilt for the whole image as tif_ojpeg.c rebuilds it. The samples are
+then unpacked and converted as Pillow's unpackers and `.convert("RGB")`
+treat each mode (`_unpack`, `imdecode._mode_to_rgb`).
 
-YCbCr that is not JPEG-coded in one plane Pillow reads through libtiff's
-RGBA reader, and so does the port (`_rgba_image`).
+YCbCr that is not JPEG-coded in one plane (old-style JPEG included)
+Pillow reads through libtiff's RGBA reader, and so does the port
+(`_rgba_image`).
 
 No codec writes past the strip or tile buffer libtiff would fill, and that
 buffer is bounded before it is allocated, as Pillow's TiffDecode.c and
@@ -32,14 +37,16 @@ of 2 GiB are refused, and so, in the RGBA reader, is a block of RGBA rows
 of 2 GiB and a first tile above 100 MB whose bytes are under a thousandth
 of it.
 
-What Pillow refuses is refused with `BadRequest`. The compressions Pillow
-decodes here that the port does not (old-style JPEG, ThunderScan,
-word-aligned RLE, LZMA, ZSTD) and CIELAB are refused as unsupported
-(ROADMAP.md section 3).
+What Pillow refuses is refused with `BadRequest`. CIELAB, JPEG-in-TIFF
+of other than 8 bits, and old-style JPEG in tiles or separate planes are
+refused as unsupported (ROADMAP.md section 3); SGILog and WebP-in-TIFF
+Pillow refuses here too.
 """
 
 from __future__ import annotations
 
+import ctypes
+import lzma  # noqa: F401 (its extension loads the liblzma used here)
 import struct
 import zlib
 from fractions import Fraction
@@ -50,6 +57,7 @@ import numpy as np
 from ecgmm_torch import native
 from ecgmm_torch.serve import imdecode
 from ecgmm_torch.serve.imdecode import _bad, _check_pixels, _unsupported
+from ecgmm_torch.serve.ojpeg import OldJpeg
 from ecgmm_torch.serve.wire import BadRequest
 
 # PIL.TiffImagePlugin.COMPRESSION_INFO: the compressions Pillow names
@@ -60,7 +68,14 @@ _COMPRESSION_NAMES = {
     32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp"}
-_DECODED = {1, 2, 3, 4, 5, 7, 8, 32773, 32946}
+_DECODED = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34925,
+            50000}
+# the codecs libtiff sets its predictor up for
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+_ZSTD_ERRORS = {-50: "corruption detected", -51: "not enough data",
+                -52: "checksum wrong", -53: "window too large",
+                -54: "unknown frame prefix", -55: "unsupported frame "
+                "parameter", -56: "dictionary wrong"}
 _INT_MAX = 2 ** 31 - 1  # C's, which bounds Pillow's strip and tile buffers
 _INFLATE_STEP = 1 << 14  # Deflate input fed at a time (<= 17 MiB out)
 # the value types ImageFileDirectory_v2 loads: type -> (bytes a value, the
@@ -867,6 +882,14 @@ class _Libtiff:
         if self.spp == 0:
             raise _bad("libtiff: SamplesPerPixel 0")
         self.compression = d.per_sample(COMPRESSION, self.spp, 1)
+        if self.compression == 6:
+            # TIFFReadDirectory's old-style JPEG fixes: no photometric, or
+            # RGB, is YCbCr; no SamplesPerPixel is 3 for YCbCr, 1 for grey
+            photo = self._soft(lambda: d.scalar(PHOTOMETRIC, None, 65535),
+                               None)
+            photo = 6 if photo in (None, 2) else photo
+            if SAMPLES not in d and photo in (0, 1, 6):
+                self.spp = 3 if photo == 6 else 1
         self.width = d.scalar(WIDTH)
         self.length = d.scalar(LENGTH)
         tw = d.scalar(TILE_WIDTH)
@@ -901,16 +924,19 @@ class _Libtiff:
         if n == 0:
             raise _bad("libtiff: cannot handle zero number of strips")
         self.n = n
-        self.bits = d.per_sample(BITS, self.spp, 1)
+        self.bits = d.per_sample(BITS, self.spp,
+                                 8 if self.compression == 6 else 1)
         self.sample_format = d.per_sample(SAMPLE_FORMAT, self.spp, 1)
         if not 1 <= self.sample_format <= 6:
             raise _bad(f"libtiff: SampleFormat {self.sample_format}")
         self.photo = self._soft(lambda: d.scalar(PHOTOMETRIC, None, 65535),
                                 None)
+        if self.compression == 6 and self.photo in (None, 2):
+            self.photo = 6
         fill = self._soft(lambda: d.scalar(FILL_ORDER, 1, 65535), 1)
         self.fill = fill if fill in (1, 2) else 1
         self.predictor = 1
-        if self.compression in (5, 8, 32946):
+        if self.compression in _PREDICTED:
             self.predictor = self._soft(
                 lambda: d.scalar(PREDICTOR, 1, 65535), 1)
         self.t4 = 0
@@ -923,6 +949,12 @@ class _Libtiff:
             self.ycbcr_sub = sub
         if self.compression == 7:
             self.jpeg_tables = d.raw_bytes(JPEG_TABLES)
+        self.ojpeg_tags = {}
+        if self.compression == 6:
+            for tag in (513, 514, 515):
+                self.ojpeg_tags[tag] = self._soft(lambda: d.scalar(tag), None)
+            for tag in (519, 520, 521):
+                self.ojpeg_tags[tag] = self._soft(lambda: d.array(tag), None)
         self.luma = d.floats(529, 3)
         self.ref_bw = d.floats(532, 6)
         if self.photo == 3 and self.bits < 8:
@@ -935,12 +967,21 @@ class _Libtiff:
         # StripOffsets and TileOffsets are one field to libtiff
         off_tag = TILE_OFFSETS if TILE_OFFSETS in d else STRIP_OFFSETS
         cnt_tag = TILE_COUNTS if TILE_COUNTS in d else STRIP_COUNTS
-        if off_tag not in d:
+        if off_tag not in d and not (self.compression == 6 and n == 1
+                                     and not self.tiled):
+            # (old-style JPEG of one strip may keep it all in the JPEG
+            # interchange format stream)
             raise _bad("libtiff: a TIFF without its strip offsets")
-        off = d.array(off_tag, n)
+        off = d.array(off_tag, n) if off_tag in d else (0,)
         self.offsets = tuple(off) + (0,) * (n - len(off))
         one_a_plane = n == (self.spp if self.planar == 2 else 1)
-        if cnt_tag not in d:
+        self.counts_read = cnt_tag in d
+        if self.compression == 6:
+            # TIFFReadDirectory leaves old-style JPEG's byte counts as the
+            # file has them (none where the tag is missing)
+            cnt = d.array(cnt_tag, n) if cnt_tag in d else ()
+            self.counts = tuple(cnt) + (0,) * (n - len(cnt))
+        elif cnt_tag not in d:
             if not one_a_plane or self.tiled:
                 raise _bad("libtiff: a TIFF without StripByteCounts")
             self.counts = d.estimate_counts(self.offsets, self.spp,
@@ -960,14 +1001,19 @@ class _Libtiff:
 
     def raw(self, data: bytes, i: int) -> bytes:
         """TIFFFillStrip: the strip's bytes, bit-reversed for fill order 2
-        (but for CCITT, whose decoder reads either order)."""
+        (but for CCITT, whose decoder reads either order); old-style JPEG
+        reads its own bytes (TIFF_NOREADRAW), so nothing for it."""
+        self.index = i
+        if self.compression == 6:
+            return b""
         count, offset = self.counts[i], self.offsets[i]
         if count == 0:
             raise _bad(f"libtiff: invalid strip byte count 0, strip {i}")
         if count > len(data) or offset > len(data) - count:
             raise _bad(f"truncated TIFF (libtiff: read error on strip {i})")
         raw = data[offset:offset + count]
-        if self.fill == 2 and self.compression not in (2, 3, 4):
+        self.parity = offset & 1  # where Pillow's mapped file puts it
+        if self.fill == 2 and self.compression not in (2, 3, 4, 32771):
             raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
         return raw
 
@@ -1004,7 +1050,7 @@ def _decode_chunk(lib, lt: _Libtiff, raw: bytes, out: np.ndarray, rows: int,
         if strict:
             raise
         return
-    uses_predictor = lt.compression in (5, 8, 32946) and lt.predictor != 1
+    uses_predictor = lt.compression in _PREDICTED and lt.predictor != 1
     if lt.big_endian and lt.bits in (16, 32) and not (
             uses_predictor and lt.predictor == 3):
         # libtiff's _TIFFSwab16BitData / 32BitData: samples in host order
@@ -1041,16 +1087,97 @@ def _codec(lib, lt: _Libtiff, raw: bytes, out: np.ndarray, rows: int,
             raise _bad(f"bad Deflate strip (libtiff: {error})")
         if got < size:
             raise _bad("truncated Deflate strip (libtiff: not enough data)")
-    elif c in (2, 3, 4):
-        if lt.bits != 1:
-            raise _bad("libtiff: bits/sample must be 1 for Group 3/4")
-        status = lib.ecgmm_tiff_fax(raw, len(raw), c, lt.t4,
-                                    int(lt.fill == 2), width, rows,
-                                    lt.rowbytes, out.ctypes.data,
-                                    lt.no_eol.ctypes.data)
+    elif c == 34925:
+        got, error = _unxz(raw, out)
+        if got < size:
+            raise _bad(f"bad or truncated LZMA strip (libtiff: {error})")
+    elif c == 50000:
+        written = np.zeros(1, np.int64)
+        status = lib.ecgmm_zstd_strip(raw, len(raw), out.ctypes.data, size,
+                                      written.ctypes.data)
+        if status:
+            out[int(written[0]):] = 0  # ZSTDDecode zeroes what is left
+            raise _bad(f"bad or truncated ZSTD strip (libtiff: "
+                       f"{_ZSTD_ERRORS.get(status, status)})")
+    elif c in (2, 3, 4, 32771):
+        if c == 32771:
+            status = lib.ecgmm_tiff_fax_rlew(raw, len(raw), int(lt.fill == 2),
+                                             width, rows, lt.rowbytes,
+                                             out.ctypes.data, lt.parity)
+        else:
+            status = lib.ecgmm_tiff_fax(raw, len(raw), c, lt.t4,
+                                        int(lt.fill == 2), width, rows,
+                                        lt.rowbytes, out.ctypes.data,
+                                        lt.no_eol.ctypes.data)
         if status:
             raise _bad("bad or truncated CCITT strip (libtiff: premature "
                        "EOF)")
+    elif c == 6:
+        lt.ojpeg.strip(lt.index, out, rows)
+    elif c == 32809:
+        status = lib.ecgmm_tiff_thunder(raw, len(raw), lt.width, rows,
+                                        lt.rowbytes, out.ctypes.data)
+        if status:
+            raise _bad("bad or truncated ThunderScan strip (libtiff: not "
+                       "enough or too much data)")
+
+
+class _LzmaStream(ctypes.Structure):
+    """liblzma's lzma_stream (LZMA_STREAM_INIT: all zeros)."""
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t),
+                ("total_in", ctypes.c_uint64), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4),
+                ("reserved_int", ctypes.c_uint64 * 2),
+                ("reserved_size", ctypes.c_size_t * 2),
+                ("reserved_enum", ctypes.c_int * 2)]
+
+
+_LZMA_ERRORS = {5: "cannot allocate memory", 6: "memory limit reached",
+                7: "unknown file format", 8: "unsupported options",
+                9: "corrupt data", 10: "no progress possible"}
+
+
+def _liblzma():
+    """The liblzma Python's `lzma` module is built on (its extension has
+    loaded it): libtiff's tif_lzma.c drives it through lzma_stream_decoder
+    and lzma_code, which that module's API does not expose as libtiff uses
+    them (the output of a call that ends in an error)."""
+    lib = ctypes.CDLL("liblzma.so.5")
+    lib.lzma_stream_decoder.argtypes = [ctypes.POINTER(_LzmaStream),
+                                        ctypes.c_uint64, ctypes.c_uint32]
+    lib.lzma_code.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_int]
+    lib.lzma_end.argtypes = [ctypes.POINTER(_LzmaStream)]
+    return lib
+
+
+def _unxz(raw: bytes, out: np.ndarray) -> Tuple[int, str]:
+    """tif_lzma.c's LZMADecode: liblzma's .xz stream decoder, no memory
+    limit, the integrity check verified where the stream reaches it, run
+    until the strip is full (an error after that is reported and
+    ignored), the stream ends or it fails. (bytes written, why it
+    stopped)."""
+    lib = _liblzma()
+    st = _LzmaStream()
+    status = lib.lzma_stream_decoder(ctypes.byref(st), 2 ** 64 - 1, 0)
+    if status:
+        return 0, _LZMA_ERRORS.get(status, f"error {status}")
+    src = ctypes.create_string_buffer(raw, len(raw))
+    st.next_in, st.avail_in = ctypes.addressof(src), len(raw)
+    st.next_out, st.avail_out = out.ctypes.data, out.size
+    why = "not enough data"
+    try:
+        while st.avail_out > 0:
+            status = lib.lzma_code(ctypes.byref(st), 0)
+            if status == 1:  # LZMA_STREAM_END
+                break
+            if status:
+                why = _LZMA_ERRORS.get(status, f"error {status}")
+                break
+    finally:
+        lib.lzma_end(ctypes.byref(st))
+    return out.size - st.avail_out, why
 
 
 def _inflate(raw: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
@@ -1095,7 +1222,7 @@ def _feed(z, data: bytes, out: np.ndarray, pos: int) -> int:
 def _check_predictor(lt: _Libtiff) -> None:
     """PredictorSetup, for the codecs that use the predictor (LZW,
     Deflate)."""
-    if lt.compression not in (5, 8, 32946) or lt.predictor == 1:
+    if lt.compression not in _PREDICTED or lt.predictor == 1:
         return
     if lt.predictor == 2:
         if lt.bits not in (8, 16, 32):
@@ -1119,6 +1246,15 @@ def _libtiff_tiles(data: bytes, ifd: Directory, lay: Layout) -> np.ndarray:
     unpacked into the image; plane by plane in planar configuration 2."""
     lt = _Libtiff(ifd, lay)
     _check_predictor(lt)
+    # the codecs' setupdecode, which TIFFFillStrip runs before any read
+    if lt.compression in (2, 3, 4, 32771) and lt.bits != 1:
+        raise _bad("libtiff: bits/sample must be 1 for Group 3/4")
+    if lt.compression == 32809 and lt.bits != 4:
+        raise _bad("libtiff: ThunderScan decodes only 4 bits a sample")
+    if lt.compression == 6:
+        lt.ojpeg = OldJpeg(data, lt, lt.ojpeg_tags)
+        if lt.ojpeg.ycc:  # libtiff reports the JPEG's own sampling
+            lt.ycbcr_sub = (lt.ojpeg.hor, lt.ojpeg.ver)
     if lt.photo == 6 and not (lt.compression == 7 and lt.planar == 1):
         return _rgba_image(data, ifd, lay, lt)
     mode, rawmode = lay.mode, lay.rawmode
@@ -1292,6 +1428,18 @@ def _rgba_image(data: bytes, ifd: Directory, lay: Layout,
     per_plane = lt.n // (1 if contig else 3)
     across = -(-width // seg_w)
     img = _blank(lay.mode, height, width)
+    if lt.compression == 6 and lt.ojpeg.dry_line is None:
+        # old-style JPEG that libjpeg reads to the end: every strip's
+        # sampling blocks at once (the conversion is block by block)
+        blocks = np.zeros((1, -(-height // vs) * row_size), np.uint8)
+        lt.ojpeg.strip(0, blocks[0], height, whole=True)
+        rgba = np.full((height, width, 4), 255, np.uint8)
+        rgba[..., :3] = _ycbcr_block(blocks, tables, height, width, width,
+                                     hs, vs, True)
+        _store(img, (0, 0, width, height),
+               _unpack(lay.mode, lay.rawmode, rgba.reshape(height, -1),
+                       width))
+        return img
     for y in range(0, height, seg_h):
         rows = min(seg_h, height - y)
         chunk_rows = seg_h if lt.tiled else min(seg_h, lt.length - y)
@@ -1308,6 +1456,10 @@ def _rgba_image(data: bytes, ifd: Directory, lay: Layout,
                 index = plane * per_plane + (y // seg_h) * across + x // seg_w
                 try:
                     raw = lt.raw(data, index)
+                    if lt.compression == 6 and lt.ojpeg.unreadable(index):
+                        # OJPEGPreDecode cannot skip the rows before it
+                        raise _bad("libtiff: old-style JPEG data ends before "
+                                   "this strip")
                     if buf is None and lt.tiled and alloc > 100_000_000 \
                             and len(raw) < full // 1000:
                         # _TIFFReadEncodedTileAndAllocBuffer's guard
@@ -1339,29 +1491,22 @@ def _rgba_image(data: bytes, ifd: Directory, lay: Layout,
 
 
 def _ycbcr_block(buf, tables, rows, width, seg_w, hs, vs, contig):
-    """TIFFYCbCrtoRGB over the first `rows` x `width` pixels of a chunk:
-    contiguous sampling blocks (ceil(seg_w / hs) a block row) or three
-    planes of seg_w samples a row."""
-    y_tab, cr_r, cb_b, cr_g, cb_g = tables
-    r = np.arange(rows)[:, None]
-    c = np.arange(width)[None, :]
+    """TIFFYCbCrtoRGB over the first `rows` x `width` pixels of a chunk
+    (C++): contiguous sampling blocks (ceil(seg_w / hs) a block row) or
+    three planes of seg_w samples a row, which are 1 x 1 blocks."""
     if contig:
-        per_block = hs * vs + 2
-        blocks = buf[0, :-(-rows // vs) * -(-seg_w // hs) * per_block]
-        block = blocks.reshape(-1, -(-seg_w // hs), per_block)[r // vs,
-                                                               c // hs]
-        luma = np.take_along_axis(
-            block, ((r % vs) * hs + c % hs)[..., None], axis=2)[..., 0]
-        cb, cr = block[..., hs * vs], block[..., hs * vs + 1]
+        across = -(-seg_w // hs)
+        blocks = buf[0, :-(-rows // vs) * across * (hs * vs + 2)]
     else:
-        luma, cb, cr = (buf[p, :rows * seg_w].reshape(rows, seg_w)[:, :width]
-                        for p in range(3))
-    yv = y_tab[luma.astype(np.int64)]
-    cb = cb.astype(np.int64)
-    cr = cr.astype(np.int64)
-    rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> _SHIFT),
-                    yv + cb_b[cb]], axis=2)
-    return np.clip(rgb, 0, 255).astype(np.uint8)
+        blocks = np.stack([buf[p, :rows * seg_w] for p in range(3)], axis=1)
+        across, hs, vs = seg_w, 1, 1
+    blocks = np.ascontiguousarray(blocks)
+    rgb = np.empty((rows, width, 3), np.uint8)
+    lut = [np.ascontiguousarray(t, np.int64) for t in tables]
+    native.library().ecgmm_ycbcr_blocks(
+        blocks.ctypes.data, rows, width, across, hs, vs,
+        *(t.ctypes.data for t in lut), rgb.ctypes.data)
+    return rgb
 
 
 def _plane_unpack(unpacker, block, width):
@@ -1432,8 +1577,8 @@ class _JpegStrips:
         if raw[:2] != b"\xff\xd8":
             raise _bad("libtiff: a JPEG strip that is not a JPEG image")
         samples = imdecode._decode_jpeg(
-            raw + b"\xff\xd9", libtiff=("ycc" if self.ycc else "raw", check,
-                                        self.tables))
+            raw + b"\xff\xd9", imdecode.InTiff("ycc" if self.ycc else "raw",
+                                               check, self.tables))
         height, width = samples.shape[:2]
         n = min(rows, height)
         block = out.reshape(rows, lt.rowbytes)
@@ -1534,8 +1679,11 @@ def decode_tiff(data: bytes):
     loads it; the IFD's orientation tag as Pillow holds it (None where
     there is none), which `load_end` applies, and, where there is none,
     the XMP packet whose `tiff:Orientation` it applies instead."""
-    ifd = Directory(data)
-    lay = _setup(ifd)
+    try:  # TiffImageFile._open: Image.open steps past what fails here
+        ifd = Directory(data)
+        lay = _setup(ifd)
+    except imdecode.STEPPED_PAST as e:
+        raise imdecode.Decline(f"TIFF: {e}") from None
     if lay.xsize <= 0 or lay.ysize <= 0:
         raise _bad("a TIFF of no pixels")
     _check_pixels(lay.xsize, lay.ysize)

@@ -136,7 +136,8 @@ def _assert_same_response(a, b):
 
 
 @pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "ARITHMETIC",
-                                 "TIFF", "PPM"])
+                                 "TIFF", "PPM", "ZSTD", "OJPEG", "TGA",
+                                 "PSD"])
 def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     """Both servers as they ship: each digitizes through its native
     kernels, the port's a copy of JAX's, so the waveforms are equal. A
@@ -144,16 +145,27 @@ def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     bit-equal to the JAX handler's Pillow, and so do an arithmetic-coded
     JPEG (the committed `strip_arith.jpg`, half a cohort strip), a
     JPEG-in-TIFF strip (the committed `strip_ycbcr22.tif`: YCbCr at 2x2,
-    as scanners write it) and a PPM (P6, Pillow's writer)."""
+    as scanners write it), a PPM (P6, Pillow's writer), a ZSTD TIFF strip
+    and an old-style JPEG TIFF strip (`strip_zstd.tif`,
+    `strip_ojpeg.tif`), a TGA (Pillow's run-length writer) and a PSD (the
+    committed `strip.psd`)."""
     jbase, base, _ = servers
     committed = {"ARITHMETIC": ("strip_arith.jpg", "JPEG"),
-                 "TIFF": ("strip_ycbcr22.tif", "TIFF")}
+                 "TIFF": ("strip_ycbcr22.tif", "TIFF"),
+                 "ZSTD": ("strip_zstd.tif", "TIFF"),
+                 "OJPEG": ("strip_ojpeg.tif", "TIFF"),
+                 "PSD": ("strip.psd", "PSD")}
     if fmt in committed:
         name, fmt = committed[fmt]
         with open(os.path.join(os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))), "ecgmm_torch", "serve",
                 "fixtures", name), "rb") as f:
             photo = f.read()
+    elif fmt == "TGA":
+        buf = io.BytesIO()
+        Image.fromarray(cohort.images[0]).save(buf, format="TGA",
+                                               compression="tga_rle")
+        photo = buf.getvalue()
     else:
         photo = _encoded(cohort.images[0], fmt)
     body, ctype = _body(photo, {"age": 71, "weight": 58, "gender": "1"},
