@@ -1210,7 +1210,11 @@ SINGLE_UPLOADS = (
     ("serve_http_ojpeg", os.path.join(FIXTURES, "strip_ojpeg.tif"),
      "YCbCr 2x2 old-style JPEG TIFF"),
     ("serve_http_tga", os.path.join(FIXTURES, "strip.tga"),
-     "run-length TGA"))
+     "run-length TGA"),
+    ("serve_http_jp2", os.path.join(FIXTURES, "strip_layers.jp2"),
+     "JPEG 2000, three reversible layers"),
+    ("serve_http_jp2_97", os.path.join(FIXTURES, "strip_97.jp2"),
+     "JPEG 2000, three irreversible 9/7 layers with the ICT"))
 
 
 def check_decoder(smi):
@@ -1218,7 +1222,10 @@ def check_decoder(smi):
     (JPEG: baseline, arithmetic-coded sequential and progressive, lossless,
     block-smoothed progressive; WebP; TIFF: JPEG, Group 4, LZW, LZMA,
     ZSTD, word-aligned RLE, ThunderScan, old-style JPEG; PPM; TGA; QOI;
-    PSD; DIB; ICO; CUR) decodes to the SHA-256
+    PSD; DIB; ICO; CUR; JPEG 2000: the JP2 strip in reversible and in
+    irreversible (9/7 and ICT) layers, a tiled PCRL
+    codestream, a 9/7 codestream with code-block styles, an LA JP2)
+    decodes to the SHA-256
     that Pillow's decode gave where the fixtures were made, and the one
     Pillow refuses (an arithmetic-coded scan past the 64 KiB Pillow hands
     libjpeg at once) is refused with BadRequest; decode time of the
@@ -1758,8 +1765,8 @@ def run_front_end(smi):
     same strip as WebP, every response checked, with the launch counters
     equal to dispatches times the plan (3 SE forwards, 3 fusion forwards,
     2 fusion backwards); one request each posting the strip as YCbCr 2x2
-    JPEG-in-TIFF, as old-style JPEG TIFF and as TGA, checked, each one
-    dispatch of the plan; /stats and /metrics; a b=16 dispatch against the
+    JPEG-in-TIFF, as old-style JPEG TIFF, as TGA and as a JPEG 2000 JP2
+    (5/3, and 9/7 with the ICT), checked, each one dispatch of the plan; /stats and /metrics; a b=16 dispatch against the
     CPU; requests/s and latency at 1, 4 and 16 clients batched and
     unbatched; device ms per bucket; the drain. Returns the launches of
     the two batched HTTP runs by path."""

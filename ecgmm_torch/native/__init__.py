@@ -97,6 +97,9 @@ _SIGNATURES = {
     "ecgmm_tga_rle": ([_P, _L, _I, _L, _L, _P], _I),
     "ecgmm_qoi": ([_P, _L, _I, _L, _P], _I),
     "ecgmm_zstd_strip": ([_P, _L, _P, _L, _P], _I),
+    "ecgmm_j2k_tile": ([_P, _L, _P, _L, _P, _P, _L, _P, _L], _I),
+    "ecgmm_j2k_mq_decode": ([_P, _L, _L, _I, _P], _I),
+    "ecgmm_j2k_idwt53_line": ([_P, _L, _L, _I], _I),
 }
 
 _lock = threading.Lock()

@@ -69,6 +69,8 @@ which Pillow uses:
   binary, maxval 1 to 65535, rescaled as Pillow's decoders round), Pf,
   and Pillow's own P0CMYK, PyP, PyRGBA and PyCMYK;
 - ICO, CUR, TGA, PSD and QOI (`serve/rasters.py`);
+- JPEG 2000: JP2, JPX and raw codestreams, as Pillow with openjpeg reads
+  them (`serve/jpeg2000.py`, the tile decoder in `j2kdec.cpp`);
 - the orientation tag of the EXIF block (JPEG APP1 `Exif\\0\\0`, PNG
   `eXIf`, WebP `EXIF` or ImageMagick's "Raw profile type exif" text),
   else of the XMP packet, applied as `ImageOps.exif_transpose` applies
@@ -80,14 +82,15 @@ smoothing, the upsampling, the colour conversion, the PNG row filters,
 GIF's LZW, BMP's run lengths and plain PNM's samples (`imdecode.cpp`),
 WebP's bitstreams (`webpdec.cpp`), TIFF's PackBits, LZW, CCITT and
 ThunderScan codecs and its YCbCr conversion (`tiffdec.cpp`), Zstandard
-(`zstddec.cpp`) and the run decoders of PSD, TGA and QOI (`rasters.cpp`)
-are C++, built by g++ at first use; the markers, chunks, headers and
+(`zstddec.cpp`), the run decoders of PSD, TGA and QOI (`rasters.cpp`)
+and JPEG 2000's tiers 1 and 2, wavelets and colour transforms
+(`j2kdec.cpp`) are C++, built by g++ at first use; the markers, chunks, headers and
 directories are parsed here, with libjpeg's marker reader's refusals.
 Anything else (hierarchical or lossless arithmetic-coded JPEG, 12-bit
 samples, a height set by a DNL marker, all of which Pillow refuses too;
 the TIFF layouts `serve/tiff.py` names as unsupported; CIELAB, AVIF,
-JPEG 2000 and the other formats Pillow reads) raises `BadRequest`
-naming what it met.
+HTJ2K code-blocks and the other formats Pillow reads) raises
+`BadRequest` naming what it met.
 
 An upload may claim any size, so the decoder keeps Pillow's guards
 against decompression bombs: a frame of more than `MAX_PIXELS` pixels is
@@ -939,8 +942,9 @@ def _decode_webp(data: bytes, alpha: bool = False):
 
 def decode_upload(data: bytes) -> np.ndarray:
     """An uploaded JPEG (Huffman- or arithmetic-coded: baseline, extended,
-    progressive; or lossless), PNG, GIF, BMP, WebP, TIFF (the first page)
-    or PNM file as an upright (H, W, 3) uint8 RGB array; `BadRequest` for
+    progressive; or lossless), PNG, GIF, BMP, WebP, TIFF (the first page),
+    PNM, JPEG 2000 or another format of `rasters.PLUGINS` as an upright
+    (H, W, 3) uint8 RGB array; `BadRequest` for
     what Pillow would refuse and for the other formats and TIFF
     compressions Pillow reads (ROADMAP.md section 3)."""
     rgb, exif, xmp = _decode(data)

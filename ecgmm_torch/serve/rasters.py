@@ -51,7 +51,7 @@ from typing import Optional
 import numpy as np
 
 from ecgmm_torch import native
-from ecgmm_torch.serve import imdecode
+from ecgmm_torch.serve import imdecode, jpeg2000
 from ecgmm_torch.serve.imdecode import (STEPPED_PAST, Decline, _bad,
                                         _check_pixels, _mode_to_rgb,
                                         _unsupported)
@@ -1003,7 +1003,7 @@ PLUGINS = (
     ("HDF5", _prefix(b"\x89HDF\r\n\x1a\n"), _claimed("HDF5")),
     ("JPEG2000", _prefix(b"\xff\x4f\xff\x51",
                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
-     _claimed("JPEG 2000")),
+     jpeg2000.decode_jpeg2000),
     ("ICNS", _prefix(b"icns"), _claimed("ICNS")),
     ("ICO", _prefix(b"\0\0\1\0"), _decoded(decode_ico)),
     ("IM", _ALWAYS, _claimed("IM", _im_takes)),

@@ -563,7 +563,10 @@ def test_committed_fixtures_decode_to_pillows_hashes():
                            "strip_rlew.tif", "strip_thunder.tif",
                            "strip_ojpeg.tif", "strip.tga", "crop_rgb.tga",
                            "strip.qoi", "strip.psd", "strip_rle8.dib",
-                           "square.ico", "square.cur"}
+                           "square.ico", "square.cur", "strip_layers.jp2",
+                           "strip_97.jp2",
+                           "crop_pcrl_tiled.j2k", "crop_97_styles.j2k",
+                           "crop_la.jp2"}
     for name, want in hashes.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()

@@ -499,7 +499,7 @@ def test_unported_plugins_ahead_of_tga_are_refused_by_name(image):
     names = [n for n, _, _ in rasters.PLUGINS]
     ahead = names[:names.index("TGA")]
     ported = {"BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "ICO",
-              "TIFF", "PSD", "QOI"}
+              "TIFF", "PSD", "QOI", "JPEG2000"}
     files = dict(_CLAIMED)
     files.update(_claimed_by_writers(image))
     for name in ahead:

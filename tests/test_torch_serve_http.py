@@ -137,7 +137,7 @@ def _assert_same_response(a, b):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "ARITHMETIC",
                                  "TIFF", "PPM", "ZSTD", "OJPEG", "TGA",
-                                 "PSD"])
+                                 "PSD", "JP2"])
 def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     """Both servers as they ship: each digitizes through its native
     kernels, the port's a copy of JAX's, so the waveforms are equal. A
@@ -147,14 +147,16 @@ def test_same_upload_same_response_as_jax(servers, cohort, fmt):
     JPEG-in-TIFF strip (the committed `strip_ycbcr22.tif`: YCbCr at 2x2,
     as scanners write it), a PPM (P6, Pillow's writer), a ZSTD TIFF strip
     and an old-style JPEG TIFF strip (`strip_zstd.tif`,
-    `strip_ojpeg.tif`), a TGA (Pillow's run-length writer) and a PSD (the
-    committed `strip.psd`)."""
+    `strip_ojpeg.tif`), a TGA (Pillow's run-length writer), a PSD (the
+    committed `strip.psd`) and a JPEG 2000 strip (the committed
+    `strip_layers.jp2`: three reversible layers)."""
     jbase, base, _ = servers
     committed = {"ARITHMETIC": ("strip_arith.jpg", "JPEG"),
                  "TIFF": ("strip_ycbcr22.tif", "TIFF"),
                  "ZSTD": ("strip_zstd.tif", "TIFF"),
                  "OJPEG": ("strip_ojpeg.tif", "TIFF"),
-                 "PSD": ("strip.psd", "PSD")}
+                 "PSD": ("strip.psd", "PSD"),
+                 "JP2": ("strip_layers.jp2", "JPEG2000")}
     if fmt in committed:
         name, fmt = committed[fmt]
         with open(os.path.join(os.path.dirname(os.path.dirname(
