@@ -1,0 +1,8 @@
+"""Device operations per train step in the fusion cell
+(`harness/layer.device_ops`)."""
+
+from benchmark.harness import layer
+
+UNIT = "ops/step"
+MOVES = "train_samples_per_s.fusion"
+read = layer.device_ops

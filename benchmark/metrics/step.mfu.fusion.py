@@ -1,0 +1,8 @@
+"""The fusion cell's train step's share of the chip's peak
+(`harness/layer.mfu`)."""
+
+from benchmark.harness import layer
+
+UNIT = "%"
+MOVES = "train_samples_per_s.fusion"
+read = layer.mfu
