@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ecgmm_torch.parallel import collectives
+from ecgmm_torch.train import profiler
 
 # flax's truncated-normal initialisers divide the standard deviation by
 # the std of a unit normal truncated to [-2, 2]
@@ -195,7 +196,10 @@ class MultiHeadSelfAttention(nn.Module):
     `in_proj_bias`, `out_proj`): the query is divided by sqrt(head_dim)
     before the product, and the softmax's weights take flax's broadcast
     dropout. The products are `torch.matmul`: the JAX package computes
-    them outside any Pallas kernel."""
+    them outside any Pallas kernel. Under a profiler the forward is the
+    span `ecgmm.attention.forward`, and its backward, from the output's
+    gradient to the input's, `ecgmm.attention.backward`
+    (`train/profiler`)."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float):
         super().__init__()
@@ -206,6 +210,13 @@ class MultiHeadSelfAttention(nn.Module):
         self.dropout = BroadcastDropout(dropout)
 
     def forward(self, x):  # (B, T, D)
+        with profiler.span("ecgmm.attention.forward") as traced:
+            y = self._attend(x)
+        if traced is not None:
+            traced.backward("ecgmm.attention.backward", y, x)
+        return y
+
+    def _attend(self, x):
         b, t, d = x.shape
         hd = d // self.nhead
         q, k, v = (F.linear(x, w, bias).view(b, t, self.nhead, hd)

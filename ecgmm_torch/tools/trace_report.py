@@ -22,6 +22,18 @@ warm-up step first, inside a `torch.profiler.record_function(name)`
 that synchronises the device before it closes, and pass `--after name`:
 the report then counts only the events that start after that
 annotation ends, and `--steps` counts the steps after it.
+
+`--spans` reports the program's spans instead (`train/profiler.span`:
+the train step, its phases, attention): from the `spans.json` that
+`profiler.trace` writes beside the trace, each span name's count and its
+host, self and device ms a step; and from the trace, the first device's
+idle gaps between its first and last event, each named by the innermost
+`ecgmm.*` annotation over its middle (the span the host was in while
+the device waited), summed by name, and the longest of them. The names
+set device stamps against host stamps: on an H100 the trace's two clocks
+drift apart by milliseconds within a few seconds, so a gap near a span's
+edge can be given to its neighbour. Read the naming as a guide to where
+to look, not as a measurement.
 """
 
 from __future__ import annotations
@@ -164,6 +176,88 @@ def print_report(trace_dir: str, steps: int = 1, top: int = 15,
               f"{name[:70]}")
 
 
+SPAN_PREFIX = "ecgmm."
+OUTSIDE = "outside every span"
+
+
+def load_spans(trace_dir: str) -> List[dict]:
+    """The spans (`profiler.span_table` rows) of the `spans.json` beside
+    the newest trace under trace_dir."""
+    path = os.path.join(os.path.dirname(_newest(trace_dir)), "spans.json")
+    with open(path) as f:
+        return json.load(f)["spans"]
+
+
+def span_rollup(spans: List[dict]) -> Dict[str, dict]:
+    """{span name: count, host_ms, self_ms, device_ms}, summed; device_ms
+    None where a span of the name has none."""
+    out: Dict[str, dict] = {}
+    for r in spans:
+        row = out.setdefault(r["name"], {"count": 0, "host_ms": 0.0,
+                                         "self_ms": 0.0, "device_ms": 0.0})
+        row["count"] += 1
+        row["host_ms"] += r["host_ms"]
+        row["self_ms"] += r["self_ms"]
+        if row["device_ms"] is not None and r["device_ms"] is not None:
+            row["device_ms"] += r["device_ms"]
+        else:
+            row["device_ms"] = None
+    return out
+
+
+def idle_gaps(events: List[dict], after: Optional[str] = None
+              ) -> List[Tuple[float, float, str]]:
+    """(start, end, name) us of the idle gaps of the trace's first device
+    between its first and last device event (after the annotation
+    `after`, where it is given), each named by the innermost `ecgmm.*`
+    annotation over the gap's middle, or OUTSIDE."""
+    cut = -float("inf") if after is None else annotation_end(events, after)
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in DEVICE_CATS and e["ts"] >= cut]
+    if not device:
+        return []
+    first = (device[0].get("args") or {}).get("device", device[0].get("pid"))
+    busy = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                  for e in device if (e.get("args") or {}).get(
+                      "device", e.get("pid")) == first)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+              e["name"]) for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith(SPAN_PREFIX)]
+    out, t = [], busy[0][1]
+    for s, e in busy:
+        if s > t:
+            mid = 0.5 * (s + t)
+            over = [(he - hs, name) for hs, he, name in spans
+                    if hs <= mid <= he]
+            out.append((t, s, min(over)[1] if over else OUTSIDE))
+        t = max(t, e)
+    return out
+
+
+def print_spans(trace_dir: str, steps: int = 1, top: int = 10,
+                after: Optional[str] = None) -> None:
+    """The span report (the module's docstring), a step of `steps`."""
+    rows = span_rollup(load_spans(trace_dir))
+    print(f"spans: ms/step over {steps} steps (host, self, device)")
+    for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["host_ms"]):
+        dev = "-" if r["device_ms"] is None \
+            else f"{r['device_ms'] / steps:8.3f}"
+        print(f"  {r['host_ms'] / steps:8.3f} {r['self_ms'] / steps:8.3f} "
+              f"{dev:>8}  {r['count'] / steps:5.1f}x  {name}")
+    gaps = idle_gaps(load_trace(trace_dir), after)
+    by: Dict[str, float] = collections.defaultdict(float)
+    for s, e, name in gaps:
+        by[name] += e - s
+    print(f"\ndevice idle by span: {sum(by.values()) / steps / 1e3:.3f} "
+          f"ms/step in {len(gaps)} gaps")
+    for name, us in sorted(by.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / steps / 1e3:8.3f} ms/step  {name}")
+    print(f"\nlongest {top} idle gaps:")
+    for s, e, name in sorted(gaps, key=lambda g: g[0] - g[1])[:top]:
+        print(f"  {(e - s) / 1e3:8.3f} ms  {name}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Per-op and per-category "
                                 "time of a torch.profiler trace.")
@@ -178,7 +272,14 @@ def main(argv=None):
                    help="count only the events that start after the "
                    "record_function annotation NAME ends (a warm-up step "
                    "traced first)")
+    p.add_argument("--spans", action="store_true",
+                   help="report the program's spans (spans.json) and the "
+                   "device's idle gaps by span instead")
     args = p.parse_args(argv)
+    if args.spans:
+        print_spans(args.trace_dir, steps=args.steps, top=args.top,
+                    after=args.after)
+        return
     print_report(args.trace_dir, steps=args.steps, top=args.top,
                  host_ops=args.host_ops, after=args.after)
 

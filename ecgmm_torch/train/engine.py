@@ -71,6 +71,7 @@ from ecgmm_torch.data.pipeline import (Arrays, Batch, HostArrays,
                                        prefetch_chunks)
 from ecgmm_torch.parallel import collectives, tp
 from ecgmm_torch.parallel.mesh import Mesh
+from ecgmm_torch.train import profiler
 from ecgmm_torch.train.checkpoint import CheckpointManager
 from ecgmm_torch.train.logging import MetricWriter
 from ecgmm_torch.train.state import TrainState
@@ -127,9 +128,11 @@ def gather_batch(arrays: Arrays, idx: torch.Tensor,
     def take(a):
         return None if a is None else a.index_select(0, idx)
 
-    return Batch(images=take(arrays.images), signals=take(arrays.signals),
-                 clinical=take(arrays.clinical), labels=take(arrays.labels),
-                 mask=mask)
+    with profiler.span("ecgmm.gather"):
+        return Batch(images=take(arrays.images),
+                     signals=take(arrays.signals),
+                     clinical=take(arrays.clinical),
+                     labels=take(arrays.labels), mask=mask)
 
 
 def _plan_on_device(idx: np.ndarray, mask: np.ndarray, device):
@@ -240,32 +243,45 @@ def train_step(task: Task, state: TrainState, batch: Batch,
     FloatingPointError on a NaN or an Inf, as JAX's `jax_debug_nans`
     stops a step. With `mesh`, `batch` holds this rank's rows of the
     global batch, and the loss, the metrics and the reduced gradients are
-    the global batch's (the module's docstring)."""
+    the global batch's (the module's docstring). Under a profiler the
+    step is the span `ecgmm.train_step` over the spans
+    `ecgmm.step.{forward,loss,backward,optimizer}` (`train/profiler`)."""
+    with profiler.span("ecgmm.train_step"):
+        return _train_step(task, state, batch, debug_nans, mesh)
+
+
+def _train_step(task: Task, state: TrainState, batch: Batch,
+                debug_nans: bool, mesh: Optional[Mesh]
+                ) -> Dict[str, torch.Tensor]:
     model = state.model
     model.train()
     shard = row_shard(mesh)
-    with collectives.data_parallel(shard), tp.gathered(model):
+    with profiler.span("ecgmm.step.forward"), \
+            collectives.data_parallel(shard), tp.gathered(model):
         outputs = gather_outputs(task.apply(model, batch), shard)
     batch = _global_batch(batch, shard)
-    loss, mets = task.loss(outputs, batch)
+    with profiler.span("ecgmm.step.loss"):
+        loss, mets = task.loss(outputs, batch)
     if debug_nans:
         _check_finite("loss", [("loss", loss)])
-    state.optimizer.zero_grad()
-    if debug_nans:
-        try:
+    with profiler.span("ecgmm.step.backward"):
+        state.optimizer.zero_grad()
+        if debug_nans:
+            try:
+                loss.backward()
+            except RuntimeError as e:
+                if "nan values" not in str(e):
+                    raise
+                # anomaly detection met a NaN in a backward
+                raise FloatingPointError(f"debug_nans: {e}") from e
+        else:
             loss.backward()
-        except RuntimeError as e:
-            if "nan values" not in str(e):
-                raise
-            # anomaly detection met a NaN in a backward
-            raise FloatingPointError(f"debug_nans: {e}") from e
-    else:
-        loss.backward()
-    reduce_gradients(model, mesh)
+        reduce_gradients(model, mesh)
     if debug_nans:
         _check_finite("gradient", [(n, p.grad) for n, p
                                    in model.named_parameters()])
-    state.optimizer.step(state.step)
+    with profiler.span("ecgmm.step.optimizer"):
+        state.optimizer.step(state.step)
     state.step += 1
     with torch.no_grad():
         preds = task.logits(outputs).argmax(-1)
