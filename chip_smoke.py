@@ -21,7 +21,14 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      32b rows and its backward at 8b (IG) and 32b (SHAP) rows, up to 512;
      and the XAI path's shapes: the SE forward in f32 at B=32, the fusion
      forward alone at 205,000 rows (LIME) and forward and input backward
-     at 13,120 rows (gradient SHAP);
+     at 13,120 rows (gradient SHAP); and the self-attention kernels
+     (`ops/attention`, no TPU counterpart) at the `physionet_transformer`
+     step's (B, T, D) = (8, 3000, 128), 4 heads, dropout 0.1, against the
+     unfused path with the same draws: the forward, and the forward
+     without autograd in train and eval mode, equal to the bit, the
+     softmax pass equal to torch.softmax to the bit, every gradient
+     within 2e-5 in relative norm, one forward and one backward launch,
+     and device times against the FFMA bounds;
   4. the slice: `ServingPipeline.demo(device="cuda")` (full-width
      canonical model, 224x224 images, 2476-sample signals, seeded random
      weights) answers 8 requests with the full ResultScreen contract, the
@@ -81,7 +88,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      `physionet_transformer` (B=8, T=3000), `physionet_crnn` (B=16) and
      `signal_12lead` (B=8), whose first step with TF32 on is read too (the
      Transformer's must fall outside the float32 bar), and the CRNN's
-     LSTM alone with cuDNN's TF32 off and on; `run()` trains `ptbxl_af`
+     LSTM alone with cuDNN's TF32 off and on; 3 `physionet_transformer`
+     train steps as `run()` takes them (dropout live), the attention
+     counters zeroed before them reading 2 forwards and 2 backwards a
+     step and no fallback; `run()` trains `ptbxl_af`
      (2 epochs, 256 synthetic records), `physionet_multi` (1 epoch, 96
      records), `fusion` (bf16, 2 epochs, 256 records; its train loss must
      fall),
@@ -172,7 +182,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      `physionet_transformer` at B=8 and `physionet_crnn` at B=16,
      samples/s, peak device memory, epoch time, the device's busy share
      and the top host ops (torch.profiler), and one `kernels` JSON line
-     whose `launches_by_path` names every path driven.
+     whose `launches_by_path` names every path driven (the attention
+     kernels' entry: phase 3's times and phase 6's train-step launches).
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -226,7 +237,7 @@ from ecgmm_torch.models import (  # noqa: E402
     CRNN, ECGMultimodalModel, ResNet18, ResNet1DSE, TabNetEncoder)
 from ecgmm_torch.models.crnn import GemmConv2d  # noqa: E402
 from ecgmm_torch.models.layers import Dropout, flax_init_  # noqa: E402
-from ecgmm_torch.ops import _ext, fusion, se  # noqa: E402
+from ecgmm_torch.ops import _ext, attention, fusion, se  # noqa: E402
 from ecgmm_torch.ops import losses as focal  # noqa: E402
 from ecgmm_torch.precision import no_tf32  # noqa: E402
 from ecgmm_torch.serve import digitize  # noqa: E402
@@ -1043,6 +1054,210 @@ def check_fusion_lime(gen, peaks):
         }
     print(f"fused_attention_fusion {row}", flush=True)
     return [row]
+
+
+ATTENTION_SHAPE = (8, 3000, 128, 4)  # B, T, D, heads: the Transformer step
+ATTENTION_P = 0.1  # the preset's dropout
+ATTENTION_BAR = 2e-5  # the transformer-train-b8 cell's grad_gap limit
+
+
+def _norm_rel(a, b) -> float:
+    """|a - b| / |b| in the Frobenius norm."""
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _attend(attn, x, fused):
+    """`attn`'s attention of x through `ops/attention` (`_attend_fused`)
+    or the unfused path (the routing held to it)."""
+    if fused:
+        return attn._attend_fused(x)
+    reason = attention.unfused_reason
+    attention.unfused_reason = lambda *_: "chip_smoke"
+    try:
+        return attn._attend(x)
+    finally:
+        attention.unfused_reason = reason
+
+
+def _attention_pass(attn, x, gy, fused):
+    """Output, the gradients of x and every parameter, and the dropout
+    generator's state after a forward and backward of `attn` (seeded
+    alike every call), fused or unfused (`_attend`)."""
+    attn.dropout.generator = torch.Generator(x.device).manual_seed(11)
+    attn.zero_grad()
+    x = x.clone().requires_grad_(True)
+    y = _attend(attn, x, fused)
+    y.backward(gy)
+    grads = {"x": x.grad, **{n: q.grad for n, q in attn.named_parameters()}}
+    return y.detach(), grads, attn.dropout.generator.get_state()
+
+
+def check_attention():
+    """Phase 3: `ops/attention` (no TPU counterpart: the JAX package
+    leaves flax's attention to XLA) at the `physionet_transformer` step's
+    shape (B=8, T=3000, D=128, 4 heads), dropout 0.1, TF32 off, against
+    the unfused path of `MultiHeadSelfAttention` on the same inputs with
+    the dropout generator seeded alike: the same draws; the forward equal
+    to the bit; every gradient (x, in_proj_*, out_proj) within the cell's
+    grad_gap limit (2e-5) in relative norm; the forward without autograd,
+    in train mode (the same mask) and in eval mode, equal to the bit;
+    `softmax_drop` on the layer's own scores equal to torch.softmax, and
+    to its dropout with the mask, to the bit (it copies the layout of
+    torch's `cunn_SoftMaxForwardReg`, so a torch upgrade shows here); one
+    forward and one backward launch, no fallback; then device times
+    (`tools/kernel_times.attention_times`) against the FFMA bounds."""
+    from ecgmm_torch.models.layers import MultiHeadSelfAttention
+    from ecgmm_torch.tools.kernel_times import attention_times
+
+    b, t, d, heads = ATTENTION_SHAPE
+    p = ATTENTION_P
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    attn = flax_init_(MultiHeadSelfAttention(d, heads, p), gen)
+    with torch.no_grad():  # non-zero biases, so their gradients count
+        attn.in_proj_bias.normal_(generator=gen)
+        attn.out_proj.bias.uniform_(-0.1, 0.1, generator=gen)
+    attn = attn.to(dev).train()
+    x = torch.randn(b, t, d, generator=gen).to(dev)
+    gy = torch.randn(b, t, d, generator=gen).to(dev)
+    failed = []
+    with no_tf32():
+        if attention.unfused_reason(x, attn) is not None:
+            raise AssertionError("attention: the step's shape takes the "
+                                 f"unfused path "
+                                 f"({attention.unfused_reason(x, attn)})")
+        counts = (attention.launches, attention.backward_launches,
+                  attention.fallbacks)
+        got = _attention_pass(attn, x, gy, fused=True)
+        torch.cuda.synchronize()
+        moved = (attention.launches - counts[0],
+                 attention.backward_launches - counts[1],
+                 attention.fallbacks - counts[2])
+        want = _attention_pass(attn, x, gy, fused=False)
+        if moved != (1, 1, 0):
+            failed.append(f"launches, backward launches, fallbacks {moved} "
+                          "!= (1, 1, 0)")
+        if not torch.equal(got[2], want[2]):
+            failed.append("the dropout generators' states differ")
+        if not torch.equal(got[0], want[0]):
+            failed.append("forward not equal to the bit: relative "
+                          f"{_norm_rel(got[0], want[0]):.3g}")
+        gaps = {n: _norm_rel(got[1][n], w) for n, w in want[1].items()}
+        worst = max(gaps.items(), key=lambda kv: kv[1])
+        if worst[1] >= ATTENTION_BAR:
+            failed.append(f"gradient {worst[0]} {worst[1]:.3g} >= "
+                          f"{ATTENTION_BAR}")
+        attn.dropout.generator = torch.Generator(dev).manual_seed(11)
+        with torch.no_grad():
+            if not torch.equal(attn._attend_fused(x), want[0]):
+                failed.append("the forward without autograd (train mode) "
+                              "not equal to the bit")
+            attn.eval()
+            fused_eval = _attend(attn, x, True)
+            plain_eval = _attend(attn, x, False)
+            if not torch.equal(fused_eval, plain_eval):
+                failed.append("the eval forward not equal to the bit: "
+                              "relative "
+                              f"{_norm_rel(fused_eval, plain_eval):.3g}")
+            attn.train()
+            q, k, _ = (attention._heads(z.contiguous(), heads)
+                       for z in F.linear(x, attn.in_proj_weight,
+                                         attn.in_proj_bias).chunk(3, -1))
+            scores = torch.matmul(q / math.sqrt(q.shape[-1]),
+                                  k.transpose(-1, -2)).contiguous()
+            keep = torch.empty((1, 1, t, t), device=dev).bernoulli_(
+                1 - p, generator=torch.Generator(dev).manual_seed(5))
+            plain = torch.softmax(scores, dim=-1)
+            mismatched = {}
+            for label, bits, c, w in (
+                    ("mask", attention.pack_keep(keep),
+                     attention.drop_scale(p), plain * (keep / (1.0 - p))),
+                    ("no_mask", None, 1.0, plain)):
+                mine = scores.clone()
+                attention._launch_softmax_drop(mine, bits, c)
+                mismatched[label] = int((mine != w).sum())
+                del mine
+            del scores, plain
+            if any(mismatched.values()):
+                failed.append(f"softmax_drop against torch.softmax: "
+                              f"{mismatched} elements differ")
+        torch.cuda.empty_cache()
+        times = attention_times(attention, torch.Generator().manual_seed(0))
+    print(f"attention (B, T, D, heads) {ATTENTION_SHAPE} p={p}: forward "
+          f"equal {torch.equal(got[0], want[0])}, gradient gaps "
+          f"{json.dumps({n: float(f'{g:.3g}') for n, g in gaps.items()})} "
+          f"(bar {ATTENTION_BAR}), softmax_drop mismatches {mismatched}, "
+          f"launches {moved}; torch {torch.__version__}", flush=True)
+    print(f"attention times, us: {json.dumps(times)}", flush=True)
+    if failed:
+        raise AssertionError(f"attention: {failed}")
+    return {"gaps": gaps, "times": times, "launches": moved}
+
+
+def attention_train_steps(n_steps: int = 3, n_synth: int = 48):
+    """Phase 6h: the main path's `physionet_transformer` train steps on
+    the card as `run()` takes them (B=8, T=3000, float32, TF32 off,
+    dropout 0.1 live): the attention counters zeroed just before n_steps
+    steps read 2 forwards and 2 backwards a step and no fallback."""
+    cfg = get_preset("physionet_transformer")
+    t = cfg.train
+    train = train_run.load_data(cfg, "synthetic", n_synth,
+                                device="cuda").train
+    model, task, freeze = train_run.build_model_and_task(cfg, "cuda")
+    state = create_state(model, t, train.n // t.batch_size, freeze=freeze)
+    idx, mask = engine.epoch_indices(train.n, t.batch_size, shuffle=True,
+                                     seed=t.seed, epoch=0)
+    idx_d = torch.from_numpy(idx.astype(np.int64)).cuda()
+    mask_d = torch.from_numpy(mask).cuda()
+    attention.launches = attention.backward_launches = 0
+    attention.fallbacks = 0
+    for i in range(n_steps):
+        engine.train_step(task, state, engine.gather_batch(
+            train, idx_d[i], mask_d[i]))
+    torch.cuda.synchronize()
+    got = {"fused_self_attention": attention.launches,
+           "fused_self_attention_backward": attention.backward_launches,
+           "fallbacks": attention.fallbacks}
+    want = {"fused_self_attention": 2 * n_steps,
+            "fused_self_attention_backward": 2 * n_steps, "fallbacks": 0}
+    print(f"physionet_transformer {n_steps} train steps, attention "
+          f"launches {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"physionet_transformer train steps: attention "
+                             f"launches {got} != {want}")
+    return got
+
+
+def attention_summary(checked, steps):
+    """The attention kernels' entry of the `kernels` line: device ms a
+    call at the step's shape (forward, backward kernels, the softmax
+    pass, packing), the plain version's and the FFMA bounds, the launches
+    of phase 6h's train steps."""
+    tm = checked["times"]
+    return {
+        "name": "fused_self_attention", "route": "cuda",
+        "source": "ecgmm_torch/ops/csrc/attention.cu",
+        "replaces": None,  # flax's attention under XLA, no Pallas kernel
+        "launches": steps["fused_self_attention"],
+        "bwd_launches": steps["fused_self_attention_backward"],
+        "fallbacks": steps["fallbacks"],
+        "max_rel_err": max(checked["gaps"].values()),
+        "ms": tm["exact_fwd_us"] / 1e3,
+        "bwd_ms": tm["bwd_us"] / 1e3,
+        "fwd_bwd_ms": (tm["exact_fwd_us"] + tm["bwd_us"]) / 1e3,
+        "softmax_drop_ms": tm["softmax_drop_us"] / 1e3,
+        "pack_ms": tm["pack_us"] / 1e3,
+        "plain_ms": tm["plain_fwd_us"] / 1e3,
+        "plain_fwd_bwd_ms": tm["plain_fwd_bwd_us"] / 1e3,
+        "bound_ms": tm["bound_fwd_us"] / 1e3,
+        "fwd_bwd_bound_ms": (tm["bound_fwd_us"] + tm["bound_bwd_us"]) / 1e3,
+        "bound_by": "float32 FMAs at 67 TFLOP/s",
+        "library_ms": None,
+        "per": "physionet_transformer train step: 2 calls at "
+               "(8, 4, 3000, 32), p = 0.1; the times are one call's",
+        "launches_by_path": {"train_physionet_transformer_steps":
+                             steps["fused_self_attention"]},
+    }
 
 
 def check_se_fusion(gen, peaks):
@@ -5151,6 +5366,7 @@ def main() -> int:
     se_serving_rows = timed("se_serving", check_se_serving, gen, peaks)
     se_xai_rows = timed("se_xai", check_se_xai, gen, peaks)
     fusion_lime_rows = timed("fusion_lime", check_fusion_lime, gen, peaks)
+    attention_checked = timed("attention", check_attention)
     print(f"phase 3 parts, s: {json.dumps(sub)}", flush=True)
     phase_done("3 kernels")
 
@@ -5185,6 +5401,7 @@ def main() -> int:
         compare_clinical_steps()
         compare_cached()
         compare_signal_steps("physionet_transformer", 24)
+        attention_steps = attention_train_steps()
         compare_signal_steps("physionet_crnn", 48, count_turned=False)
         compare_signal_steps("signal_12lead", 24, count_turned=False)
         lstm_tf32_check()
@@ -5315,6 +5532,7 @@ def main() -> int:
                             "ptbxl_af train step: 1 call at (16, 2)"),
                   fold=fold_paths("fused_focal_loss")),
     ]
+    kernels.append(attention_summary(attention_checked, attention_steps))
     kernels[1]["layout_sweep"] = fusion_sweep
     kernels[2]["cluster_sweep"] = focal_sweep
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ecgmm_torch.ops import _ext, attention
 from ecgmm_torch.parallel import collectives
 from ecgmm_torch.train import profiler
 
@@ -195,11 +196,18 @@ class MultiHeadSelfAttention(nn.Module):
     (`in_proj_weight` (3D, D) holding the q, k, v projections,
     `in_proj_bias`, `out_proj`): the query is divided by sqrt(head_dim)
     before the product, and the softmax's weights take flax's broadcast
-    dropout. The products are `torch.matmul`: the JAX package computes
-    them outside any Pallas kernel. Under a profiler the forward is the
-    span `ecgmm.attention.forward`, and its backward, from the output's
-    gradient to the input's, `ecgmm.attention.backward`
-    (`train/profiler`)."""
+    dropout. On a CUDA device in float32 with head size 32 and a length
+    the softmax kernel takes, the attention between the projections goes
+    through `ops/attention`: the same forward to the bit, its softmax,
+    dropout and rows' log-sum-exp in one kernel, and a fused backward that
+    writes no (B, H, T, T) tensor; elsewhere (the CPU, a functorch
+    transform, a mask handed in, another dtype, head size or length, a
+    traced program: `attention.unfused_reason`) the products are
+    `torch.matmul`, as the JAX package computes them outside any Pallas
+    kernel, and a call on a CUDA device counts in `attention.fallbacks`.
+    Under a profiler the forward is the span `ecgmm.attention.forward`,
+    and its backward, from the output's gradient to the input's,
+    `ecgmm.attention.backward` (`train/profiler`)."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float):
         super().__init__()
@@ -217,6 +225,10 @@ class MultiHeadSelfAttention(nn.Module):
         return y
 
     def _attend(self, x):
+        if attention.unfused_reason(x, self) is None:
+            return self._attend_fused(x)
+        if x.is_cuda:
+            _ext.count(attention.__name__, "fallbacks")
         b, t, d = x.shape
         hd = d // self.nhead
         q, k, v = (F.linear(x, w, bias).view(b, t, self.nhead, hd)
@@ -227,6 +239,21 @@ class MultiHeadSelfAttention(nn.Module):
         attn = self.dropout(torch.softmax(scores, dim=-1))
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, d)
         return self.out_proj(out)
+
+    def _attend_fused(self, x):
+        """`_attend` through `ops/attention`: the same projections, the
+        keep mask drawn as `self.dropout` draws it, the attention, the
+        output projection."""
+        t = x.shape[1]
+        q, k, v = (F.linear(x, w, bias) for w, bias in
+                   zip(self.in_proj_weight.chunk(3),
+                       self.in_proj_bias.chunk(3)))
+        drop, keep = self.dropout, None
+        if drop.training and drop.p != 0.0:
+            keep = drop.draw_keep((1, 1, t, t), x.dtype, x.device,
+                                  drop.generator)
+        return self.out_proj(attention.fused_self_attention(
+            q, k, v, self.nhead, keep, drop.p))
 
 
 def set_dropout_generator(model: nn.Module,

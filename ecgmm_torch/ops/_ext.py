@@ -59,6 +59,11 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
     "ecgmm_focal_loss_backward_i64":
         [_P] * 7 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+    "ecgmm_attention_pack_keep": [_P, _P, _I, _P],
+    "ecgmm_attention_softmax_drop":
+        [_P] * 3 + [_I] * 2 + [ctypes.c_float, _P],
+    "ecgmm_attention_backward":
+        [_P] * 11 + [_I] * 4 + [ctypes.c_float] * 2 + [_P],
     # the fold axis (F folds of B rows, one launch): the same kernels
     "ecgmm_se_fold_forward_f32": [_P] * 8 + [_I] * 7 + [_P],
     "ecgmm_se_fold_forward_bf16": [_P] * 8 + [_I] * 7 + [_P],

@@ -18,6 +18,17 @@ both (`fwd_bwd_us`). Per fusion shape: the forward without autograd
 six inputs as a fusion head in training needs them, the backward alone
 and both. `device_us` and `host_us` are chip_smoke.py's timers.
 
+`attention` (where the tree has `ops/attention`): the self-attention
+kernels at the `physionet_transformer` step's shape (B, H, T, head) =
+(8, 4, 3000, 32), p = 0.1: the forward, cuBLAS's two products around
+the softmax, dropout and log-sum-exp kernel (`exact_fwd_us`; that kernel
+alone `softmax_drop_us`),
+the backward's two kernels alone (`bwd_us`), the mask's packing (`pack_us`),
+the plain version forward and forward plus autograd's backward
+(`plain_fwd_us`, `plain_fwd_bwd_us`), and the FFMA bounds at 67
+TFLOP/s: two (T, T) x (T, 32) products forward, four backward
+(`bound_fwd_us`, `bound_bwd_us`).
+
 `entry` (with `--entry-only`, alone): the host's µs per call of the eager
 entry points as the main paths call them, `fused_se` forward at the
 serving shape (1, 64, 619) and forward plus backward at the training one
@@ -173,6 +184,45 @@ def fusion_times(fusion, gen):
     return fwd, bwd
 
 
+ATTENTION_SHAPE = (8, 4, 3000, 32)
+F32_PEAK = 67e12  # FLOP/s of an H100 SXM's CUDA cores in float32
+
+
+def attention_times(attention, gen):
+    b, h, t, hd = ATTENTION_SHAPE
+    p = 0.1
+    q, k, v = (torch.randn(b, t, h * hd, generator=gen).cuda()
+               for _ in range(3))
+    keep = torch.empty((1, 1, t, t)).bernoulli_(1 - p, generator=gen).cuda()
+    dout = torch.randn(b, t, h * hd, generator=gen).cuda()
+    bits = attention.pack_keep(keep)
+    c = attention.drop_scale(p)
+    out, lse = attention.exact_forward(q, k, v, h, bits, c)
+    scores = torch.randn(b, h, t, t, generator=gen).cuda()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def plain_fwd_bwd():
+        y = attention.reference_self_attention(*leaves, h, keep, p)
+        return torch.autograd.grad(y, leaves, dout)
+
+    product = 2.0 * b * h * t * t * hd  # FLOPs of one (T, T) x (T, hd)
+    return {
+        "shape": ATTENTION_SHAPE, "p": p,
+        "exact_fwd_us": device_us(lambda: attention.exact_forward(
+            q, k, v, h, bits, c), n=5),
+        "softmax_drop_us": device_us(lambda: attention._launch_softmax_drop(
+            scores, bits, c), n=5),
+        "bwd_us": device_us(lambda: attention._launch_backward(
+            q, k, v, h, bits, c, out, lse, dout), n=5),
+        "pack_us": device_us(lambda: attention.pack_keep(keep), n=5),
+        "plain_fwd_us": device_us(lambda: attention.reference_self_attention(
+            q, k, v, h, keep, p), n=5),
+        "plain_fwd_bwd_us": device_us(plain_fwd_bwd, n=5),
+        "bound_fwd_us": 2 * product / F32_PEAK * 1e6,
+        "bound_bwd_us": 4 * product / F32_PEAK * 1e6,
+    }
+
+
 def entry_times(se, fusion, gen):
     """Host µs per call of the eager entry points (see the docstring)."""
     def se_inputs(b):
@@ -241,6 +291,11 @@ def main(argv=None) -> int:
         result["focal"] = focal_times(losses, gen)
         result["fusion_fwd"], result["fusion_bwd"] = fusion_times(fusion,
                                                                   gen)
+        if os.path.exists(os.path.join(root, "ecgmm_torch", "ops",
+                                       "attention.py")):
+            from ecgmm_torch.ops import attention
+
+            result["attention"] = attention_times(attention, gen)
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
